@@ -1,0 +1,106 @@
+"""Build and load the port's hand-written CUDA kernels (``csrc/``).
+
+The ``.cu`` sources have a plain C interface. At first use they are compiled
+with ``nvcc`` for ``sm_90a`` into one shared library under
+``build/torch_kernels/`` at the repository root, and loaded with ``ctypes``.
+The library's name carries a hash of the sources and flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is. Nothing here runs
+at import time: the CPU-only test host imports this module without a GPU or a
+compiler.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+__all__ = ["BUILD_DIR", "CSRC", "build", "check", "library"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # (clouds, out, B, n, d, k, min_dist, const, stream)
+    "runia_marginal_entropy": (_P, _P, _I, _I, _I, _I, _F, _F, _P),
+    # (weights, fmap, out, B, S, HW, C, k, min_dist, const, stream)
+    "runia_fused_mc_entropy": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for candidate in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if candidate and os.access(candidate, os.X_OK):
+            return candidate
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the CUDA "
+        "toolkit is needed to build runia_core_tpu_torch's kernels"
+    )
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into the shared library (if not yet built) and
+    return its path. The compiler's output, ptxas register and shared-memory
+    counts included, is kept beside it as ``<name>.log``."""
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources + sorted(CSRC.glob("*.cuh")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    lib_path = BUILD_DIR / f"librunia_kernels_{digest.hexdigest()[:16]}.so"
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+        capture_output=True, text=True,
+    )
+    lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{proc.stderr[-4000:]}")
+    os.replace(tmp, lib_path)  # atomic: a concurrent builder never loads half a file
+    return lib_path
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use. Raises when there is no
+    CUDA device or it is not a Hopper (sm_90) card; never returns a stand-in."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: runia_core_tpu_torch's kernels need an NVIDIA "
+            "Hopper GPU; CPU tensors take the plain PyTorch versions instead"
+        )
+    capability = torch.cuda.get_device_capability()
+    if capability != (9, 0):
+        raise RuntimeError(
+            f"the kernels are compiled for sm_90a; this device is sm_{capability[0]}{capability[1]}"
+        )
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.runia_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.runia_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, kernel: str) -> None:
+    """Raise if a C entry point returned a CUDA error (a refused launch)."""
+    if code != 0:
+        message = library().runia_cuda_error_string(code).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: {message} (cudaError {code})")

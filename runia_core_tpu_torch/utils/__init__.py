@@ -1,0 +1,5 @@
+"""Utilities of the PyTorch port."""
+
+from runia_core_tpu_torch.utils.timing import cuda_time_ms
+
+__all__ = ["cuda_time_ms"]
