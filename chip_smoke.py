@@ -1,20 +1,32 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's LaREx scoring path once on one NVIDIA GPU.
+"""Drive the PyTorch port's two paths once on one NVIDIA GPU: LaREx image
+scoring and the Llama LLM-uncertainty slice.
 
 Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``runia_core_tpu_torch/csrc`` (into
-``build/torch_kernels/``), holds each kernel against its plain PyTorch
-version on the card, then fits and scores the full-width ``bench.py``
-headline configuration through ``runia_core_tpu_torch`` alone: ResNet-18
-with the CIFAR stem (64 filters, 10 classes, random weights from a seed),
-32x32x3 images in batches of 512, a bf16 forward, 16 MC-DropBlock samples
-(p=0.5, block 3, k=5) of the (512, 4, 4, 512) ``pre_pool`` tap, PCA-256
-fitted on 512 images, LaREM. Both routes of the scorer run: ``fused=False``
-(kernel 1, marginal entropy) and ``fused=True`` (kernel 2, fused channel
-means + entropy).
+``build/torch_kernels/``, one nvcc per source, in parallel) and holds each
+kernel against its plain PyTorch version on the card. Then, through
+``runia_core_tpu_torch`` alone:
+
+* LaREx: fits and scores the full-width ``bench.py`` headline configuration:
+  ResNet-18 with the CIFAR stem (64 filters, 10 classes, random weights from
+  a seed), 32x32x3 images in batches of 512, a bf16 forward, 16 MC-DropBlock
+  samples (p=0.5, block 3, k=5) of the (512, 4, 4, 512) ``pre_pool`` tap,
+  PCA-256 fitted on 512 images, LaREM. Both routes of the scorer run:
+  ``fused=False`` (kernel 1, marginal entropy) and ``fused=True`` (kernel 2,
+  fused channel means + entropy).
+* LLM: the repository's production Llama (``bench.py`` ``_PROD_CFG``: 22
+  layers, d_model 2048, 16/8 heads of 128, SwiGLU 5632, vocab 32000; random
+  weights from a seed), bf16 with ``use_flash`` and its int8 + KV8 + fused
+  qkv/gate|up form, through ``TorchGenerator.generate_batch`` (8 x 1024
+  prompts, and 16 x 64 prompts + 256 greedy tokens) and
+  ``compute_uncertainties``; kernel 3 (``quant_matmul``) carries the int8
+  projections, kernel 4 (``flash_prefix_attention``) the prefills, in its
+  bf16 and KV8 variants. A 2-layer full-width f32 copy is held against the
+  CPU route, and tokens/s are timed.
 
 Every phase prints one JSON line. Any failed check raises, so the script
 exits non-zero and never prints its last line, which on success is
@@ -31,6 +43,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
@@ -51,11 +64,43 @@ XCHECK_IMAGES = 8
 SEED = 0
 
 # Kernel 1 selects the same f32 differences as the sorted-window plain
-# version; only the order of the final sum of n logs differs.
+# version; only the order of the final sum of n logs differs (the kernel's
+# is compensated, so the bound does not grow with n).
 ENTROPY_ATOL = 1e-5
 # Kernel 2 sums each (S, HW) @ (HW, C) product in another order than bmm:
 # the bound of tests/test_mc_entropy_fused.py for the TPU kernel.
 FUSED_RTOL, FUSED_ATOL = 1e-4, 1e-5
+# The production Llama (bench.py:245-246 _PROD_CFG).
+LLM_CFG = dict(vocab_size=32000, num_layers=22, num_heads=16, num_kv_heads=8, d_model=2048,
+               hidden_dim=5632, max_len=2048)
+PREFILL_BATCH, PREFILL_LEN, PREFILL_NEW = 8, 1024, 16
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 16, 64, 256  # bench.py:316
+UQ_PROMPT, UQ_SAMPLES, UQ_NEW = 256, 5, 32
+XCHECK_LAYERS, XCHECK_PROMPT, XCHECK_STEPS = 2, 256, 8
+DECODE_PAIRS = 2  # timed windows per model, in the order bf16, int8, int8, bf16
+# Kernel 3 against its plain version, relative to max|ref|: the sums run in
+# f32 in other orders, then round once (one bf16 ulp, the JAX bound of
+# tests/test_quant_matmul.py:33-35).
+QMM_BOUND = {torch.bfloat16: 8e-3, torch.float32: 1e-5}
+# Kernel 4 against its plain version: f32 atol = rtol = 2e-5 (the JAX bound,
+# tests/test_flash_prefill.py:43-44). bf16, per element: the kernel rounds
+# each probability p_j (p_j v_scale_j in KV8) to bf16 before P.V, at most
+# 2^-8 relative, which moves an output by a sum of independent roundings of
+# standard deviation 2^-8 / sqrt(3) * s, s = sqrt(sum_j p_j^2 v_j^2) from the
+# f32 probabilities; the two outputs then round to bf16 at most one ulp
+# apart (2^-7 |want|). Bound: 2^-7 |want| + 2^-6 s (about 7 standard
+# deviations, and the worst case for a window of up to 16 keys).
+FLASH_F32_TOL = 2e-5
+FLASH_BF16_RTOL, FLASH_BF16_ATOL_OF_S = 2.0**-7, 2.0**-6
+# LLM card route against CPU route, f32, TF32 off, relative to max|logits|:
+# the same f32 arithmetic summed in other orders over K = 2048..32000
+# (about 1e-6 relative per layer) -> 1e-4; with KV8 an ulp-level difference
+# can flip round(x / scale) to the neighbouring int8 step, moving that cached
+# value by max|x| / 127 (seen at 2e-4 relative on the CPU tests' small
+# model) -> 5e-3.
+LLM_XCHECK_REL = {"f32": 1e-4, "int8_kv8": 5e-3}
+H100_HBM_BYTES_PER_S = 3.35e12
+
 # Card (cuDNN, TF32 off) against CPU, both f32, same weights and keep-weights.
 # The conv sums run in other orders (about 1e-6 relative per layer over 18
 # layers); each entropy is a mean of logs of distances between channel means
@@ -135,6 +180,9 @@ def entropy_phase(device, gen) -> dict:
         "n4_k3": (torch.randn((256, 4, 300), generator=gen, device=device), 3),
         "ragged_d": (torch.randn((64, MC_SAMPLES, 300), generator=gen, device=device), K),
         "b1": (torch.randn((1, MC_SAMPLES, 512), generator=gen, device=device), K),
+        # 100 MC samples: past the n <= 64 the kernel took before its column
+        # moved to dynamic shared memory (then it raised).
+        "n100": (torch.randn((64, 100, 512), generator=gen, device=device), K),
     }
     errors = {}
     for name, (clouds, k) in cases.items():
@@ -312,6 +360,309 @@ def slice_phase(device, gen) -> dict:
     return launches
 
 
+def cold_timed_pair(kernel_fn, plain_fn, operands, iters: int = 50):
+    """timed_pair over copies of the operands that together exceed the 50 MB
+    L2, used in turns, so every call reads its weights from device memory as
+    a decode step does."""
+    import itertools
+
+    turns = itertools.cycle(operands)
+    return timed_pair(lambda: kernel_fn(*next(turns)), lambda: plain_fn(*next(turns)), iters)
+
+
+def quant_matmul_phase(device, gen) -> dict:
+    from runia_core_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
+
+    d, h, g, hd = LLM_CFG["d_model"], LLM_CFG["hidden_dim"], LLM_CFG["num_kv_heads"], LLM_CFG["d_model"] // LLM_CFG["num_heads"]
+    shapes = {  # the int8 model's projections at decode, rows = batch 16
+        "qkv": (16, d, d + 2 * g * hd), "gate_up": (16, d, 2 * h), "o": (16, d, d),
+        "down": (16, h, d), "lm_head": (16, d, LLM_CFG["vocab_size"]),
+        "rows1_qkv": (1, d, d + 2 * g * hd), "rows13_o": (13, d, d), "rows512_o": (512, d, d),
+        "rows1024_o": (1024, d, d), "f32_qkv": (16, d, d + 2 * g * hd),
+    }
+    errors, abs_errors, timings = {}, {}, {}
+    for name, (rows, k, n) in shapes.items():
+        dtype = torch.float32 if name.startswith("f32") else torch.bfloat16
+        x = torch.randn((rows, k), generator=gen, device=device).to(dtype)
+        wq = torch.randint(-127, 128, (k, n), generator=gen, device=device, dtype=torch.int8)
+        scale = torch.rand((n,), generator=gen, device=device) * 1e-2 + 1e-3
+        got = quant_matmul(x, wq, scale)
+        want = quant_matmul_plain(x, wq, scale).float()
+        torch.cuda.synchronize()
+        require(got.dtype == dtype and got.shape == (rows, n) and bool(torch.isfinite(got).all()),
+                f"quant_matmul {name}: finite, shape, dtype")
+        abs_errors[name] = float((got.float() - want).abs().max())
+        errors[name] = abs_errors[name] / float(want.abs().max())
+        require(errors[name] <= QMM_BOUND[dtype], f"quant_matmul {name}: rel err {errors[name]} > {QMM_BOUND[dtype]}")
+        if rows == 16 or name.startswith("rows"):
+            copies = [(x, wq, scale)] + [(x, wq.clone(), scale) for _ in range(max(0, -(-64 * 2**20 // (k * n)) - 1))]
+            ms, plain_ms = cold_timed_pair(quant_matmul, quant_matmul_plain, copies, iters=30)
+            timings[name] = {"ms": ms, "plain_ms": plain_ms, "int8_GBps": k * n / (ms * 1e-3) / 1e9}
+    decode = [timings[n] for n in ("qkv", "gate_up", "o", "down")]
+    emit({"phase": "kernel_quant_matmul", "rel_err": errors, "max_abs_err": abs_errors,
+          "bound_rel_err": {"bf16": QMM_BOUND[torch.bfloat16],
+          "f32": QMM_BOUND[torch.float32]}, "shapes": {n: list(v) for n, v in shapes.items()}, "timing": timings,
+          "hbm_peak_GBps": H100_HBM_BYTES_PER_S / 1e9})
+    return {"max_abs_err": max(abs_errors.values()), "ms": sum(t["ms"] for t in decode),
+            "plain_ms": sum(t["plain_ms"] for t in decode)}
+
+
+def _window_pairs(q_start, kv_start, tq, kk) -> int:
+    """Query-key pairs inside the windows kv_start <= j <= q_start + i < K."""
+    total = 0
+    for qs, kvs in zip(q_start, kv_start):
+        for i in range(tq):
+            total += max(0, min(kk - 1, qs + i) - kvs + 1)
+    return total
+
+
+def rounding_spread(q, k, v, q_start, kv_start, k_scale, v_scale):
+    """sqrt(sum_j p_j^2 v_j^2) per output element of the (B, Hq, Tq, D)
+    attention, from its f32 probabilities (v_j * v_scale_j in KV8)."""
+    b, hq, tq, d = q.shape
+    g, kk = k.shape[1], k.shape[2]
+    kf, vf = k.float(), v.float()
+    if k_scale is not None:
+        kf, vf = kf * k_scale.permute(0, 2, 1)[..., None], vf * v_scale.permute(0, 2, 1)[..., None]
+    logits = torch.einsum("bgrtd,bgkd->bgrtk", q.float().reshape(b, g, hq // g, tq, d), kf) / d**0.5
+    rows = q_start.long()[:, None, None] + torch.arange(tq, device=q.device)[:, None]
+    starts = torch.zeros_like(q_start) if kv_start is None else kv_start
+    keys = torch.arange(kk, device=q.device)
+    mask = (keys <= rows) & (keys >= starts.long()[:, None, None])  # (B, Tq, K)
+    probs = torch.softmax(logits.masked_fill(~mask[:, None, None], float("-inf")), dim=-1).nan_to_num(0.0)
+    return torch.einsum("bgrtk,bgkd->bgrtd", probs.square(), vf.square()).sqrt().reshape(b, hq, tq, d)
+
+
+def flash_phase(device, gen) -> dict:
+    from runia_core_tpu_torch.ops.flash_prefill import flash_prefix_attention, reference_prefix_attention
+
+    hq, g, hd = LLM_CFG["num_heads"], LLM_CFG["num_kv_heads"], LLM_CFG["d_model"] // LLM_CFG["num_heads"]
+    cases = {  # (B, Hq, G, Tq, K, D, q_start, kv_start, dtype, kv8)
+        "prefill": (PREFILL_BATCH, hq, g, PREFILL_LEN, PREFILL_LEN + 256, hd, [0] * PREFILL_BATCH, None,
+                    torch.bfloat16, False),
+        "chunked": (2, hq, g, 256, 2048, hd, [0, 700], None, torch.bfloat16, False),
+        "left_pad": (3, hq, g, 96, 160, hd, [0, 0, 40], [0, 70, 10], torch.bfloat16, False),
+        "kv8_prefill": (PREFILL_BATCH, hq, g, PREFILL_LEN, PREFILL_LEN + 256, hd, [0] * PREFILL_BATCH, None,
+                        torch.bfloat16, True),
+        "tq200": (2, hq, g, 200, 333, hd, [0, 100], None, torch.bfloat16, False),
+        "f32": (2, hq, g, 130, 300, hd, [0, 150], [0, 3], torch.float32, False),
+        # the prefill shapes in f32, held to the JAX bound
+        "f32_prefill": (PREFILL_BATCH, hq, g, PREFILL_LEN, PREFILL_LEN + 256, hd, [0] * PREFILL_BATCH, None,
+                        torch.float32, False),
+        "f32_kv8_prefill": (PREFILL_BATCH, hq, g, PREFILL_LEN, PREFILL_LEN + 256, hd, [0] * PREFILL_BATCH, None,
+                            torch.float32, True),
+    }
+    errors, err_over_bound, timings = {}, {}, {}
+    for name, (b, nh, ng, tq, kk, d, q_start, kv_start, dtype, kv8) in cases.items():
+        # Unit-variance q and k: logits of std about 1, a peaked softmax.
+        q = torch.randn((b, nh, tq, d), generator=gen, device=device).to(dtype)
+        if kv8:
+            k = torch.randint(-127, 128, (b, ng, kk, d), generator=gen, device=device, dtype=torch.int8)
+            v = torch.randint(-127, 128, (b, ng, kk, d), generator=gen, device=device, dtype=torch.int8)
+            ks = torch.rand((b, kk, ng), generator=gen, device=device) * 0.02 + 0.005
+            vs = torch.rand((b, kk, ng), generator=gen, device=device) * 0.02 + 0.005
+        else:
+            k = torch.randn((b, ng, kk, d), generator=gen, device=device).to(dtype)
+            v = torch.randn((b, ng, kk, d), generator=gen, device=device).to(dtype)
+            ks = vs = None
+        qs = torch.tensor(q_start, dtype=torch.int32, device=device)
+        kvs = None if kv_start is None else torch.tensor(kv_start, dtype=torch.int32, device=device)
+        got = flash_prefix_attention(q, k, v, qs, kvs, ks, vs)
+        want = reference_prefix_attention(q, k, v, qs, kvs, None, ks, vs)
+        torch.cuda.synchronize()
+        require(got.shape == want.shape and bool(torch.isfinite(got).all()), f"flash {name}: finite, shape")
+        diff = (got.float() - want.float()).abs()
+        errors[name] = float(diff.max())
+        if dtype == torch.float32:
+            bound = FLASH_F32_TOL + FLASH_F32_TOL * want.float().abs()
+        else:
+            bound = FLASH_BF16_RTOL * want.float().abs() + FLASH_BF16_ATOL_OF_S * rounding_spread(q, k, v, qs, kvs, ks, vs)
+        # Empty-window rows have a bound of 0 and must be exact.
+        err_over_bound[name] = float((diff / bound.clamp_min(1e-30)).max())
+        require(err_over_bound[name] <= 1.0, f"flash {name}: max abs err {errors[name]} beyond its bound")
+        if kv_start is not None:
+            for row, (qs_r, kvs_r) in enumerate(zip(q_start, kv_start)):
+                empty = max(0, kvs_r - qs_r)
+                require(bool((got[row, :, :empty] == 0).all()), f"flash {name}: empty-window rows are exact zeros")
+        if name in ("prefill", "kv8_prefill", "chunked"):
+            ms, plain_ms = timed_pair(lambda: flash_prefix_attention(q, k, v, qs, kvs, ks, vs),
+                                      lambda: reference_prefix_attention(q, k, v, qs, kvs, None, ks, vs), iters=10)
+            flops = 4 * d * nh * _window_pairs(q_start, kv_start or [0] * b, tq, kk)
+            timings[name] = {"ms": ms, "plain_ms": plain_ms, "in_window_TFLOPs": flops / (ms * 1e-3) / 1e12}
+    emit({"phase": "kernel_flash_prefix_attention", "max_abs_err": errors, "max_err_over_bound": err_over_bound,
+          "bound": {"f32_atol_rtol": FLASH_F32_TOL, "bf16_rtol": FLASH_BF16_RTOL,
+                    "bf16_atol": f"{FLASH_BF16_ATOL_OF_S} * sqrt(sum_j p_j^2 v_j^2)"},
+          "cases": {n: [*c[:6], c[6], c[7], str(c[8]).replace("torch.", ""), c[9]] for n, c in cases.items()},
+          "timing": timings})
+    return {"max_abs_err": max(errors.values()), "ms": timings["prefill"]["ms"],
+            "plain_ms": timings["prefill"]["plain_ms"]}
+
+
+def build_llms(device, num_layers: int, dtype):
+    """The production Llama at full width with seeded random weights, and
+    its int8 + KV8 + fused qkv/gate|up form made from it on the device."""
+    from runia_core_tpu_torch.models import LlamaLM, fuse_quantized_llama_params, quantize_llama_params
+
+    cfg = dict(LLM_CFG, num_layers=num_layers)
+    with torch.device(device):
+        dense = LlamaLM(**cfg, dtype=dtype, use_flash=True).eval()
+        dense.init_weights(torch.Generator(device=device).manual_seed(SEED))
+        int8 = LlamaLM(**cfg, dtype=dtype, use_flash=True, quantized=True, quantized_kv=True, fused_qkv=True).eval()
+    int8.load_state_dict(fuse_quantized_llama_params(quantize_llama_params(dense.state_dict())))
+    return dense, int8
+
+
+def _weight_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+UQ_REQUESTS = [
+    {"method_name": "perplexity"}, {"method_name": "generation_entropy"}, {"method_name": "normalized_entropy"},
+    {"method_name": "eigen_score", "layer_index": 15},
+    {"method_name": "RAUQ", "token_aggregation": "mean_all_tokens", "head_aggregation": "rollout"},
+    {"method_name": "RAUQ", "token_aggregation": "original", "head_aggregation": "original"},
+]
+
+
+def llm_slice_phase(device, models) -> dict:
+    from runia_core_tpu_torch.llm import TorchGenerator, compute_uncertainties
+    from runia_core_tpu_torch.ops.flash_prefill import flash_prefix_attention
+    from runia_core_tpu_torch.ops.quant_matmul import quant_matmul
+
+    rng = torch.Generator().manual_seed(SEED + 1)
+    vocab = LLM_CFG["vocab_size"]
+
+    def prompts(n, length):
+        return torch.randint(1, vocab, (n, length), generator=rng).tolist()
+
+    def check(name, out, b, length, new):
+        require(out["sequences"].shape == (b, length + new), f"{name}: sequences shape")
+        require(bool(np.isfinite(out["log_probs"]).all()), f"{name}: finite log-probs")
+
+    # ---- the main path, counted ----
+    quant_matmul.launches = 0
+    flash_prefix_attention.launches = flash_prefix_attention.kv8_launches = 0
+    long_prompts = prompts(PREFILL_BATCH, PREFILL_LEN)
+    decode_prompts = prompts(DECODE_BATCH, DECODE_PROMPT)
+    gens = {name: TorchGenerator(model, max_new_tokens=DECODE_NEW) for name, model in models.items()}
+    check("bf16 prefill", gens["bf16"].generate_batch(long_prompts, max_new_tokens=PREFILL_NEW),
+          PREFILL_BATCH, PREFILL_LEN, PREFILL_NEW)
+    greedy = {}
+    for name, gen in gens.items():
+        greedy[name] = gen.generate_batch(decode_prompts, output_scores=False)
+        check(f"{name} decode", greedy[name], DECODE_BATCH, DECODE_PROMPT, DECODE_NEW)
+    check("int8_kv8 prefill", gens["int8_kv8"].generate_batch(long_prompts, max_new_tokens=PREFILL_NEW),
+          PREFILL_BATCH, PREFILL_LEN, PREFILL_NEW)
+    uq_gen = TorchGenerator(models["bf16"], max_new_tokens=UQ_NEW)
+    text, scores = compute_uncertainties(uq_gen, None, prompts(1, UQ_PROMPT)[0], UQ_REQUESTS, num_samples=UQ_SAMPLES)
+    torch.cuda.synchronize()
+    launches = {
+        "quant_matmul": quant_matmul.launches,
+        "flash_prefix_attention": flash_prefix_attention.launches,
+        "flash_prefix_attention_kv8": flash_prefix_attention.kv8_launches,
+    }
+    require(launches["quant_matmul"] > 0, f"quant_matmul launched on the main path: {launches}")
+    require(launches["flash_prefix_attention"] - launches["flash_prefix_attention_kv8"] > 0,
+            f"the bf16 variant of flash_prefix_attention launched on the main path: {launches}")
+    require(launches["flash_prefix_attention_kv8"] > 0, f"the KV8 variant launched on the main path: {launches}")
+    require(len(scores) == len(UQ_REQUESTS) and all(np.isfinite(v) for v in scores.values()),
+            f"every uncertainty score is finite: {scores}")
+    agree = float((greedy["bf16"]["sequences"][:, DECODE_PROMPT:] == greedy["int8_kv8"]["sequences"][:, DECODE_PROMPT:]).mean())
+    emit({"phase": "llm_slice", "config": LLM_CFG, "launches": launches, "uncertainty_scores": scores,
+          "uq_tokens": len(text[0]), "weight_bytes": {n: _weight_bytes(m) for n, m in models.items()},
+          "bf16_vs_int8_greedy_token_agreement": agree})
+    return launches
+
+
+def llm_xcheck_phase(device) -> dict:
+    """Full width, depth cut to XCHECK_LAYERS, f32 (TF32 off): card route
+    against CPU route on the same weights, for the bf16-layout model in f32
+    and its int8 + KV8 + fused form. A 256-token prefill (kernel 4 on the
+    card) then teacher-forced decode steps."""
+    from runia_core_tpu_torch.models import init_cache
+
+    card = dict(zip(("f32", "int8_kv8"), build_llms(device, XCHECK_LAYERS, torch.float32)))
+    rng = torch.Generator().manual_seed(SEED + 2)
+    tokens = torch.randint(1, LLM_CFG["vocab_size"], (2, XCHECK_PROMPT + XCHECK_STEPS), generator=rng)
+    errors = {}
+    for name, model in card.items():
+        cpu = type(model)(**{**LLM_CFG, "num_layers": XCHECK_LAYERS}, dtype=torch.float32, use_flash=True,
+                          quantized=model.quantized, quantized_kv=model.quantized_kv, fused_qkv=model.fused_qkv)
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        n = XCHECK_PROMPT + XCHECK_STEPS
+        card_cache, cpu_cache = init_cache(model, 2, n, device), init_cache(cpu, 2, n, "cpu")
+        calls = [(tokens[:, :XCHECK_PROMPT], 0)] + [
+            (tokens[:, XCHECK_PROMPT + i: XCHECK_PROMPT + i + 1], XCHECK_PROMPT + i) for i in range(XCHECK_STEPS)
+        ]
+        worst = 0.0
+        for chunk, index in calls:
+            got = model(chunk.to(device), card_cache, index, need_attentions=False, need_hiddens=False)[0].cpu()
+            want = cpu(chunk, cpu_cache, index, need_attentions=False, need_hiddens=False)[0]
+            worst = max(worst, float((got - want).abs().max() / want.abs().max()))
+        errors[name] = worst
+        require(worst <= LLM_XCHECK_REL[name], f"LLM card vs CPU ({name}): rel err {worst} > {LLM_XCHECK_REL[name]}")
+    emit({"phase": "llm_xcheck_f32_cpu", "layers": XCHECK_LAYERS, "prompt": XCHECK_PROMPT, "steps": XCHECK_STEPS,
+          "max_rel_err": errors, "bound": LLM_XCHECK_REL})
+    return errors
+
+
+def llm_throughput_phase(device, models) -> dict:
+    from runia_core_tpu_torch.llm import TorchGenerator, compute_uncertainties
+    from runia_core_tpu_torch.models import init_cache
+    from runia_core_tpu_torch.utils import cuda_time_ms
+
+    rng = torch.Generator().manual_seed(SEED + 3)
+    vocab, cfg = LLM_CFG["vocab_size"], LLM_CFG
+    tokens = torch.randint(1, vocab, (PREFILL_BATCH, PREFILL_LEN), generator=rng).to(device)
+    prefill = {}
+    for name, model in models.items():
+        cache = init_cache(model, PREFILL_BATCH, PREFILL_LEN, device)
+        ms = cuda_time_ms(lambda: model(tokens, cache, 0, need_attentions=False, need_hiddens=False,
+                                        last_logits_only=True), iters=3, warmup=1)
+        prefill[name] = {"ms": ms, "tokens_per_s": PREFILL_BATCH * PREFILL_LEN / (ms * 1e-3)}
+        del cache
+
+    prompts = torch.randint(1, vocab, (DECODE_BATCH, DECODE_PROMPT), generator=rng).tolist()
+    gens = {name: TorchGenerator(model, max_new_tokens=DECODE_NEW) for name, model in models.items()}
+    seconds = {name: [] for name in models}
+    order = ["bf16", "int8_kv8", "int8_kv8", "bf16"] * DECODE_PAIRS
+    for name in order[: 2 * len(models)]:
+        gens[name].generate_batch(prompts, output_scores=False, max_new_tokens=8)  # warm-up
+    for name in order:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        gens[name].generate_batch(prompts, output_scores=False)
+        torch.cuda.synchronize()
+        seconds[name].append(time.perf_counter() - start)
+    head_dim = cfg["d_model"] // cfg["num_heads"]
+    avg_ctx = DECODE_PROMPT + DECODE_NEW / 2
+    decode = {}
+    for name, model in models.items():
+        # All the windows' tokens over all their time, so a stalled window counts.
+        total, steps = sum(seconds[name]), DECODE_NEW * len(seconds[name])
+        kv_item = 1 if model.quantized_kv else 2
+        kv_read = DECODE_BATCH * cfg["num_layers"] * 2 * avg_ctx * cfg["num_kv_heads"] * head_dim * kv_item
+        if model.quantized_kv:
+            kv_read += DECODE_BATCH * cfg["num_layers"] * 2 * avg_ctx * cfg["num_kv_heads"] * 4
+        hbm = steps / total * (_weight_bytes(model) + kv_read)
+        decode[name] = {"seconds": seconds[name], "median_s": statistics.median(seconds[name]),
+                        "spread_s": [min(seconds[name]), max(seconds[name])],
+                        "tokens_per_s": DECODE_BATCH * steps / total, "ms_per_step": total / steps * 1e3,
+                        "hbm_GBps": hbm / 1e9,
+                        "hbm_share_of_3.35TBps": hbm / H100_HBM_BYTES_PER_S}
+    uq_gen = TorchGenerator(models["bf16"], max_new_tokens=UQ_NEW)
+    prompt = torch.randint(1, vocab, (UQ_PROMPT,), generator=rng).tolist()
+    uq_seconds = []
+    for _ in range(2):
+        start = time.perf_counter()
+        compute_uncertainties(uq_gen, None, prompt, UQ_REQUESTS, num_samples=UQ_SAMPLES)
+        uq_seconds.append(time.perf_counter() - start)
+    emit({"phase": "llm_throughput", "prefill": prefill, "decode": decode,
+          "decode_shape": [DECODE_BATCH, DECODE_PROMPT, DECODE_NEW],
+          "compute_uncertainties_s_per_prompt": uq_seconds})
+    return {"prefill": prefill, "decode": decode}
+
+
 def main() -> None:
     sys.path.insert(0, str(REPO))
     import runia_core_tpu_torch  # noqa: F401  (fails outside a checkout)
@@ -322,7 +673,14 @@ def main() -> None:
     build_phase()
     k1 = entropy_phase(device, gen)
     k2 = fused_phase(device, gen)
+    k3 = quant_matmul_phase(device, gen)
+    k4 = flash_phase(device, gen)
     launches = slice_phase(device, gen)
+    dense, int8 = build_llms(device, LLM_CFG["num_layers"], torch.bfloat16)
+    models = {"bf16": dense, "int8_kv8": int8}
+    launches.update(llm_slice_phase(device, models))
+    llm_xcheck_phase(device)
+    llm_throughput_phase(device, models)
     emit({"kernels": [
         {"name": "marginal_entropy", "route": "cuda",
          "source": "runia_core_tpu_torch/csrc/marginal_entropy.cu",
@@ -332,6 +690,14 @@ def main() -> None:
          "source": "runia_core_tpu_torch/csrc/fused_mc_entropy.cu",
          "replaces": "runia_core_tpu/ops/mc_entropy_pallas.py:138",
          "launches": launches["fused_mc_entropy"], **k2},
+        {"name": "quant_matmul", "route": "cuda",
+         "source": "runia_core_tpu_torch/csrc/quant_matmul.cu",
+         "replaces": "runia_core_tpu/ops/quant_matmul.py:122",
+         "launches": launches["quant_matmul"], **k3},
+        {"name": "flash_prefix_attention", "route": "cuda",
+         "source": "runia_core_tpu_torch/csrc/flash_prefill.cu",
+         "replaces": "runia_core_tpu/ops/flash_prefill.py:333",
+         "launches": launches["flash_prefix_attention"], **k4},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

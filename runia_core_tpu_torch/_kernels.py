@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/``).
 
-The ``.cu`` sources have a plain C interface. At first use they are compiled
-with ``nvcc`` for ``sm_90a`` into one shared library under
-``build/torch_kernels/`` at the repository root, and loaded with ``ctypes``.
+The ``.cu`` sources have a plain C interface. At first use each is compiled
+with ``nvcc`` for ``sm_90a`` into an object, all of them at once in parallel
+processes, and the objects are linked into one shared library under
+``build/torch_kernels/`` at the repository root, loaded with ``ctypes``.
 The library's name carries a hash of the sources and flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is. Nothing here runs
 at import time: the CPU-only test host imports this module without a GPU or a
@@ -27,15 +28,20 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # (clouds, out, B, n, d, k, min_dist, const, stream)
-    "runia_marginal_entropy": (_P, _P, _I, _I, _I, _I, _F, _F, _P),
-    # (weights, fmap, out, B, S, HW, C, k, min_dist, const, stream)
-    "runia_fused_mc_entropy": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    # (clouds, out, B, n, d, k, block width, min_dist, const, stream)
+    "runia_marginal_entropy": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    # (weights, fmap, out, B, S, HW, C, k, block width, min_dist, const, stream)
+    "runia_fused_mc_entropy": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # (x, wq, scale, out, rows, K, N, dtype, stream)
+    "runia_quant_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (q, k, v, out, q_start, kv_start, k_scale, v_scale, dims[21] int64 on
+    #  the host, sm_scale, dtype, kv8, stream)
+    "runia_flash_prefix_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _P),
 }
 
 
@@ -63,14 +69,34 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{lib_path.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    # One compiler process per source, all started together.
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(sources, objects)
+    ]
+    outputs = [proc.communicate()[0] for proc in procs]
+    log = "".join(f"== {src.name}\n{out}" for src, out in zip(sources, outputs))
+    failed = [src.name for src, proc in zip(sources, procs) if proc.returncode != 0]
     tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-        capture_output=True, text=True,
-    )
-    lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{proc.stderr[-4000:]}")
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(tmp), *map(str, objects)],
+            capture_output=True, text=True,
+        )
+        log += f"== link\n{link.stdout}{link.stderr}"
+        if link.returncode != 0:
+            failed.append("link")
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    lib_path.with_suffix(".log").write_text(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{log[-4000:]}")
     os.replace(tmp, lib_path)  # atomic: a concurrent builder never loads half a file
     return lib_path
 

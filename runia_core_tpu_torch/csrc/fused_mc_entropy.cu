@@ -13,11 +13,14 @@
 // too small for tensor cores to matter, so it runs as FMAs (wgmma and TMA
 // are later work).
 //
-// Design: one block per (image, 128-channel tile). The block stages w[b]
-// (S*HW floats) in shared memory; each thread owns one channel, walks p over
-// HW reading x[b, p, c] once (coalesced over c) and accumulates its S
-// sample values in shared memory (stride 128, no bank conflicts; the weight
-// reads are warp-wide broadcasts). The samples are divided by HW, as the
+// Design: one block per (image, tile of up to 128 channels). The block
+// stages w[b] (S*HW floats) in dynamic shared memory; each thread owns one
+// channel, walks p over HW reading x[b, p, c] once (coalesced over c) and
+// accumulates its S sample values in shared memory (stride = block width,
+// no bank conflicts; the weight reads are warp-wide broadcasts). The
+// wrapper narrows the block to 64 or 32 channels where S * (HW + 128) floats
+// would pass the 227 KB a block may opt into, so S runs to 512 at the
+// scorer's taps. The samples are divided by HW, as the
 // TPU kernel does, and go through the same entropy function as
 // marginal_entropy.cu. Layout: the caller passes the NHWC tap, which is
 // already (B, HW, C) contiguous when the forward ran channels_last, so no
@@ -33,50 +36,48 @@ fused_mc_entropy_kernel(const float* __restrict__ w, const float* __restrict__ x
                         float min_dist, float cnst) {
   extern __shared__ float smem[];
   float* w_s = smem;                // S * HW keep-weights of image b
-  float* samples = smem + S * HW;   // S * kBlock sample values
+  float* samples = smem + S * HW;   // S * width sample values
   const int b = blockIdx.x;
-  const int c = blockIdx.y * kBlock + threadIdx.x;
+  const int width = blockDim.x;
+  const int c = blockIdx.y * width + threadIdx.x;
 
   const float* wb = w + static_cast<size_t>(b) * S * HW;
-  for (int idx = threadIdx.x; idx < S * HW; idx += kBlock) w_s[idx] = wb[idx];
+  for (int idx = threadIdx.x; idx < S * HW; idx += width) w_s[idx] = wb[idx];
   __syncthreads();
   if (c >= C) return;  // ragged channel edge; no barrier follows
 
   float* col = samples + threadIdx.x;
-  for (int s = 0; s < S; ++s) col[s * kBlock] = 0.f;
+  for (int s = 0; s < S; ++s) col[s * width] = 0.f;
   const float* xb = x + static_cast<size_t>(b) * HW * C + c;
   for (int p = 0; p < HW; ++p) {
     const float xv = xb[static_cast<size_t>(p) * C];
-    for (int s = 0; s < S; ++s) col[s * kBlock] = fmaf(w_s[s * HW + p], xv, col[s * kBlock]);
+    for (int s = 0; s < S; ++s) col[s * width] = fmaf(w_s[s * HW + p], xv, col[s * width]);
   }
   const float hw = static_cast<float>(HW);
-  for (int s = 0; s < S; ++s) col[s * kBlock] = col[s * kBlock] / hw;
+  for (int s = 0; s < S; ++s) col[s * width] = col[s * width] / hw;
 
   out[static_cast<size_t>(b) * C + c] =
-      cnst + kl_log_sum<K>(col, S, min_dist) / static_cast<float>(S);
+      cnst + kl_log_sum<K>(col, S, width, min_dist) / static_cast<float>(S);
 }
 
 template <int K>
 int launch_fused_mc_entropy(const float* w, const float* x, float* out, int B, int S, int HW,
-                            int C, float min_dist, float cnst, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(S) * (HW + kBlock) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_mc_entropy_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid(B, (C + kBlock - 1) / kBlock);
-  fused_mc_entropy_kernel<K><<<grid, kBlock, smem, stream>>>(w, x, out, S, HW, C, min_dist, cnst);
+                            int C, int width, float min_dist, float cnst, cudaStream_t stream) {
+  if (!valid_width(width)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(S) * (HW + width) * sizeof(float);
+  const cudaError_t err = allow_smem(fused_mc_entropy_kernel<K>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B, (C + width - 1) / width);
+  fused_mc_entropy_kernel<K><<<grid, width, smem, stream>>>(w, x, out, S, HW, C, min_dist, cnst);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace runia
 
 extern "C" int runia_fused_mc_entropy(const void* w, const void* x, void* out, int B, int S,
-                                      int HW, int C, int k, float min_dist, float cnst,
-                                      void* stream) {
+                                      int HW, int C, int k, int width, float min_dist,
+                                      float cnst, void* stream) {
   RUNIA_DISPATCH_K(k, runia::launch_fused_mc_entropy, static_cast<const float*>(w),
-                   static_cast<const float*>(x), static_cast<float*>(out), B, S, HW, C,
+                   static_cast<const float*>(x), static_cast<float*>(out), B, S, HW, C, width,
                    min_dist, cnst, static_cast<cudaStream_t>(stream));
 }

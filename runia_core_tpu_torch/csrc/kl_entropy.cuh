@@ -2,8 +2,11 @@
 // marginal_entropy.cu and fused_mc_entropy.cu.
 //
 // One thread owns one cloud (one (image, dimension) column). The cloud sits
-// in shared memory with a stride of kBlock floats, so the threads of a warp
-// read neighbouring words and no bank is hit twice.
+// in dynamic shared memory with a stride of one word per thread of the block,
+// so the threads of a warp read neighbouring words and no bank is hit twice.
+// A block is at most kBlock threads wide; the caller picks the width that
+// fits the block's shared memory (ops/entropy_cuda.py::block_width, the one
+// place the limits are decided) and passes it in.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -11,11 +14,28 @@
 
 namespace runia {
 
-constexpr int kBlock = 128;  // threads per block, one column each
-constexpr int kMaxK = 15;    // largest k the kernels are instantiated for
+constexpr int kBlock = 128;  // widest block, one column per thread
+
+// A block width the kernels take: a whole number of warps up to kBlock.
+inline bool valid_width(int width) { return width >= 32 && width <= kBlock && width % 32 == 0; }
+
+// Launch configuration for `smem` bytes of dynamic shared memory: above the
+// default 48 KB a kernel has to opt in first, and CUDA refuses more than the
+// device allows (227 KB on sm_90).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
 
 // Sum over i of log(2 * max(eps_i, min_dist)), where eps_i is the distance
-// from col[i] to its K-th nearest neighbour among col[0..n-1].
+// from col[i * stride] to its K-th nearest neighbour among the n values.
+// The n logs are summed with Kahan compensation: a plain f32 running sum
+// loses up to n * 2^-24 of the result (DropBlock's exact zeros make many
+// equal terms, whose rounding does not cancel), which at n = 512 is more
+// than the 1e-5 the kernel is held to; the compensated sum's error does not
+// grow with n.
 //
 // For every i the K+1 smallest |x_i - x_j| (j = i included, which gives the
 // self-distance 0) are kept sorted in registers by a fixed insertion
@@ -24,15 +44,15 @@ constexpr int kMaxK = 15;    // largest k the kernels are instantiated for
 // masking one occurrence of the minimum per pass. A kernel that dropped all
 // copies of a minimum at once would be wrong on DropBlock's exact zeros.
 template <int K>
-__device__ __forceinline__ float kl_log_sum(const float* col, int n, float min_dist) {
-  float acc = 0.f;
+__device__ __forceinline__ float kl_log_sum(const float* col, int n, int stride, float min_dist) {
+  float acc = 0.f, carry = 0.f;  // carry: the low-order part acc has lost
   for (int i = 0; i < n; ++i) {
-    const float xi = col[i * kBlock];
+    const float xi = col[i * stride];
     float best[K + 1];
 #pragma unroll
     for (int t = 0; t <= K; ++t) best[t] = INFINITY;
     for (int j = 0; j < n; ++j) {
-      float v = fabsf(xi - col[j * kBlock]);
+      float v = fabsf(xi - col[j * stride]);
 #pragma unroll
       for (int t = 0; t <= K; ++t) {
         const float lo = fminf(best[t], v);
@@ -40,7 +60,10 @@ __device__ __forceinline__ float kl_log_sum(const float* col, int n, float min_d
         best[t] = lo;
       }
     }
-    acc += logf(2.f * fmaxf(best[K], min_dist));
+    const float term = logf(2.f * fmaxf(best[K], min_dist)) - carry;
+    const float next = acc + term;
+    carry = (next - acc) - term;
+    acc = next;
   }
   return acc;
 }

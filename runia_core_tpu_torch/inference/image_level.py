@@ -14,7 +14,10 @@ Two routes lead from the tap to the entropies:
 * ``fused=False`` (the default, as in JAX): keep-weights -> ``bmm`` ->
   ``ops/entropy_cuda.py`` (CUDA kernel 1, marginal entropy);
 * ``fused=True``: keep-weights -> ``ops/mc_entropy_cuda.py`` (CUDA kernel 2,
-  channel means and entropy in one pass over the tap).
+  channel means and entropy in one pass over the tap). A sample count or tap
+  beyond kernel 2's contract (``fused_mc_entropy_supported``) takes its plain
+  version (``bmm`` then the sorted-window entropy) instead, chosen by shape
+  before any launch.
 
 On CPU tensors both routes take the kernels' plain versions.
 """
@@ -30,7 +33,12 @@ from runia_core_tpu_torch.detectors.latent import kde_log_density
 from runia_core_tpu_torch.evaluation.entropy import neighbors_for
 from runia_core_tpu_torch.ops.entropy import marginal_entropy
 from runia_core_tpu_torch.ops.linalg import mahalanobis_quadform
-from runia_core_tpu_torch.ops.mc_entropy_cuda import fused_mc_entropy, mc_dropblock_weights
+from runia_core_tpu_torch.ops.mc_entropy_cuda import (
+    fused_mc_entropy,
+    fused_mc_entropy_plain,
+    fused_mc_entropy_supported,
+    mc_dropblock_weights,
+)
 from runia_core_tpu_torch.reduction import PCAState, apply_pca_transform, pca_transform
 from runia_core_tpu_torch.sampling import mc_dropblock_samples
 
@@ -170,8 +178,10 @@ def build_larex_scorer(
             weights = mc_dropblock_weights(
                 b, h, w, mcd_samples_nro, drop_block_size, drop_block_prob, generator, latent.device
             )
-        if fused:
+        if fused and fused_mc_entropy_supported(mcd_samples_nro, h * w, k_neighbors):
             h_z = fused_mc_entropy(weights, latent, k_neighbors)
+        elif fused:
+            h_z = fused_mc_entropy_plain(weights, latent, k_neighbors)
         else:
             mc = mc_dropblock_samples(
                 latent, mcd_samples_nro, drop_block_size, drop_block_prob, "Conv",

@@ -1,0 +1,44 @@
+"""LLM uncertainty of the PyTorch port: the TorchGenerator decode backend
+and the scores that read its output."""
+
+from runia_core_tpu_torch.llm.generate import (
+    TorchGenerator,
+    filter_logits,
+    run_generation,
+    sample_logits,
+    validate_generation_request,
+)
+from runia_core_tpu_torch.llm.scores import (
+    RAUQ,
+    batched_rauq,
+    compute_uncertainties,
+    eigen_score,
+    eigen_score_from_embeddings,
+    generation_entropy,
+    normalized_entropy,
+    perplexity,
+    rauq_uncertainty,
+    rauq_uncertainty_mean_heads,
+    rauq_uncertainty_rollout,
+    semantic_entropy,
+)
+
+__all__ = [
+    "RAUQ",
+    "TorchGenerator",
+    "batched_rauq",
+    "compute_uncertainties",
+    "eigen_score",
+    "eigen_score_from_embeddings",
+    "filter_logits",
+    "generation_entropy",
+    "normalized_entropy",
+    "perplexity",
+    "rauq_uncertainty",
+    "rauq_uncertainty_mean_heads",
+    "rauq_uncertainty_rollout",
+    "run_generation",
+    "sample_logits",
+    "semantic_entropy",
+    "validate_generation_request",
+]

@@ -3,9 +3,11 @@
 ``resnet_from_flax`` is the inverse of
 ``runia_core_tpu/models/torch_convert.py::convert_torch_resnet``: it maps a
 flax ResNet ``{"params", "batch_stats"}`` tree onto the ``state_dict`` of
-``models/resnet.py::ResNet``, whose module names follow the flax tree. The
-other two helpers turn a JAX ``PCAState`` and an MD/KDE detector state into
-the port's. Nothing here imports JAX: leaves only need ``np.asarray``.
+``models/resnet.py::ResNet``, whose module names follow the flax tree;
+``llama_from_flax`` does the same for a JAX ``LlamaLM`` and
+``models/llama.py::LlamaLM``. The other two helpers turn a JAX ``PCAState``
+and an MD/KDE detector state into the port's. Nothing here imports JAX:
+leaves only need ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from runia_core_tpu_torch.reduction import PCAState
 
-__all__ = ["detector_state_from_arrays", "pca_state_from_arrays", "resnet_from_flax"]
+__all__ = ["detector_state_from_arrays", "llama_from_flax", "pca_state_from_arrays", "resnet_from_flax"]
 
 
 def _tensor(a, device=None) -> torch.Tensor:
@@ -52,6 +54,27 @@ def resnet_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 state[f"{module}.weight"] = _tensor(array)
             else:
                 state[f"{module}.{renames[name]}"] = _tensor(array)
+    return state
+
+
+def llama_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``LlamaLM`` parameter tree ``{"params": ...}`` (numpy leaves) ->
+    the port's LlamaLM state_dict.
+
+    The port keeps the flax names and layouts (kernels stay (in, out)), so
+    each path joins with dots and each leaf keeps its dtype: float32 and
+    bfloat16 kernels, embeddings and norms; int8 ``kernel_q`` with f32
+    ``scale``; the fused ``qkv``/``gateup`` entries; q/k/v biases.
+    """
+    state: Dict[str, torch.Tensor] = {}
+    for path, leaf in _walk(params["params"]):
+        array = np.asarray(leaf)
+        if array.dtype.name == "bfloat16":  # ml_dtypes: exact through f32
+            state[path] = torch.from_numpy(array.astype(np.float32)).to(torch.bfloat16)
+        elif array.dtype in (np.float32, np.int8):
+            state[path] = torch.from_numpy(np.array(array))
+        else:
+            raise ValueError(f"{path}: unexpected dtype {array.dtype}")
     return state
 
 

@@ -61,11 +61,17 @@ def joint_entropy(
 def marginal_entropy(clouds: torch.Tensor, k: int, min_dist: float = 1e-5) -> torch.Tensor:
     """Marginal h(z_i) per cloud and dimension: (B, n, d) -> (B, d).
 
-    A CUDA tensor goes to the CUDA kernel, a CPU tensor to the sorted-window
-    plain version; both select the same f32 distances.
+    The route is chosen by shape, before any launch: where the CUDA kernel
+    takes (n, k) (``marginal_entropy_supported``: k <= 15, n <= 512), the
+    kernel's wrapper runs, which launches it on a CUDA tensor and takes the
+    sorted-window plain version on a CPU tensor; any other shape takes the
+    sorted-window form on either device. All routes select the same f32
+    distances.
     """
-    from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda
+    from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda, marginal_entropy_supported
 
+    if not marginal_entropy_supported(clouds.shape[1], k):
+        return _marginal_entropy_sorted(clouds, k, min_dist)
     return marginal_entropy_cuda(clouds, k, min_dist)
 
 

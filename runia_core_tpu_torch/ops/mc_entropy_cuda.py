@@ -9,6 +9,10 @@ split by cost as on the TPU:
 * :func:`fused_mc_entropy` forms each image's (S, HW) @ (HW, C) / HW samples
   and their marginal entropies in one kernel that reads the feature map
   once. A CPU tensor goes to :func:`fused_mc_entropy_plain` instead.
+
+:func:`fused_mc_entropy_supported` states the kernel's contract; the
+scorer's fused route takes the plain version for a shape outside it, before
+any launch.
 """
 
 from __future__ import annotations
@@ -21,11 +25,11 @@ from runia_core_tpu_torch import _kernels
 from runia_core_tpu_torch.evaluation.entropy import neighbors_for
 from runia_core_tpu_torch.ops.dropblock import dropblock_keep_weights, dropblock_seed
 from runia_core_tpu_torch.ops.entropy import _digamma_const, _marginal_entropy_sorted
-from runia_core_tpu_torch.ops.entropy_cuda import MAX_K, MAX_N
+from runia_core_tpu_torch.ops.entropy_cuda import MAX_K, MAX_N, block_width
 
-__all__ = ["fused_mc_entropy", "fused_mc_entropy_plain", "mc_dropblock_weights"]
-
-_MAX_SMEM = 227 * 1024  # shared memory one block may opt into on sm_90
+__all__ = [
+    "fused_mc_entropy", "fused_mc_entropy_plain", "fused_mc_entropy_supported", "mc_dropblock_weights",
+]
 
 
 def mc_dropblock_weights(
@@ -62,6 +66,14 @@ def fused_mc_entropy_plain(
     return _marginal_entropy_sorted(samples, neighbors_for(weights.shape[1]) if k is None else k, min_dist)
 
 
+def fused_mc_entropy_supported(s: int, hw: int, k: int) -> bool:
+    """True if the kernel takes S samples of an H*W = hw tap with k
+    neighbours: the entropy's limits, and the S x hw keep-weights plus S
+    samples per channel for some block width within one block's shared
+    memory."""
+    return 1 <= k <= MAX_K and k < s <= MAX_N and block_width(s, s * hw * 4) > 0
+
+
 def fused_mc_entropy(
     weights: torch.Tensor, fmap: torch.Tensor, k: Optional[int] = None, min_dist: float = 1e-5
 ) -> torch.Tensor:
@@ -84,10 +96,11 @@ def fused_mc_entropy(
             )
     if weights.shape != (b, s, h * w):
         raise ValueError(f"weights {tuple(weights.shape)} do not match fmap {tuple(fmap.shape)}")
-    if not 1 <= k <= MAX_K or k >= s or s > MAX_N:
-        raise ValueError(f"need 1 <= k <= {MAX_K}, k < S and S <= {MAX_N}; got k={k}, S={s}")
-    if s * (h * w + 128) * 4 > _MAX_SMEM:
-        raise ValueError(f"S={s} x HW={h * w} keep-weights do not fit one block's shared memory")
+    if not fused_mc_entropy_supported(s, h * w, k):
+        raise ValueError(
+            f"need 1 <= k <= {MAX_K}, k < S <= {MAX_N} and S x (HW + 32) floats in one "
+            f"block's shared memory; got k={k}, S={s}, HW={h * w}"
+        )
     out = torch.empty((b, c), dtype=torch.float32, device=fmap.device)
     if out.numel() == 0:
         return out
@@ -95,7 +108,8 @@ def fused_mc_entropy(
     with torch.cuda.device(fmap.device):
         code = lib.runia_fused_mc_entropy(
             weights.data_ptr(), fmap.data_ptr(), out.data_ptr(), b, s, h * w, c, k,
-            float(min_dist), _digamma_const(k, s), torch.cuda.current_stream().cuda_stream,
+            block_width(s, s * h * w * 4), float(min_dist), _digamma_const(k, s),
+            torch.cuda.current_stream().cuda_stream,
         )
     _kernels.check(code, "fused_mc_entropy")
     fused_mc_entropy.launches += 1

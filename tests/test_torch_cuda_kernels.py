@@ -10,16 +10,19 @@ import pytest
 import torch
 
 from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda, marginal_entropy_plain
+from runia_core_tpu_torch.ops.flash_prefill import flash_prefix_attention, reference_prefix_attention
 from runia_core_tpu_torch.ops.mc_entropy_cuda import (
     fused_mc_entropy,
     fused_mc_entropy_plain,
     mc_dropblock_weights,
 )
+from runia_core_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
 
 pytestmark = pytest.mark.requires_cuda
 
 # Kernel 1 selects the same f32 differences as the sorted-window plain
-# version; only the order of the final sum differs.
+# version; only the order of the final sum differs (the kernel's is
+# compensated, so the bound does not grow with n).
 ENTROPY_ATOL = 1e-5
 
 
@@ -33,6 +36,7 @@ def gen():
 
 @pytest.mark.parametrize("b,n,d,k", [
     (512, 16, 512, 5), (3, 4, 300, 3), (1, 16, 1, 5), (7, 64, 130, 15), (5, 2, 129, 1), (9, 32, 64, 8),
+    (16, 100, 300, 5), (4, 300, 200, 5), (2, 512, 70, 15),  # past the old n <= 64 (dynamic shared memory)
 ])
 def test_marginal_entropy_kernel_matches_plain(gen, b, n, d, k):
     clouds = torch.randn((b, n, d), generator=gen, device="cuda")
@@ -54,6 +58,7 @@ def test_marginal_entropy_kernel_integer_ties(gen):
 @pytest.mark.parametrize("b,h,w,c,s,bs,p", [
     (512, 4, 4, 512, 16, 3, 0.5), (8, 7, 7, 2048, 16, 3, 0.5), (3, 8, 8, 130, 8, 2, 0.3),
     (2, 14, 14, 64, 64, 5, 0.5),  # 64 x 196 keep-weights: above 48 KB of shared memory
+    (4, 4, 4, 300, 300, 3, 0.5), (2, 7, 7, 200, 512, 3, 0.5),  # S past the old 64; narrower blocks
 ])
 def test_fused_kernel_matches_plain(gen, b, h, w, c, s, bs, p):
     fmap = torch.rand((b, h, w, c), generator=gen, device="cuda")
@@ -71,9 +76,132 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(gen):
     for bad, k in ((clouds.transpose(1, 2), 5), (clouds.double(), 5), (clouds, 16), (clouds, 0)):
         with pytest.raises(ValueError):
             marginal_entropy_cuda(bad, k)
+    with pytest.raises(ValueError):
+        marginal_entropy_cuda(torch.randn((2, 513, 8), generator=gen, device="cuda"), 5)
     fmap = torch.rand((4, 4, 4, 32), generator=gen, device="cuda")
     weights = mc_dropblock_weights(4, 4, 4, 16, 3, 0.5, gen, "cuda")
     with pytest.raises(ValueError):
         fused_mc_entropy(weights[:, :, :8].contiguous(), fmap)
     with pytest.raises(ValueError):
         fused_mc_entropy(weights, fmap.permute(0, 2, 1, 3))
+
+
+# quant_matmul: relative to max|ref|, one bf16 ulp in bf16 (the kernel and
+# the plain version sum in f32 in other orders, then round once), 1e-5 in f32
+# (tests/test_quant_matmul.py's bounds).
+QMM_BOUND = {torch.bfloat16: 8e-3, torch.float32: 1e-5}
+
+
+@pytest.mark.parametrize("rows,k,n,dtype", [
+    (16, 2048, 4096, torch.bfloat16), (16, 2048, 11264, torch.bfloat16), (16, 5632, 2048, torch.bfloat16),
+    (16, 2048, 32000, torch.bfloat16), (1, 2048, 2048, torch.bfloat16), (13, 2048, 2048, torch.bfloat16),
+    (512, 2048, 2048, torch.bfloat16), (1024, 512, 1000, torch.bfloat16), (7, 100, 37, torch.bfloat16),
+    (16, 2048, 4096, torch.float32), (33, 129, 61, torch.float32),
+])
+def test_quant_matmul_kernel_matches_plain(gen, rows, k, n, dtype):
+    x = torch.randn((rows, k), generator=gen, device="cuda").to(dtype)
+    wq = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    scale = torch.rand((n,), generator=gen, device="cuda") * 1e-2 + 1e-3
+    before = quant_matmul.launches
+    got = quant_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == before + 1 and got.dtype == dtype
+    want = quant_matmul_plain(x, wq, scale).float()
+    rel = float((got.float() - want).abs().max() / want.abs().max())
+    assert rel <= QMM_BOUND[dtype], rel
+
+
+def test_quant_matmul_raises_on_inputs_it_does_not_take(gen):
+    x = torch.randn((4, 64), generator=gen, device="cuda")
+    wq = torch.zeros((64, 32), dtype=torch.int8, device="cuda")
+    for args in ((x.double(), wq, torch.ones(32, device="cuda")), (x, wq.float(), torch.ones(32, device="cuda")),
+                 (x, wq, torch.ones(31, device="cuda")), (torch.randn((1025, 64), device="cuda"), wq,
+                                                          torch.ones(32, device="cuda"))):
+        with pytest.raises(ValueError):
+            quant_matmul(*args)
+
+
+def _flash_case(gen, b, hq, g, tq, kk, d, dtype, kv8=False):
+    # Unit-variance q and k: logits of std about 1, a peaked softmax.
+    q = torch.randn((b, hq, tq, d), generator=gen, device="cuda").to(dtype)
+    if kv8:
+        k = torch.randint(-127, 128, (b, g, kk, d), generator=gen, device="cuda", dtype=torch.int8)
+        v = torch.randint(-127, 128, (b, g, kk, d), generator=gen, device="cuda", dtype=torch.int8)
+        ks = torch.rand((b, kk, g), generator=gen, device="cuda") * 0.02 + 0.005
+        vs = torch.rand((b, kk, g), generator=gen, device="cuda") * 0.02 + 0.005
+        return q, k, v, ks, vs
+    k = torch.randn((b, g, kk, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, g, kk, d), generator=gen, device="cuda").to(dtype)
+    return q, k, v, None, None
+
+
+def flash_bf16_within(got, want, q, k, v, q_start, kv_start=None, ks=None, vs=None):
+    """Per-element bf16 bound. The kernel rounds each probability p_j (p_j
+    v_scale_j in KV8) to bf16 before P.V, a relative error of at most 2^-8,
+    which moves an output by sum_j e_j p_j v_j: a sum of independent
+    roundings of standard deviation 2^-8 / sqrt(3) * s, where
+    s = sqrt(sum_j p_j^2 v_j^2) is taken from the f32 probabilities. The two
+    outputs then round to bf16 once each, at most one ulp apart, 2^-7 |want|.
+    Bound: 2^-7 |want| + 2^-6 s (about 7 standard deviations, and the worst
+    case for a window of up to 16 keys)."""
+    b, hq, tq, d = q.shape
+    g, kk = k.shape[1], k.shape[2]
+    kf, vf = k.float(), v.float()
+    if ks is not None:
+        kf, vf = kf * ks.permute(0, 2, 1)[..., None], vf * vs.permute(0, 2, 1)[..., None]
+    logits = torch.einsum("bgrtd,bgkd->bgrtk", q.float().reshape(b, g, hq // g, tq, d), kf) / d**0.5
+    rows = torch.tensor(q_start, device=q.device)[:, None, None] + torch.arange(tq, device=q.device)[:, None]
+    starts = torch.tensor(kv_start or [0] * b, device=q.device)[:, None, None]
+    keys = torch.arange(kk, device=q.device)
+    mask = (keys <= rows) & (keys >= starts)  # (B, Tq, K)
+    probs = torch.softmax(logits.masked_fill(~mask[:, None, None], float("-inf")), dim=-1).nan_to_num(0.0)
+    spread = torch.einsum("bgrtk,bgkd->bgrtd", probs.square(), vf.square()).sqrt().reshape(b, hq, tq, d)
+    bound = 2.0**-7 * want.float().abs() + 2.0**-6 * spread
+    return bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+# f32: the JAX bound (tests/test_flash_prefill.py). bf16: flash_bf16_within.
+@pytest.mark.parametrize("name,b,hq,g,tq,kk,d,q_start,kv_start,dtype,kv8", [
+    ("prefill", 2, 16, 8, 1024, 1280, 128, [0, 0], None, torch.bfloat16, False),
+    ("chunked", 2, 16, 8, 256, 2048, 128, [0, 700], None, torch.bfloat16, False),
+    ("left_pad", 3, 4, 2, 96, 160, 64, [0, 0, 40], [0, 70, 10], torch.bfloat16, False),
+    ("kv8", 2, 16, 8, 256, 1280, 128, [0, 900], None, torch.bfloat16, True),
+    ("kv8_prefill", 8, 16, 8, 1024, 1280, 128, [0] * 8, None, torch.bfloat16, True),  # the main path's shape
+    ("tq200", 2, 8, 2, 200, 333, 64, [0, 100], None, torch.bfloat16, False),
+    ("f32", 2, 8, 4, 130, 300, 128, [0, 150], [0, 3], torch.float32, False),
+    ("f32_kv8", 1, 4, 4, 70, 200, 64, [100], [7], torch.float32, True),
+    ("f32_prefill", 8, 16, 8, 1024, 1280, 128, [0] * 8, None, torch.float32, False),  # the main path's shape
+    ("f32_kv8_prefill", 8, 16, 8, 1024, 1280, 128, [0] * 8, None, torch.float32, True),
+])
+def test_flash_prefix_attention_kernel_matches_plain(gen, name, b, hq, g, tq, kk, d, q_start, kv_start, dtype, kv8):
+    q, k, v, ks, vs = _flash_case(gen, b, hq, g, tq, kk, d, dtype, kv8)
+    qs = torch.tensor(q_start, dtype=torch.int32, device="cuda")
+    kvs = None if kv_start is None else torch.tensor(kv_start, dtype=torch.int32, device="cuda")
+    before = (flash_prefix_attention.launches, flash_prefix_attention.kv8_launches)
+    got = flash_prefix_attention(q, k, v, qs, kvs, ks, vs)
+    torch.cuda.synchronize()
+    assert flash_prefix_attention.launches == before[0] + 1
+    assert flash_prefix_attention.kv8_launches == before[1] + int(kv8)
+    want = reference_prefix_attention(q, k, v, qs, kvs, None, ks, vs)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    else:
+        assert flash_bf16_within(got, want, q, k, v, q_start, kv_start, ks, vs), float((got.float() - want.float()).abs().max())
+    if kv_start is not None:  # rows before their kv_start have an empty window
+        for row, (qs_r, kvs_r) in enumerate(zip(q_start, kv_start)):
+            empty = max(0, kvs_r - qs_r)
+            assert bool((got[row, :, :empty] == 0).all())
+
+
+def test_flash_reads_a_transposed_cache_and_skips_garbage(gen):
+    """The model's (B, K, G, D) cache as a transposed view, with NaN past the
+    written prefix: the kernel never reads it into a product."""
+    q, k, v, _, _ = _flash_case(gen, 2, 8, 4, 64, 512, 128, torch.bfloat16)
+    cache_k, cache_v = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    cache_k[:, 300:], cache_v[:, 300:] = float("nan"), float("nan")
+    qs = torch.tensor([0, 200], dtype=torch.int32, device="cuda")  # last key 263
+    got = flash_prefix_attention(q, cache_k.transpose(1, 2), cache_v.transpose(1, 2), qs)
+    want = reference_prefix_attention(q, k, v, qs)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert flash_bf16_within(got, want, q, k, v, [0, 200])

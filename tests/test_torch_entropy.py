@@ -17,6 +17,7 @@ from runia_core_tpu.evaluation.entropy import get_dl_h_z as jax_get_dl_h_z
 from runia_core_tpu.ops.entropy import _marginal_entropy_sorted as jax_sorted
 from runia_core_tpu.ops.entropy import _marginal_entropy_xla as jax_pairwise
 from runia_core_tpu.ops.entropy import joint_entropy as jax_joint
+from runia_core_tpu.ops.entropy import marginal_entropy as jax_marginal_entropy
 from runia_core_tpu.ops.entropy_pallas import marginal_entropy_pallas
 from runia_core_tpu_torch.evaluation.entropy import get_dl_h_z
 from runia_core_tpu_torch.ops.entropy import (
@@ -47,6 +48,44 @@ def test_marginal_entropy_matches_every_jax_path(n, k):
     for want in (jax_sorted(x, k), jax_pairwise(x, k), marginal_entropy_pallas(x, k, interpret=True)):
         np.testing.assert_allclose(got, np.asarray(want), **TOL)
         np.testing.assert_allclose(got_pairwise, np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("n,k", [(100, 5), (600, 5), (40, 20)])
+def test_marginal_entropy_past_the_old_kernel_limit_matches_jax(n, k):
+    """n = 100 raised on the card while the kernel took n <= 64; n = 600 and
+    k = 20 are past the kernel's contract and take the sorted-window form."""
+    clouds = _clouds(n, seed=n, b=2, d=24)
+    got = marginal_entropy(torch.from_numpy(clouds), k).numpy()
+    np.testing.assert_allclose(got, np.asarray(jax_marginal_entropy(jnp.asarray(clouds), k)), **TOL)
+
+
+def test_marginal_entropy_route_is_chosen_by_shape(monkeypatch):
+    import runia_core_tpu_torch.ops.entropy_cuda as entropy_cuda
+
+    seen = []
+    kernel_wrapper = entropy_cuda.marginal_entropy_cuda
+
+    def spy(clouds, k, min_dist=1e-5):
+        seen.append((clouds.shape[1], k))
+        return kernel_wrapper(clouds, k, min_dist)
+
+    monkeypatch.setattr(entropy_cuda, "marginal_entropy_cuda", spy)
+    for n, k in ((100, 5), (512, 15), (513, 5), (40, 16)):
+        marginal_entropy(torch.zeros((1, n, 3)), k)
+    assert seen == [(100, 5), (512, 15)]
+
+
+def test_entropy_kernels_block_width_fits_shared_memory():
+    from runia_core_tpu_torch.ops.entropy_cuda import MAX_SMEM, block_width
+
+    assert block_width(16) == 128  # the headline clouds
+    assert block_width(454) == 128 and block_width(455) == 64  # n columns of 128 floats pass 227 KB
+    assert block_width(512) == 64
+    assert block_width(16, 16 * 16 * 4) == 128  # the fused kernel's keep-weights at the headline tap
+    assert block_width(256, 256 * 196 * 4) == 0  # keep-weights alone pass 227 KB
+    for rows, extra in ((100, 0), (512, 0), (300, 300 * 49 * 4)):
+        width = block_width(rows, extra)
+        assert rows * width * 4 + extra <= MAX_SMEM < rows * 2 * width * 4 + extra or width == 128
 
 
 def test_all_identical_cloud_is_clamped():

@@ -47,3 +47,36 @@ def test_fused_plain_equals_two_step(shape, seed, s, bs, p):
     k = 5 if s > 5 else s - 1
     two_step = marginal_entropy(mc_dropblock_samples(fmap, s, bs, p, channel_axis=3, weights=weights), k)
     torch.testing.assert_close(fused_mc_entropy_plain(weights, fmap), two_step, rtol=0, atol=0)
+
+
+def test_fused_contract():
+    from runia_core_tpu_torch.ops.mc_entropy_cuda import fused_mc_entropy_supported
+
+    assert fused_mc_entropy_supported(16, 16, 5)  # the headline tap
+    assert fused_mc_entropy_supported(512, 49, 5)  # RN50 tap, 512 samples
+    assert not fused_mc_entropy_supported(513, 16, 5)
+    assert not fused_mc_entropy_supported(16, 16, 16)
+    assert not fused_mc_entropy_supported(256, 196, 5)  # keep-weights past 227 KB
+
+
+def test_scorer_fused_route_takes_the_plain_version_past_the_contract(monkeypatch):
+    """A 64 x 64 tap's 16 x 4096 keep-weights do not fit one block's shared
+    memory: the fused route must not reach the kernel's wrapper, and scores
+    as the two-step route does."""
+    import runia_core_tpu_torch.inference.image_level as image_level
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the fused kernel's wrapper was called past its contract")
+
+    monkeypatch.setattr(image_level, "fused_mc_entropy", refuse)
+    rng = np.random.RandomState(0)
+    tap = torch.from_numpy(rng.rand(2, 64, 64, 4).astype(np.float32))
+    weights = torch.from_numpy(rng.rand(2, 16, 64 * 64).astype(np.float32))
+    state = {"feats_mean": torch.zeros(4), "precision": torch.eye(4)}
+    scores = {
+        fused: image_level.build_larex_scorer(
+            lambda x: (x, {"pre_pool": tap}), None, state, 16, 0.5, 3, fused=fused
+        )(tap, weights=weights)[1]
+        for fused in (False, True)
+    }
+    torch.testing.assert_close(scores[True], scores[False], rtol=1e-6, atol=1e-6)
