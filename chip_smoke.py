@@ -28,6 +28,13 @@ kernel against its plain PyTorch version on the card. Then, through
   bf16 and KV8 variants. A 2-layer full-width f32 copy is held against the
   CPU route, and tokens/s are timed.
 
+Models, caches and states are built with no ``device`` argument: the port's
+default is the GPU. Every kernel's line carries its bound (the least time the
+card could take: bytes over 3.35 TB/s or operations over the peak rate of
+their type, whichever is larger), and where one PyTorch call computes the
+same function (``scaled_dot_product_attention`` for kernel 4), that call's
+time, which the port itself never uses.
+
 Every phase prints one JSON line. Any failed check raises, so the script
 exits non-zero and never prints its last line, which on success is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -36,6 +43,7 @@ before doing anything. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -100,6 +108,26 @@ FLASH_BF16_RTOL, FLASH_BF16_ATOL_OF_S = 2.0**-7, 2.0**-6
 # model) -> 5e-3.
 LLM_XCHECK_REL = {"f32": 1e-4, "int8_kv8": 5e-3}
 H100_HBM_BYTES_PER_S = 3.35e12
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor cores,
+# and f32 outside them, where an FMA counts as two operations. Single
+# operations (min, max, subtract) are counted against the same 67e12, which
+# keeps the bound below what the card could do.
+H100_BF16_OPS_PER_S = 989e12
+H100_F32_OPS_PER_S = 67e12
+
+
+def roofline(bytes_moved: float, operations: float, ops_per_s: float) -> dict:
+    """The least time the card could take: each input read once and each
+    output written once at the memory rate, or the operations at their peak
+    rate, whichever is larger."""
+    by_bytes = bytes_moved / H100_HBM_BYTES_PER_S * 1e3
+    by_ops = operations / ops_per_s * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": bytes_moved, "operations": operations}
+
+
+def with_share(bound: dict, ms: float) -> dict:
+    return {**bound, "share_of_bound": bound["bound_ms"] / ms}
 
 # Card (cuDNN, TF32 off) against CPU, both f32, same weights and keep-weights.
 # The conv sums run in other orders (about 1e-6 relative per layer over 18
@@ -160,15 +188,26 @@ def build_phase() -> None:
     emit({"phase": "build", "seconds": round(seconds, 3), "library": str(path.relative_to(REPO))})
 
 
-def timed_pair(kernel_fn, plain_fn, iters: int = 50):
-    """(kernel ms, plain ms), timed in turns plain, kernel, kernel, plain."""
-    from runia_core_tpu_torch.utils import cuda_time_ms
+def timed_pair(kernel_fn, plain_fn, iters: int = 50, graph: bool = False):
+    """(kernel ms, plain ms), timed in turns plain, kernel, kernel, plain.
+    ``graph`` times replays of a CUDA graph of the calls, for kernels shorter
+    than the host takes to enqueue them."""
+    from runia_core_tpu_torch.utils import cuda_graph_time_ms, cuda_time_ms
 
-    p1 = cuda_time_ms(plain_fn, iters)
-    k1 = cuda_time_ms(kernel_fn, iters)
-    k2 = cuda_time_ms(kernel_fn, iters)
-    p2 = cuda_time_ms(plain_fn, iters)
+    timer = cuda_graph_time_ms if graph else cuda_time_ms
+    p1 = timer(plain_fn, iters)
+    k1 = timer(kernel_fn, iters)
+    k2 = timer(kernel_fn, iters)
+    p2 = timer(plain_fn, iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def kl_entropy_operations(n: int, k: int) -> int:
+    """f32 operations of the k-NN entropy of one cloud of n scalars
+    (csrc/kl_entropy.cuh): per pair one subtraction and the 2 (k + 1) min/max
+    of the insertion network; per point max, multiply, log and the four
+    operations of the compensated sum."""
+    return n * n * (1 + 2 * (k + 1)) + 7 * n
 
 
 def entropy_phase(device, gen) -> dict:
@@ -196,13 +235,17 @@ def entropy_phase(device, gen) -> dict:
     ms, plain_ms = timed_pair(
         lambda: marginal_entropy_cuda(clouds, K), lambda: marginal_entropy_plain(clouds, K)
     )
+    b, n, d = clouds.shape
+    bound = roofline(4 * (clouds.numel() + b * d), b * d * kl_entropy_operations(n, K), H100_F32_OPS_PER_S)
     record = {
         "phase": "kernel_marginal_entropy", "max_abs_err": errors, "bound": ENTROPY_ATOL,
         "shape": list(clouds.shape), "ms": ms, "plain_ms": plain_ms,
-        "read_GBps": clouds.numel() * 4 / (ms * 1e-3) / 1e9,
+        "read_GBps": clouds.numel() * 4 / (ms * 1e-3) / 1e9, **with_share(bound, ms),
+        "library_ms": None, "library": "none: the sort-based form is several calls",
     }
     emit(record)
-    return {"max_abs_err": max(errors.values()), "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max(errors.values()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "library_ms": None}
 
 
 def fused_phase(device, gen) -> dict:
@@ -230,21 +273,36 @@ def fused_phase(device, gen) -> dict:
     )
     flat = fmap.reshape(BATCH, 16, 512)
     two_step_ms = cuda_time_ms(lambda: marginal_entropy_cuda(torch.bmm(weights, flat) / 16, K), 50)
+    b, h, w, c = fmap.shape
+    bound = roofline(
+        4 * (fmap.numel() + weights.numel() + b * c),
+        2 * b * MC_SAMPLES * h * w * c + b * c * kl_entropy_operations(MC_SAMPLES, K), H100_F32_OPS_PER_S,
+    )
     emit({
         "phase": "kernel_fused_mc_entropy", "max_abs_err": errors,
         "bound": {"rtol": FUSED_RTOL, "atol": FUSED_ATOL}, "shape": list(fmap.shape),
         "ms": ms, "plain_ms": plain_ms, "two_step_bmm_plus_kernel1_ms": two_step_ms,
-        "read_GBps": fmap.numel() * 4 / (ms * 1e-3) / 1e9,
+        "read_GBps": fmap.numel() * 4 / (ms * 1e-3) / 1e9, **with_share(bound, ms),
+        "library_ms": None, "library": "none: bmm, a sort and a sum of logs are several calls",
     })
-    return {"max_abs_err": max(errors.values()), "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max(errors.values()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "library_ms": None}
 
 
-def build_model(dtype, device):
+def build_model(dtype, cpu_copy_of=None):
+    """The headline ResNet-18 with seeded random weights, built where the
+    port builds by default (the GPU); or, given such a model, its copy on
+    the CPU."""
     from runia_core_tpu_torch.models import ResNet18
 
-    model = ResNet18(num_classes=NUM_CLASSES, cifar_stem=True, num_filters=NUM_FILTERS, dtype=dtype)
-    model.init_weights(torch.Generator().manual_seed(SEED))
-    return model.to(device=device, memory_format=torch.channels_last).eval()
+    cfg = dict(num_classes=NUM_CLASSES, cifar_stem=True, num_filters=NUM_FILTERS, dtype=dtype)
+    if cpu_copy_of is None:
+        model = ResNet18(**cfg)
+        model.init_weights(torch.Generator(device=model.head.weight.device).manual_seed(SEED))
+    else:
+        model = ResNet18(**cfg, device="cpu")
+        model.load_state_dict({name: t.cpu() for name, t in cpu_copy_of.state_dict().items()})
+    return model.to(memory_format=torch.channels_last).eval()
 
 
 def slice_phase(device, gen) -> dict:
@@ -259,7 +317,8 @@ def slice_phase(device, gen) -> dict:
     from runia_core_tpu_torch.sampling import mc_dropblock_samples
     from runia_core_tpu_torch.utils import cuda_time_ms
 
-    model = build_model(torch.bfloat16, device)
+    model = build_model(torch.bfloat16)
+    require(model.head.weight.device == device, f"the default device is the card: {model.head.weight.device}")
     forward = build_tapped_forward(model, ("pre_pool",))
 
     def images(n):
@@ -303,8 +362,8 @@ def slice_phase(device, gen) -> dict:
     })
 
     # ---- f32 cross-check of 8 images: card against the CPU's plain versions ----
-    model32 = build_model(torch.float32, device)
-    model_cpu = build_model(torch.float32, "cpu")
+    model32 = build_model(torch.float32)
+    model_cpu = build_model(torch.float32, cpu_copy_of=model32)
     x8 = images(XCHECK_IMAGES)
     w8 = mc_dropblock_weights(XCHECK_IMAGES, 4, 4, MC_SAMPLES, BLOCK_SIZE, DROP_PROB, gen, device)
     state_cpu = {name: t.cpu() for name, t in larem.state.items()}
@@ -360,51 +419,108 @@ def slice_phase(device, gen) -> dict:
     return launches
 
 
-def cold_timed_pair(kernel_fn, plain_fn, operands, iters: int = 50):
-    """timed_pair over copies of the operands that together exceed the 50 MB
-    L2, used in turns, so every call reads its weights from device memory as
-    a decode step does."""
-    import itertools
-
-    turns = itertools.cycle(operands)
-    return timed_pair(lambda: kernel_fn(*next(turns)), lambda: plain_fn(*next(turns)), iters)
+def quant_matmul_bound(rows: int, k: int, n: int, dtype) -> dict:
+    """Bytes: the int8 weights, x, the scales and the output, once each.
+    Operations: 2 rows K N, on the bf16 tensor cores (f32 x: on the f32 units)."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    peak = H100_BF16_OPS_PER_S if dtype == torch.bfloat16 else H100_F32_OPS_PER_S
+    return roofline(k * n + rows * k * item + 4 * n + rows * n * item, 2 * rows * k * n, peak)
 
 
 def quant_matmul_phase(device, gen) -> dict:
-    from runia_core_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
+    from runia_core_tpu_torch.ops.quant_matmul import plan_split_k, quant_matmul, quant_matmul_plain
+    from runia_core_tpu_torch.utils import cuda_graph_time_ms
 
     d, h, g, hd = LLM_CFG["d_model"], LLM_CFG["hidden_dim"], LLM_CFG["num_kv_heads"], LLM_CFG["d_model"] // LLM_CFG["num_heads"]
+    decode_names = ("qkv", "gate_up", "o", "down")
     shapes = {  # the int8 model's projections at decode, rows = batch 16
         "qkv": (16, d, d + 2 * g * hd), "gate_up": (16, d, 2 * h), "o": (16, d, d),
         "down": (16, h, d), "lm_head": (16, d, LLM_CFG["vocab_size"]),
         "rows1_qkv": (1, d, d + 2 * g * hd), "rows13_o": (13, d, d), "rows512_o": (512, d, d),
         "rows1024_o": (1024, d, d), "f32_qkv": (16, d, d + 2 * g * hd),
+        # rows past one, two and many m16 tiles at down's K; K and N ragged
+        # against every tile and split; N that is no multiple of 16; a weight
+        # whose first byte is not 16-byte aligned
+        "rows17_down": (17, h, d), "rows100_down": (100, h, d), "rows1024_down": (1024, h, d),
+        "ragged_k1000_n1000": (16, 1000, 1000), "f32_ragged_k1000_n1000": (33, 1000, 1000),
+        "n2050": (16, d, 2050), "misaligned_wq": (16, d, d),
     }
     errors, abs_errors, timings = {}, {}, {}
     for name, (rows, k, n) in shapes.items():
         dtype = torch.float32 if name.startswith("f32") else torch.bfloat16
         x = torch.randn((rows, k), generator=gen, device=device).to(dtype)
-        wq = torch.randint(-127, 128, (k, n), generator=gen, device=device, dtype=torch.int8)
+        if name == "misaligned_wq":
+            flat = torch.randint(-127, 128, (k * n + 1,), generator=gen, device=device, dtype=torch.int8)
+            wq = flat[1:].view(k, n)
+            require(wq.data_ptr() % 16 != 0 and wq.is_contiguous(), "misaligned_wq: the view is misaligned")
+        else:
+            wq = torch.randint(-127, 128, (k, n), generator=gen, device=device, dtype=torch.int8)
         scale = torch.rand((n,), generator=gen, device=device) * 1e-2 + 1e-3
         got = quant_matmul(x, wq, scale)
+        again = quant_matmul(x, wq, scale)
         want = quant_matmul_plain(x, wq, scale).float()
         torch.cuda.synchronize()
         require(got.dtype == dtype and got.shape == (rows, n) and bool(torch.isfinite(got).all()),
                 f"quant_matmul {name}: finite, shape, dtype")
+        require(torch.equal(got, again), f"quant_matmul {name}: two runs on the same inputs are bit-identical")
         abs_errors[name] = float((got.float() - want).abs().max())
         errors[name] = abs_errors[name] / float(want.abs().max())
         require(errors[name] <= QMM_BOUND[dtype], f"quant_matmul {name}: rel err {errors[name]} > {QMM_BOUND[dtype]}")
-        if rows == 16 or name.startswith("rows"):
+        if name in decode_names or name == "lm_head" or name.startswith("rows"):
+            # Copies that together exceed the 50 MB L2, used in turns: every
+            # call reads its weights from device memory, as a decode step does.
             copies = [(x, wq, scale)] + [(x, wq.clone(), scale) for _ in range(max(0, -(-64 * 2**20 // (k * n)) - 1))]
-            ms, plain_ms = cold_timed_pair(quant_matmul, quant_matmul_plain, copies, iters=30)
-            timings[name] = {"ms": ms, "plain_ms": plain_ms, "int8_GBps": k * n / (ms * 1e-3) / 1e9}
-    decode = [timings[n] for n in ("qkv", "gate_up", "o", "down")]
+            turns = itertools.cycle(copies)
+            ms, plain_ms = timed_pair(lambda: quant_matmul(*next(turns)), lambda: quant_matmul_plain(*next(turns)),
+                                      iters=30, graph=True)
+            plan = plan_split_k(rows, k, n)
+            timings[name] = {"ms": ms, "plain_ms": plain_ms, "int8_GBps": k * n / (ms * 1e-3) / 1e9,
+                             "grid": [plan.n_tiles, plan.splits, plan.row_blocks],
+                             **with_share(quant_matmul_bound(rows, k, n, dtype), ms)}
+            require(ms <= plain_ms, f"quant_matmul {name}: the kernel ({ms} ms) is no slower than plain ({plain_ms} ms)")
+            if name in decode_names or name == "lm_head":
+                # A different function, as a reference point only: cuBLAS on
+                # the dequantized bf16 weight, twice the bytes.
+                dense = [(x, copies[i % len(copies)][1].to(torch.bfloat16))
+                         for i in range(-(-64 * 2**20 // (2 * k * n)))]
+                dense_turns = itertools.cycle(dense)
+                timings[name]["bf16_matmul_ms"] = cuda_graph_time_ms(lambda: torch.matmul(*next(dense_turns)), 30)
+                timings[name]["int8pack_mm_ms"] = int8pack_mm_ms(x, wq, scale)
+                del dense
+            del copies
+    decode = [timings[n] for n in decode_names]
     emit({"phase": "kernel_quant_matmul", "rel_err": errors, "max_abs_err": abs_errors,
           "bound_rel_err": {"bf16": QMM_BOUND[torch.bfloat16],
           "f32": QMM_BOUND[torch.float32]}, "shapes": {n: list(v) for n, v in shapes.items()}, "timing": timings,
+          "timed_with": "CUDA-graph replays of 30 calls, weights cold (copies cycled past the L2)",
+          "deterministic": True, "library_ms": None,
+          "library": "none: no single PyTorch call takes a (K, N) int8 weight with per-column f32 scales; "
+                     "bf16_matmul_ms (x @ w_bf16, cuBLAS, twice the bytes) and int8pack_mm_ms "
+                     "(torch._weight_int8pack_mm on the transposed weight, bf16 scales) are other functions",
           "hbm_peak_GBps": H100_HBM_BYTES_PER_S / 1e9})
+    bound_ms = sum(t["bound_ms"] for t in decode)
     return {"max_abs_err": max(abs_errors.values()), "ms": sum(t["ms"] for t in decode),
-            "plain_ms": sum(t["plain_ms"] for t in decode)}
+            "plain_ms": sum(t["plain_ms"] for t in decode), "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None}
+
+
+def int8pack_mm_ms(x, wq, scale):
+    """Time ``torch._weight_int8pack_mm`` on the transposed weight where this
+    build has it for CUDA tensors; else say why not. It takes (N, K) int8 and
+    bf16 scales: another layout and rounding than the port's contract, so it
+    is a reference point and never called by the port."""
+    from runia_core_tpu_torch.utils import cuda_graph_time_ms
+
+    fn = getattr(torch, "_weight_int8pack_mm", None)
+    if fn is None:
+        return "not in this build"
+    wt, sc = wq.t().contiguous(), scale.to(torch.bfloat16)
+    try:
+        fn(x, wt, sc)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as exc:
+        return f"does not take these CUDA tensors: {str(exc).splitlines()[0][:120]}"
+    return cuda_graph_time_ms(lambda: fn(x, wt, sc), 30)
 
 
 def _window_pairs(q_start, kv_start, tq, kk) -> int:
@@ -414,6 +530,11 @@ def _window_pairs(q_start, kv_start, tq, kk) -> int:
         for i in range(tq):
             total += max(0, min(kk - 1, qs + i) - kvs + 1)
     return total
+
+
+def _keys_read(q_start, kv_start, tq, kk) -> int:
+    """Keys some query of its batch row attends, summed over the rows."""
+    return sum(max(0, min(kk - 1, qs + tq - 1) - kvs + 1) for qs, kvs in zip(q_start, kv_start))
 
 
 def rounding_spread(q, k, v, q_start, kv_start, k_scale, v_scale):
@@ -433,27 +554,63 @@ def rounding_spread(q, k, v, q_start, kv_start, k_scale, v_scale):
     return torch.einsum("bgrtk,bgkd->bgrtd", probs.square(), vf.square()).sqrt().reshape(b, hq, tq, d)
 
 
+def _offset_view(t: torch.Tensor) -> torch.Tensor:
+    """A copy of t that starts one element into its buffer: the same values
+    at an address that is not 16-byte aligned."""
+    flat = torch.empty((t.numel() + 1,), dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def sdpa_library(q, k, v, q_start, kk_used, mask=None):
+    """One PyTorch call for the same function: causal (or boolean-masked)
+    ``scaled_dot_product_attention`` with GQA. Timed beside kernel 4 as a
+    yardstick; the port never calls it."""
+    import torch.nn.functional as F
+
+    k, v = k[:, :, :kk_used], v[:, :, :kk_used]
+    if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
+        extra = {"enable_gqa": True}
+    else:  # an older build: the kv heads are repeated outside the timed call
+        rep = q.shape[1] // k.shape[1]
+        k, v, extra = k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1), {}
+    if mask is None:
+        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, **extra)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, **extra)
+
+
 def flash_phase(device, gen) -> dict:
     from runia_core_tpu_torch.ops.flash_prefill import flash_prefix_attention, reference_prefix_attention
+    from runia_core_tpu_torch.utils import cuda_graph_time_ms, cuda_time_ms
 
     hq, g, hd = LLM_CFG["num_heads"], LLM_CFG["num_kv_heads"], LLM_CFG["d_model"] // LLM_CFG["num_heads"]
-    cases = {  # (B, Hq, G, Tq, K, D, q_start, kv_start, dtype, kv8)
-        "prefill": (PREFILL_BATCH, hq, g, PREFILL_LEN, PREFILL_LEN + 256, hd, [0] * PREFILL_BATCH, None,
-                    torch.bfloat16, False),
-        "chunked": (2, hq, g, 256, 2048, hd, [0, 700], None, torch.bfloat16, False),
-        "left_pad": (3, hq, g, 96, 160, hd, [0, 0, 40], [0, 70, 10], torch.bfloat16, False),
-        "kv8_prefill": (PREFILL_BATCH, hq, g, PREFILL_LEN, PREFILL_LEN + 256, hd, [0] * PREFILL_BATCH, None,
-                        torch.bfloat16, True),
-        "tq200": (2, hq, g, 200, 333, hd, [0, 100], None, torch.bfloat16, False),
-        "f32": (2, hq, g, 130, 300, hd, [0, 150], [0, 3], torch.float32, False),
+    bf16, f32 = torch.bfloat16, torch.float32
+    pb, pl = PREFILL_BATCH, PREFILL_LEN
+    cases = {  # (B, Hq, G, Tq, K, D, q_start, kv_start, dtype, kv8[, layout])
+        "prefill": (pb, hq, g, pl, pl + 256, hd, [0] * pb, None, bf16, False),
+        "chunked": (2, hq, g, 256, 2048, hd, [0, 700], None, bf16, False),
+        "left_pad": (3, hq, g, 96, 160, hd, [0, 0, 40], [0, 70, 10], bf16, False),
+        "kv8_prefill": (pb, hq, g, pl, pl + 256, hd, [0] * pb, None, bf16, True),
+        "tq200": (2, hq, g, 200, 333, hd, [0, 100], None, bf16, False),
+        "f32": (2, hq, g, 130, 300, hd, [0, 150], [0, 3], f32, False),
         # the prefill shapes in f32, held to the JAX bound
-        "f32_prefill": (PREFILL_BATCH, hq, g, PREFILL_LEN, PREFILL_LEN + 256, hd, [0] * PREFILL_BATCH, None,
-                        torch.float32, False),
-        "f32_kv8_prefill": (PREFILL_BATCH, hq, g, PREFILL_LEN, PREFILL_LEN + 256, hd, [0] * PREFILL_BATCH, None,
-                            torch.float32, True),
+        "f32_prefill": (pb, hq, g, pl, pl + 256, hd, [0] * pb, None, f32, False),
+        "f32_kv8_prefill": (pb, hq, g, pl, pl + 256, hd, [0] * pb, None, f32, True),
+        # heads of 64; the (B, K, G, D) cache passed transposed, NaN past its
+        # prefix; one query row past a 64-row tile; views that start one
+        # element into their buffers (no 16-byte alignment)
+        "d64": (2, 8, 4, 300, 500, 64, [0, 150], [0, 20], bf16, False),
+        "d64_kv8": (2, 8, 4, 300, 500, 64, [0, 150], [0, 20], bf16, True),
+        "transposed_cache": (2, hq, g, 192, 512, hd, [0, 200], None, bf16, False, "transposed"),
+        "transposed_cache_kv8": (2, hq, g, 192, 512, hd, [0, 200], None, bf16, True, "transposed"),
+        "tq65": (2, hq, g, 65, 129, hd, [0, 64], None, bf16, False),
+        "misaligned": (2, hq, g, 130, 300, hd, [0, 150], [0, 3], bf16, False, "misaligned"),
+        "misaligned_kv8": (2, hq, g, 130, 300, hd, [0, 150], [0, 3], bf16, True, "misaligned"),
     }
     errors, err_over_bound, timings = {}, {}, {}
-    for name, (b, nh, ng, tq, kk, d, q_start, kv_start, dtype, kv8) in cases.items():
+    for name, (b, nh, ng, tq, kk, d, q_start, kv_start, dtype, kv8, *layout) in cases.items():
+        layout = layout[0] if layout else ""
         # Unit-variance q and k: logits of std about 1, a peaked softmax.
         q = torch.randn((b, nh, tq, d), generator=gen, device=device).to(dtype)
         if kv8:
@@ -467,35 +624,79 @@ def flash_phase(device, gen) -> dict:
             ks = vs = None
         qs = torch.tensor(q_start, dtype=torch.int32, device=device)
         kvs = None if kv_start is None else torch.tensor(kv_start, dtype=torch.int32, device=device)
-        got = flash_prefix_attention(q, k, v, qs, kvs, ks, vs)
+        k_in, v_in, q_in = k, v, q
+        if layout == "transposed":
+            # The model's cache layout, with garbage past the written prefix.
+            k_in, v_in = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+            written = max(q_start) + tq
+            if kv8:
+                k_in[:, written:], v_in[:, written:] = 127, -127
+                ks, vs = ks.clone(), vs.clone()
+                ks[:, written:], vs[:, written:] = float("nan"), float("nan")
+            else:
+                k_in[:, written:], v_in[:, written:] = float("nan"), float("nan")
+            k_in, v_in = k_in.transpose(1, 2), v_in.transpose(1, 2)
+            require(not k_in.is_contiguous(), f"flash {name}: the cache is a transposed view")
+        elif layout == "misaligned":
+            q_in, k_in, v_in = _offset_view(q), _offset_view(k), _offset_view(v)
+            require(all(t.data_ptr() % 16 for t in (q_in, k_in, v_in)), f"flash {name}: the views are misaligned")
+        got = flash_prefix_attention(q_in, k_in, v_in, qs, kvs, ks, vs)
+        again = flash_prefix_attention(q_in, k_in, v_in, qs, kvs, ks, vs)
         want = reference_prefix_attention(q, k, v, qs, kvs, None, ks, vs)
         torch.cuda.synchronize()
         require(got.shape == want.shape and bool(torch.isfinite(got).all()), f"flash {name}: finite, shape")
+        require(torch.equal(got, again), f"flash {name}: two runs on the same inputs are bit-identical")
         diff = (got.float() - want.float()).abs()
         errors[name] = float(diff.max())
         if dtype == torch.float32:
-            bound = FLASH_F32_TOL + FLASH_F32_TOL * want.float().abs()
+            tol = FLASH_F32_TOL + FLASH_F32_TOL * want.float().abs()
         else:
-            bound = FLASH_BF16_RTOL * want.float().abs() + FLASH_BF16_ATOL_OF_S * rounding_spread(q, k, v, qs, kvs, ks, vs)
-        # Empty-window rows have a bound of 0 and must be exact.
-        err_over_bound[name] = float((diff / bound.clamp_min(1e-30)).max())
+            spread_scales = (None, None) if ks is None else (ks.nan_to_num(0.0), vs.nan_to_num(0.0))
+            tol = FLASH_BF16_RTOL * want.float().abs() + FLASH_BF16_ATOL_OF_S * rounding_spread(
+                q, k, v, qs, kvs, *spread_scales)
+        tol = tol.clamp_min(1e-30)  # empty-window rows have a bound of 0 and must be exact
+        err_over_bound[name] = float((diff / tol).max())
         require(err_over_bound[name] <= 1.0, f"flash {name}: max abs err {errors[name]} beyond its bound")
         if kv_start is not None:
             for row, (qs_r, kvs_r) in enumerate(zip(q_start, kv_start)):
                 empty = max(0, kvs_r - qs_r)
                 require(bool((got[row, :, :empty] == 0).all()), f"flash {name}: empty-window rows are exact zeros")
         if name in ("prefill", "kv8_prefill", "chunked"):
-            ms, plain_ms = timed_pair(lambda: flash_prefix_attention(q, k, v, qs, kvs, ks, vs),
-                                      lambda: reference_prefix_attention(q, k, v, qs, kvs, None, ks, vs), iters=10)
-            flops = 4 * d * nh * _window_pairs(q_start, kv_start or [0] * b, tq, kk)
-            timings[name] = {"ms": ms, "plain_ms": plain_ms, "in_window_TFLOPs": flops / (ms * 1e-3) / 1e12}
+            # The kernel by CUDA-graph replays (the chunk case is shorter than
+            # its enqueue), the plain version, milliseconds long, by events.
+            plain, kernel = [], []
+            for _ in range(2):
+                plain.append(cuda_time_ms(lambda: reference_prefix_attention(q, k, v, qs, kvs, None, ks, vs), 10))
+                kernel.append(cuda_graph_time_ms(lambda: flash_prefix_attention(q, k, v, qs, kvs, ks, vs), 20))
+            ms, plain_ms = sum(kernel) / 2, sum(plain) / 2
+            starts = kv_start or [0] * b
+            flops = 4 * d * nh * _window_pairs(q_start, starts, tq, kk)
+            item = 1 if kv8 else 2
+            kv_bytes = 2 * ng * _keys_read(q_start, starts, tq, kk) * (d * item + (4 if kv8 else 0))
+            bound = roofline(2 * q.numel() * 2 + kv_bytes, flops, H100_BF16_OPS_PER_S)
+            timings[name] = {"ms": ms, "plain_ms": plain_ms, "in_window_TFLOPs": flops / (ms * 1e-3) / 1e12,
+                             **with_share(bound, ms)}
+            if kv8:
+                timings[name]["library_ms"] = None  # no PyTorch call attends an int8 cache with per-key scales
+                continue
+            if name == "prefill":
+                library = sdpa_library(q, k, v, q_start, tq)
+            else:
+                rows = qs.long()[:, None, None] + torch.arange(tq, device=device)[:, None]
+                library = sdpa_library(q, k, v, q_start, kk, (torch.arange(kk, device=device) <= rows)[:, None])
+            lib_err = float(((library().float() - want.float()).abs() / tol).max())
+            require(lib_err <= 1.0, f"flash {name}: the library call is the same function (err/bound {lib_err})")
+            timings[name]["library_ms"] = cuda_graph_time_ms(library, 20)
+            timings[name]["library_err_over_bound"] = lib_err
     emit({"phase": "kernel_flash_prefix_attention", "max_abs_err": errors, "max_err_over_bound": err_over_bound,
           "bound": {"f32_atol_rtol": FLASH_F32_TOL, "bf16_rtol": FLASH_BF16_RTOL,
                     "bf16_atol": f"{FLASH_BF16_ATOL_OF_S} * sqrt(sum_j p_j^2 v_j^2)"},
-          "cases": {n: [*c[:6], c[6], c[7], str(c[8]).replace("torch.", ""), c[9]] for n, c in cases.items()},
-          "timing": timings})
-    return {"max_abs_err": max(errors.values()), "ms": timings["prefill"]["ms"],
-            "plain_ms": timings["prefill"]["plain_ms"]}
+          "cases": {n: [*c[:6], c[6], c[7], str(c[8]).replace("torch.", ""), *c[9:]] for n, c in cases.items()},
+          "timing": timings, "deterministic": True,
+          "library": "torch.nn.functional.scaled_dot_product_attention (causal / boolean mask, GQA); none for KV8"})
+    top = timings["prefill"]
+    return {"max_abs_err": max(errors.values()), "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"], "library_ms": top["library_ms"]}
 
 
 def build_llms(device, num_layers: int, dtype):
@@ -504,10 +705,10 @@ def build_llms(device, num_layers: int, dtype):
     from runia_core_tpu_torch.models import LlamaLM, fuse_quantized_llama_params, quantize_llama_params
 
     cfg = dict(LLM_CFG, num_layers=num_layers)
-    with torch.device(device):
-        dense = LlamaLM(**cfg, dtype=dtype, use_flash=True).eval()
-        dense.init_weights(torch.Generator(device=device).manual_seed(SEED))
-        int8 = LlamaLM(**cfg, dtype=dtype, use_flash=True, quantized=True, quantized_kv=True, fused_qkv=True).eval()
+    dense = LlamaLM(**cfg, dtype=dtype, use_flash=True).eval()  # no device given: the card
+    require(dense.embed.embedding.device == device, f"the default device is the card: {dense.embed.embedding.device}")
+    dense.init_weights(torch.Generator(device=device).manual_seed(SEED))
+    int8 = LlamaLM(**cfg, dtype=dtype, use_flash=True, quantized=True, quantized_kv=True, fused_qkv=True).eval()
     int8.load_state_dict(fuse_quantized_llama_params(quantize_llama_params(dense.state_dict())))
     return dense, int8
 
@@ -587,10 +788,11 @@ def llm_xcheck_phase(device) -> dict:
     errors = {}
     for name, model in card.items():
         cpu = type(model)(**{**LLM_CFG, "num_layers": XCHECK_LAYERS}, dtype=torch.float32, use_flash=True,
-                          quantized=model.quantized, quantized_kv=model.quantized_kv, fused_qkv=model.fused_qkv)
+                          quantized=model.quantized, quantized_kv=model.quantized_kv, fused_qkv=model.fused_qkv,
+                          device="cpu")
         cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
         n = XCHECK_PROMPT + XCHECK_STEPS
-        card_cache, cpu_cache = init_cache(model, 2, n, device), init_cache(cpu, 2, n, "cpu")
+        card_cache, cpu_cache = init_cache(model, 2, n), init_cache(cpu, 2, n, "cpu")
         calls = [(tokens[:, :XCHECK_PROMPT], 0)] + [
             (tokens[:, XCHECK_PROMPT + i: XCHECK_PROMPT + i + 1], XCHECK_PROMPT + i) for i in range(XCHECK_STEPS)
         ]
@@ -616,7 +818,7 @@ def llm_throughput_phase(device, models) -> dict:
     tokens = torch.randint(1, vocab, (PREFILL_BATCH, PREFILL_LEN), generator=rng).to(device)
     prefill = {}
     for name, model in models.items():
-        cache = init_cache(model, PREFILL_BATCH, PREFILL_LEN, device)
+        cache = init_cache(model, PREFILL_BATCH, PREFILL_LEN)
         ms = cuda_time_ms(lambda: model(tokens, cache, 0, need_attentions=False, need_hiddens=False,
                                         last_logits_only=True), iters=3, warmup=1)
         prefill[name] = {"ms": ms, "tokens_per_s": PREFILL_BATCH * PREFILL_LEN / (ms * 1e-3)}

@@ -6,10 +6,26 @@ scipy, and never JAX. Its hand-written Hopper kernels live in ``csrc/`` and
 are built at first use on a GPU (``_kernels.py``); on CPU tensors every
 kernel's wrapper takes the plain PyTorch version beside it.
 
-This first slice carries image-level LaREx scoring end to end:
-``models.resnet`` -> ``sampling`` / ``ops.mc_entropy_cuda`` ->
-``ops.entropy`` / ``ops.entropy_cuda`` -> ``reduction`` ->
-``detectors.latent`` -> ``inference.image_level.build_larex_scorer``.
+Two slices run end to end: image-level LaREx scoring (``models.resnet`` ->
+``sampling`` / ``ops.mc_entropy_cuda`` -> ``ops.entropy`` /
+``ops.entropy_cuda`` -> ``reduction`` -> ``detectors.latent`` ->
+``inference.image_level.build_larex_scorer``) and the Llama LLM-uncertainty
+path (``models.llama`` -> ``llm.generate`` -> ``llm.scores``).
+
+Models, caches and converted states are built on :func:`default_device`, the
+GPU, unless the caller names another device (the CPU tests pass
+``device="cpu"``).
 """
 
+import torch
+
 __version__ = "0.1.0"
+
+__all__ = ["default_device"]
+
+
+def default_device() -> torch.device:
+    """Where the port builds what it is not told to build elsewhere: the
+    current CUDA device. It does not look whether there is one: without a
+    GPU the first allocation raises."""
+    return torch.device("cuda")

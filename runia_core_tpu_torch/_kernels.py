@@ -12,6 +12,7 @@ compiler.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -22,7 +23,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_DIR", "CSRC", "build", "check", "library"]
+__all__ = ["BUILD_DIR", "CSRC", "build", "check", "device_guard", "library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
@@ -37,8 +38,9 @@ _SIGNATURES = {
     "runia_marginal_entropy": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
     # (weights, fmap, out, B, S, HW, C, k, block width, min_dist, const, stream)
     "runia_fused_mc_entropy": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
-    # (x, wq, scale, out, rows, K, N, dtype, stream)
-    "runia_quant_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (x, wq, scale, out, scratch, counters, rows, K, N, block rows, splits,
+    #  K per split, dtype, stream)
+    "runia_quant_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # (q, k, v, out, q_start, kv_start, k_scale, v_scale, dims[21] int64 on
     #  the host, sm_scale, dtype, kv8, stream)
     "runia_flash_prefix_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _P),
@@ -123,6 +125,15 @@ def library() -> ctypes.CDLL:
     lib.runia_cuda_error_string.argtypes = [ctypes.c_int]
     lib.runia_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def device_guard(device: torch.device):
+    """A context that makes ``device`` the current CUDA device for a launch.
+    It costs nothing when it already is, as in every single-GPU process: a
+    decode step launches some ninety kernels through these wrappers."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check(code: int, kernel: str) -> None:

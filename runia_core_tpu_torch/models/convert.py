@@ -7,7 +7,8 @@ flax ResNet ``{"params", "batch_stats"}`` tree onto the ``state_dict`` of
 ``llama_from_flax`` does the same for a JAX ``LlamaLM`` and
 ``models/llama.py::LlamaLM``. The other two helpers turn a JAX ``PCAState``
 and an MD/KDE detector state into the port's. Nothing here imports JAX:
-leaves only need ``np.asarray``.
+leaves only need ``np.asarray``. Every helper makes its tensors on
+``device``; None is ``runia_core_tpu_torch.default_device()``, the GPU.
 """
 
 from __future__ import annotations
@@ -17,13 +18,18 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from runia_core_tpu_torch import default_device
 from runia_core_tpu_torch.reduction import PCAState
 
 __all__ = ["detector_state_from_arrays", "llama_from_flax", "pca_state_from_arrays", "resnet_from_flax"]
 
 
+def _on(device) -> torch.device:
+    return default_device() if device is None else torch.device(device)
+
+
 def _tensor(a, device=None) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(_on(device))
 
 
 def _walk(tree: Mapping, prefix: str = ""):
@@ -35,7 +41,7 @@ def _walk(tree: Mapping, prefix: str = ""):
             yield path, value
 
 
-def resnet_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def resnet_from_flax(variables: Mapping[str, Any], device=None) -> Dict[str, torch.Tensor]:
     """flax ``{"params", "batch_stats"}`` (numpy leaves) -> ResNet state_dict.
 
     Conv kernels go (kh, kw, in, out) -> (out, in, kh, kw); the dense head
@@ -51,13 +57,13 @@ def resnet_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             array = np.asarray(leaf, dtype=np.float32)
             if name == "kernel":
                 array = array.transpose(3, 2, 0, 1) if array.ndim == 4 else array.T
-                state[f"{module}.weight"] = _tensor(array)
+                state[f"{module}.weight"] = _tensor(array, device)
             else:
-                state[f"{module}.{renames[name]}"] = _tensor(array)
+                state[f"{module}.{renames[name]}"] = _tensor(array, device)
     return state
 
 
-def llama_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def llama_from_flax(params: Mapping[str, Any], device=None) -> Dict[str, torch.Tensor]:
     """A JAX ``LlamaLM`` parameter tree ``{"params": ...}`` (numpy leaves) ->
     the port's LlamaLM state_dict.
 
@@ -70,9 +76,9 @@ def llama_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for path, leaf in _walk(params["params"]):
         array = np.asarray(leaf)
         if array.dtype.name == "bfloat16":  # ml_dtypes: exact through f32
-            state[path] = torch.from_numpy(array.astype(np.float32)).to(torch.bfloat16)
+            state[path] = torch.from_numpy(array.astype(np.float32)).to(_on(device), torch.bfloat16)
         elif array.dtype in (np.float32, np.int8):
-            state[path] = torch.from_numpy(np.array(array))
+            state[path] = torch.from_numpy(np.array(array)).to(_on(device))
         else:
             raise ValueError(f"{path}: unexpected dtype {array.dtype}")
     return state

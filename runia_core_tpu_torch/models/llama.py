@@ -44,6 +44,7 @@ from typing import Dict, Mapping, Optional
 import torch
 from torch import nn
 
+from runia_core_tpu_torch import default_device
 from runia_core_tpu_torch.ops.flash_prefill import flash_prefix_attention
 from runia_core_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_supported
 
@@ -256,7 +257,9 @@ class _LlamaBlock(nn.Module):
 class LlamaLM(nn.Module):
     """Llama-family causal LM; the configuration fields are the JAX
     ``LlamaLM``'s (``dtype`` is the compute dtype: norms, softmax, RoPE
-    tables and the returned logits, attentions and hiddens stay f32)."""
+    tables and the returned logits, attentions and hiddens stay f32), and
+    ``device``, where the parameters are made: None is
+    ``runia_core_tpu_torch.default_device()``, the GPU."""
 
     def __init__(
         self,
@@ -281,6 +284,7 @@ class LlamaLM(nn.Module):
         embed_scale: bool = False,
         mlp_act: str = "silu",
         num_experts: int = 0,
+        device=None,
     ):
         super().__init__()
         if num_experts:
@@ -300,13 +304,15 @@ class LlamaLM(nn.Module):
         self.attn_bias, self.sliding_window = attn_bias, sliding_window
         self.embed_scale, self.mlp_act = embed_scale, mlp_act
 
-        self.embed = nn.Module()
-        self.embed.embedding = _param((vocab_size, d_model), dtype)
-        for i in range(num_layers):
-            self.add_module(f"block_{i}", _LlamaBlock(self))
-        self.norm_f = RMSNorm(d_model, rms_eps)
-        if not tie_embeddings:
-            self.lm_head = (QDense if quantized else Dense)(d_model, vocab_size, dtype)
+        # Every parameter is made on ``device`` (None: the GPU).
+        with torch.device(default_device() if device is None else device):
+            self.embed = nn.Module()
+            self.embed.embedding = _param((vocab_size, d_model), dtype)
+            for i in range(num_layers):
+                self.add_module(f"block_{i}", _LlamaBlock(self))
+            self.norm_f = RMSNorm(d_model, rms_eps)
+            if not tie_embeddings:
+                self.lm_head = (QDense if quantized else Dense)(d_model, vocab_size, dtype)
 
     def blocks(self):
         return [getattr(self, f"block_{i}") for i in range(self.num_layers)]

@@ -31,6 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from runia_core_tpu_torch import default_device
+
 __all__ = [
     "BatchNorm",
     "BottleneckResNetBlock",
@@ -153,7 +155,9 @@ class BottleneckResNetBlock(nn.Module):
 
 class ResNet(nn.Module):
     """ResNet with taps; NHWC in and out; computes in ``dtype`` while the
-    parameters stay f32 (as flax's ``dtype`` / ``param_dtype``)."""
+    parameters stay f32 (as flax's ``dtype`` / ``param_dtype``). They are
+    made on ``device``: None is ``runia_core_tpu_torch.default_device()``,
+    the GPU. ``ResNet18``, ``ResNet34`` and ``ResNet50`` pass it through."""
 
     def __init__(
         self,
@@ -166,28 +170,31 @@ class ResNet(nn.Module):
         include_head: bool = True,
         torch_padding: bool = False,
         in_channels: int = 3,
+        device=None,
     ):
         super().__init__()
         self.dtype = dtype
         self.cifar_stem = cifar_stem
         self.include_head = include_head
         self.torch_padding = torch_padding
-        if cifar_stem:
-            self.conv_init = Conv(in_channels, num_filters, 3, padding=_padding_rule(torch_padding)(3))
-        else:
-            self.conv_init = Conv(in_channels, num_filters, 7, 2, padding=3)
-        self.bn_init = BatchNorm(num_filters)
-        features = num_filters
         self.stage_sizes = tuple(stage_sizes)
-        for i, size in enumerate(self.stage_sizes):
-            for j in range(size):
-                stride = 2 if i > 0 and j == 0 else 1
-                filters = num_filters * 2**i
-                block = block_cls(features, filters, stride, torch_padding)
-                self.add_module(f"stage{i + 1}_block{j}", block)
-                features = filters * block_cls.expansion
-        if include_head:
-            self.head = nn.Linear(features, num_classes)
+        # Every parameter and buffer is made on ``device`` (None: the GPU).
+        with torch.device(default_device() if device is None else device):
+            if cifar_stem:
+                self.conv_init = Conv(in_channels, num_filters, 3, padding=_padding_rule(torch_padding)(3))
+            else:
+                self.conv_init = Conv(in_channels, num_filters, 7, 2, padding=3)
+            self.bn_init = BatchNorm(num_filters)
+            features = num_filters
+            for i, size in enumerate(self.stage_sizes):
+                for j in range(size):
+                    stride = 2 if i > 0 and j == 0 else 1
+                    filters = num_filters * 2**i
+                    block = block_cls(features, filters, stride, torch_padding)
+                    self.add_module(f"stage{i + 1}_block{j}", block)
+                    features = filters * block_cls.expansion
+            if include_head:
+                self.head = nn.Linear(features, num_classes)
 
     def _max_pool(self, x: torch.Tensor) -> torch.Tensor:
         if self.torch_padding:

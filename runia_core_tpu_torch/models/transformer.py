@@ -10,6 +10,8 @@ from typing import Dict
 
 import torch
 
+from runia_core_tpu_torch import default_device
+
 __all__ = ["init_cache"]
 
 
@@ -18,11 +20,12 @@ def init_cache(model, batch: int, max_len: int, device=None) -> Dict:
 
     k and v are (batch, max_len, kv_heads, head_dim) in the model's dtype; a
     KV8 model (``quantized_kv``) stores them int8 with (batch, max_len,
-    kv_heads) f32 scales. ``device`` defaults to the model's. The model
-    writes into these tensors in place.
+    kv_heads) f32 scales. ``device`` is where the model lives: None is
+    ``runia_core_tpu_torch.default_device()``, the GPU, as for the model
+    itself. The model writes into these tensors in place.
     """
     if device is None:
-        device = next(model.parameters()).device
+        device = default_device()
     shape = (batch, max_len, model.num_kv_heads, model.head_dim)
 
     def layer():

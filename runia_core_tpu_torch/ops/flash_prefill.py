@@ -16,6 +16,11 @@ launches or raises. k, v and q may be strided views (the last dimension
 contiguous): the model hands over its (B, K, G, D) cache transposed, with no
 copy. The kernel's output is a (B, Hq, Tq, D) view of a (B, Tq, Hq, D)
 buffer, so the model's move back to (B, Tq, Hq * D) costs no copy either.
+
+bf16 queries (with a bf16 or an int8 cache) run both products on the tensor
+cores; f32 queries keep an f32 CUDA-core kernel. Views whose address or
+strides are not 16-byte aligned are taken too: the kernel stages them
+element by element instead of with 16-byte copies.
 """
 
 from __future__ import annotations
@@ -144,7 +149,7 @@ def flash_prefix_attention(
         b, hq, g, tq, kk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], *s_strides,
     )
     lib = _kernels.library()
-    with torch.cuda.device(q.device):
+    with _kernels.device_guard(q.device):
         code = lib.runia_flash_prefix_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), q_start.data_ptr(),
             kv_start.data_ptr(), k_scale.data_ptr() if kv8 else None, v_scale.data_ptr() if kv8 else None,

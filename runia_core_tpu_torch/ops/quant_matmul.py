@@ -14,21 +14,90 @@ weights::
 raises. :func:`quant_matmul_supported` states the kernel's contract; a caller
 takes another route for a shape outside it, before any launch, as
 ``models/llama.py::QDense`` does above 1024 rows.
+
+The kernel is a split-K weight stream: :func:`plan_split_k` cuts K into
+ranges so that every shape fills the card's SMs, each range is summed by its
+own block, and the last block to arrive at an output tile adds the partial
+sums in split order (see the note in the source).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
 from runia_core_tpu_torch import _kernels
 
-__all__ = ["MAX_ROWS", "quant_matmul", "quant_matmul_plain", "quant_matmul_supported"]
+__all__ = [
+    "MAX_ROWS", "SplitKPlan", "plan_split_k", "quant_matmul", "quant_matmul_plain", "quant_matmul_supported",
+]
 
 # Decode, speculative verify and lane-chunk prefill stay under it; above it a
 # product is compute-bound and one dequantized weight serves all the rows.
 MAX_ROWS = 1024
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The kernel's tiling (csrc/quant_matmul.cu: BN, KT) and the grid it aims at:
+# two blocks for each of the H100's 132 SMs (132, 330 and 528 blocks were
+# slower at the decode shapes).
+BLOCK_N = 128
+STAGE_K = 64
+TARGET_BLOCKS = 2 * 132
+
+
+class SplitKPlan(NamedTuple):
+    """How one product is cut into blocks: the grid is (n_tiles, splits,
+    row_blocks); split s sums K rows [s * k_per_split, min(K, (s + 1) *
+    k_per_split))."""
+
+    block_rows: int    # rows per block: 16, 32 or 64 (1, 2 or 4 m16 tiles)
+    row_blocks: int
+    n_tiles: int       # column tiles of BLOCK_N
+    splits: int
+    k_per_split: int   # a multiple of STAGE_K
+    scratch_floats: int  # f32 partial sums the launch needs (0 without a split)
+
+    @property
+    def blocks(self) -> int:
+        return self.n_tiles * self.splits * self.row_blocks
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_split_k(rows: int, k: int, n: int) -> SplitKPlan:
+    """Cut a (rows, K) @ (K, N) product for the kernel. Without a split the
+    grid has one block per (column tile, row block); K is split as many ways
+    as keeps the grid within TARGET_BLOCKS, in whole stages of STAGE_K rows,
+    so only the last range can be ragged."""
+    block_rows = 16 if rows <= 16 else 32 if rows <= 32 else 64
+    row_blocks = -(-rows // block_rows)
+    n_tiles = -(-n // BLOCK_N)
+    k_tiles = -(-k // STAGE_K)
+    want = min(k_tiles, max(1, TARGET_BLOCKS // (n_tiles * row_blocks)))
+    tiles_per_split = -(-k_tiles // want)
+    splits = -(-k_tiles // tiles_per_split)
+    scratch = splits * row_blocks * block_rows * n_tiles * BLOCK_N if splits > 1 else 0
+    return SplitKPlan(block_rows, row_blocks, n_tiles, splits, tiles_per_split * STAGE_K, scratch)
+
+
+_workspaces = {}  # (device index, stream) -> (f32 scratch, zeroed int32 tile counters)
+
+
+def _workspace(device: torch.device, stream: int, plan: SplitKPlan):
+    """The scratch of partial sums and the output tiles' arrival counters of
+    one stream. Launches of a stream run one after the other, so they share
+    both: the scratch is written before it is read within a launch, and the
+    counters are zero before a launch and set back to zero by it."""
+    key = (device.index, stream)
+    scratch, counters = _workspaces.get(key, (None, None))
+    tiles = plan.n_tiles * plan.row_blocks
+    if scratch is None or scratch.numel() < plan.scratch_floats or counters.numel() < tiles:
+        scratch = torch.empty((max(plan.scratch_floats, 1 << 22),), dtype=torch.float32, device=device)
+        counters = torch.zeros((max(tiles, 4096),), dtype=torch.int32, device=device)
+        _workspaces[key] = (scratch, counters)
+    return scratch, counters
 
 
 def quant_matmul_supported(rows: int) -> bool:
@@ -72,11 +141,15 @@ def quant_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torc
     out = torch.empty((rows, n), dtype=x.dtype, device=x.device)
     if n == 0 or k == 0:
         return out.zero_().reshape(*lead, n)
+    plan = plan_split_k(rows, k, n)
     lib = _kernels.library()
-    with torch.cuda.device(x.device):
+    with _kernels.device_guard(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        scratch, counters = _workspace(x.device, stream, plan)
         code = lib.runia_quant_matmul(
-            x2.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, k, n,
-            _DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream,
+            x2.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            counters.data_ptr(), rows, k, n, plan.block_rows, plan.splits, plan.k_per_split,
+            _DTYPE_CODES[x.dtype], stream,
         )
     _kernels.check(code, "quant_matmul")
     quant_matmul.launches += 1

@@ -92,6 +92,33 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(gen):
 QMM_BOUND = {torch.bfloat16: 8e-3, torch.float32: 1e-5}
 
 
+# The production Llama's int8 projections (K, N): qkv, gate|up, o, down, lm_head.
+_PROD_SHAPES = [(2048, 4096), (2048, 11264), (2048, 2048), (5632, 2048), (2048, 32000)]
+
+
+def _qmm_inputs(gen, rows, k, n, dtype, misaligned=False):
+    x = torch.randn((rows, k), generator=gen, device="cuda").to(dtype)
+    if misaligned:  # a contiguous weight that starts one byte into its buffer
+        wq = torch.randint(-127, 128, (k * n + 1,), generator=gen, device="cuda", dtype=torch.int8)[1:].view(k, n)
+        assert wq.data_ptr() % 16 != 0
+    else:
+        wq = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    scale = torch.rand((n,), generator=gen, device="cuda") * 1e-2 + 1e-3
+    return x, wq, scale
+
+
+def _check_qmm(x, wq, scale):
+    before = quant_matmul.launches
+    got = quant_matmul(x, wq, scale)
+    again = quant_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == before + 2 and got.dtype == x.dtype
+    assert torch.equal(got, again)  # the split-K sum does not depend on the order blocks ran in
+    want = quant_matmul_plain(x, wq, scale).float()
+    rel = float((got.float() - want).abs().max() / want.abs().max())
+    assert rel <= QMM_BOUND[x.dtype], rel
+
+
 @pytest.mark.parametrize("rows,k,n,dtype", [
     (16, 2048, 4096, torch.bfloat16), (16, 2048, 11264, torch.bfloat16), (16, 5632, 2048, torch.bfloat16),
     (16, 2048, 32000, torch.bfloat16), (1, 2048, 2048, torch.bfloat16), (13, 2048, 2048, torch.bfloat16),
@@ -99,16 +126,28 @@ QMM_BOUND = {torch.bfloat16: 8e-3, torch.float32: 1e-5}
     (16, 2048, 4096, torch.float32), (33, 129, 61, torch.float32),
 ])
 def test_quant_matmul_kernel_matches_plain(gen, rows, k, n, dtype):
-    x = torch.randn((rows, k), generator=gen, device="cuda").to(dtype)
-    wq = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
-    scale = torch.rand((n,), generator=gen, device="cuda") * 1e-2 + 1e-3
-    before = quant_matmul.launches
-    got = quant_matmul(x, wq, scale)
-    torch.cuda.synchronize()
-    assert quant_matmul.launches == before + 1 and got.dtype == dtype
-    want = quant_matmul_plain(x, wq, scale).float()
-    rel = float((got.float() - want).abs().max() / want.abs().max())
-    assert rel <= QMM_BOUND[dtype], rel
+    _check_qmm(*_qmm_inputs(gen, rows, k, n, dtype))
+
+
+@pytest.mark.parametrize("rows", [1, 13, 16, 17, 100, 512, 1024])
+@pytest.mark.parametrize("k,n", _PROD_SHAPES)
+def test_quant_matmul_kernel_at_the_production_shapes(gen, rows, k, n):
+    _check_qmm(*_qmm_inputs(gen, rows, k, n, torch.bfloat16))
+
+
+@pytest.mark.parametrize("rows,k,n,dtype,misaligned", [
+    (16, 1000, 1000, torch.bfloat16, False),   # ragged against every tile and split
+    (17, 1000, 1000, torch.float32, False),
+    (16, 2048, 2050, torch.bfloat16, False),   # N no multiple of 16: element-wise weight staging
+    (100, 1001, 2050, torch.bfloat16, False),  # K no multiple of 8: element-wise x staging
+    (16, 2048, 2048, torch.bfloat16, True),    # a misaligned weight
+    (64, 5632, 2048, torch.float32, True),
+    (1024, 5632, 2048, torch.float32, False),  # f32 x at the row limit
+    (16, 64, 128, torch.bfloat16, False),      # one stage, one tile
+    (16, 1, 1, torch.bfloat16, False),
+])
+def test_quant_matmul_kernel_edges(gen, rows, k, n, dtype, misaligned):
+    _check_qmm(*_qmm_inputs(gen, rows, k, n, dtype, misaligned))
 
 
 def test_quant_matmul_raises_on_inputs_it_does_not_take(gen):
@@ -160,8 +199,15 @@ def flash_bf16_within(got, want, q, k, v, q_start, kv_start=None, ks=None, vs=No
     return bool(((got.float() - want.float()).abs() <= bound).all())
 
 
-# f32: the JAX bound (tests/test_flash_prefill.py). bf16: flash_bf16_within.
-@pytest.mark.parametrize("name,b,hq,g,tq,kk,d,q_start,kv_start,dtype,kv8", [
+def _offset_view(t):
+    """A copy of t that starts one element into its buffer (no 16-byte alignment)."""
+    view = torch.empty((t.numel() + 1,), dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 != 0
+    return view
+
+
+_FLASH_CASES = [  # (name, B, Hq, G, Tq, K, D, q_start, kv_start, dtype, kv8)
     ("prefill", 2, 16, 8, 1024, 1280, 128, [0, 0], None, torch.bfloat16, False),
     ("chunked", 2, 16, 8, 256, 2048, 128, [0, 700], None, torch.bfloat16, False),
     ("left_pad", 3, 4, 2, 96, 160, 64, [0, 0, 40], [0, 70, 10], torch.bfloat16, False),
@@ -172,16 +218,42 @@ def flash_bf16_within(got, want, q, k, v, q_start, kv_start=None, ks=None, vs=No
     ("f32_kv8", 1, 4, 4, 70, 200, 64, [100], [7], torch.float32, True),
     ("f32_prefill", 8, 16, 8, 1024, 1280, 128, [0] * 8, None, torch.float32, False),  # the main path's shape
     ("f32_kv8_prefill", 8, 16, 8, 1024, 1280, 128, [0] * 8, None, torch.float32, True),
-])
-def test_flash_prefix_attention_kernel_matches_plain(gen, name, b, hq, g, tq, kk, d, q_start, kv_start, dtype, kv8):
+    # the tensor-core kernel: both head widths, KV8, windows with empty rows,
+    # Tq and K off the 64-row tiles, one row past a tile, windows that start
+    # and end inside one tile, a cache shorter than the queries' positions
+    ("d64_kv8", 2, 8, 4, 300, 500, 64, [0, 150], [0, 20], torch.bfloat16, True),
+    ("d128_kv8_left_pad", 3, 16, 8, 96, 160, 128, [0, 0, 40], [0, 70, 10], torch.bfloat16, True),
+    ("tq65", 2, 16, 8, 65, 129, 128, [0, 64], None, torch.bfloat16, False),
+    ("tq1", 2, 4, 4, 1, 77, 128, [5, 76], None, torch.bfloat16, False),
+    ("narrow_window", 2, 4, 2, 130, 400, 64, [100, 200], [97, 260], torch.bfloat16, False),
+    ("short_cache", 2, 4, 2, 100, 120, 128, [0, 60], None, torch.bfloat16, False),
+    ("short_cache_kv8", 2, 4, 2, 100, 120, 64, [0, 60], [3, 0], torch.bfloat16, True),
+    ("all_empty", 1, 4, 2, 70, 200, 128, [0], [150], torch.bfloat16, False),
+    ("mha", 1, 4, 4, 129, 129, 64, [0], None, torch.bfloat16, False),
+]
+# Every small case of the tensor-core kernel again through views that start
+# one element into their buffers (no 16-byte alignment).
+_FLASH_PARAMS = [(*case, "plain") for case in _FLASH_CASES] + [
+    (*case, "misaligned") for case in _FLASH_CASES if case[9] == torch.bfloat16 and case[1] < 8
+]
+
+
+# f32: the JAX bound (tests/test_flash_prefill.py). bf16: flash_bf16_within.
+@pytest.mark.parametrize("name,b,hq,g,tq,kk,d,q_start,kv_start,dtype,kv8,layout", _FLASH_PARAMS,
+                         ids=[f"{case[0]}-{case[-1]}" for case in _FLASH_PARAMS])
+def test_flash_prefix_attention_kernel_matches_plain(gen, name, b, hq, g, tq, kk, d, q_start, kv_start, dtype, kv8,
+                                                     layout):
     q, k, v, ks, vs = _flash_case(gen, b, hq, g, tq, kk, d, dtype, kv8)
     qs = torch.tensor(q_start, dtype=torch.int32, device="cuda")
     kvs = None if kv_start is None else torch.tensor(kv_start, dtype=torch.int32, device="cuda")
+    q_in, k_in, v_in = (q, k, v) if layout == "plain" else (_offset_view(q), _offset_view(k), _offset_view(v))
     before = (flash_prefix_attention.launches, flash_prefix_attention.kv8_launches)
-    got = flash_prefix_attention(q, k, v, qs, kvs, ks, vs)
+    got = flash_prefix_attention(q_in, k_in, v_in, qs, kvs, ks, vs)
+    again = flash_prefix_attention(q_in, k_in, v_in, qs, kvs, ks, vs)
     torch.cuda.synchronize()
-    assert flash_prefix_attention.launches == before[0] + 1
-    assert flash_prefix_attention.kv8_launches == before[1] + int(kv8)
+    assert flash_prefix_attention.launches == before[0] + 2
+    assert flash_prefix_attention.kv8_launches == before[1] + 2 * int(kv8)
+    assert torch.equal(got, again)
     want = reference_prefix_attention(q, k, v, qs, kvs, None, ks, vs)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
@@ -193,15 +265,23 @@ def test_flash_prefix_attention_kernel_matches_plain(gen, name, b, hq, g, tq, kk
             assert bool((got[row, :, :empty] == 0).all())
 
 
-def test_flash_reads_a_transposed_cache_and_skips_garbage(gen):
-    """The model's (B, K, G, D) cache as a transposed view, with NaN past the
-    written prefix: the kernel never reads it into a product."""
-    q, k, v, _, _ = _flash_case(gen, 2, 8, 4, 64, 512, 128, torch.bfloat16)
+@pytest.mark.parametrize("kv8", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_reads_a_transposed_cache_and_skips_garbage(gen, d, kv8):
+    """The model's (B, K, G, D) cache as a transposed view, with garbage past
+    the written prefix (NaN values; in KV8, NaN scales): the kernel never
+    reads it into a product."""
+    q, k, v, ks, vs = _flash_case(gen, 2, 8, 4, 64, 512, d, torch.bfloat16, kv8)
     cache_k, cache_v = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-    cache_k[:, 300:], cache_v[:, 300:] = float("nan"), float("nan")
+    if kv8:
+        cache_k[:, 300:], cache_v[:, 300:] = 127, -127
+        ks[:, 300:], vs[:, 300:] = float("nan"), float("nan")
+    else:
+        cache_k[:, 300:], cache_v[:, 300:] = float("nan"), float("nan")
     qs = torch.tensor([0, 200], dtype=torch.int32, device="cuda")  # last key 263
-    got = flash_prefix_attention(q, cache_k.transpose(1, 2), cache_v.transpose(1, 2), qs)
-    want = reference_prefix_attention(q, k, v, qs)
+    got = flash_prefix_attention(q, cache_k.transpose(1, 2), cache_v.transpose(1, 2), qs, None, ks, vs)
+    want = reference_prefix_attention(q, k, v, qs, None, None, ks, vs)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got).all())
-    assert flash_bf16_within(got, want, q, k, v, [0, 200])
+    clean = (None, None) if not kv8 else (ks.nan_to_num(0.0), vs.nan_to_num(0.0))
+    assert flash_bf16_within(got, want, q, k, v, [0, 200], None, *clean)

@@ -31,8 +31,8 @@ NEW = 5
 def pair():
     jm = JaxLlamaLM(**CFG, use_flash=True)
     params = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.key(0), jnp.zeros((1, 8), jnp.int32)))
-    port = LlamaLM(**CFG, use_flash=True)
-    port.load_state_dict(llama_from_flax(params))
+    port = LlamaLM(**CFG, use_flash=True, device="cpu")
+    port.load_state_dict(llama_from_flax(params, device="cpu"))
     return JaxGenerator(jm, params, max_new_tokens=NEW, eos_id=None), TorchGenerator(port, max_new_tokens=NEW)
 
 

@@ -70,8 +70,8 @@ def fitted():
     for det in detectors.values():
         det.setup(h_pca)
 
-    port = ResNet18(num_classes=10, cifar_stem=True, num_filters=8)
-    port.load_state_dict(resnet_from_flax(variables))
+    port = ResNet18(num_classes=10, cifar_stem=True, num_filters=8, device="cpu")
+    port.load_state_dict(resnet_from_flax(variables, device="cpu"))
     images = rng.rand(N_SCORE, 32, 32, 3).astype(np.float32)
     key = jax.random.key(7)
     weights = torch.tensor(np.asarray(jax_mc_weights(key, N_SCORE, 4, 4, S, BS, P)))
@@ -94,8 +94,8 @@ def test_scorer_matches_jax(fitted, detector, fused):
                                        detector=detector)
     want_logits, want = jax_score(jnp.asarray(fitted["images"]), fitted["key"])
     score = build_larex_scorer(
-        build_tapped_forward(fitted["port"]), pca_state_from_arrays(fitted["pca_state"]),
-        detector_state_from_arrays(det.state), S, P, BS, detector=detector, fused=fused,
+        build_tapped_forward(fitted["port"]), pca_state_from_arrays(fitted["pca_state"], device="cpu"),
+        detector_state_from_arrays(det.state, device="cpu"), S, P, BS, detector=detector, fused=fused,
     )
     logits, scores = score(torch.from_numpy(fitted["images"]), weights=fitted["weights"])
     assert scores.shape == (N_SCORE,) and bool(torch.isfinite(scores).all())
@@ -110,10 +110,10 @@ def test_larex_inference_get_score_matches_jax(fitted):
         fitted["forward"], jax_det, P, BS, S, pca_transform=fitted["pca_state"]
     ).get_score(jnp.asarray(fitted["images"]), key=fitted["key"])
     det = MDLatentSpace()
-    det.load_state(detector_state_from_arrays(jax_det.state))
+    det.load_state(detector_state_from_arrays(jax_det.state, device="cpu"))
     inference = LaRExInference(
         build_tapped_forward(fitted["port"]), det, P, BS, S,
-        pca_transform=pca_state_from_arrays(fitted["pca_state"]),
+        pca_transform=pca_state_from_arrays(fitted["pca_state"], device="cpu"),
     )
     outputs, scores = inference.get_score(torch.from_numpy(fitted["images"]), weights=fitted["weights"])
     _scores_close(scores.numpy(), np.asarray(want))

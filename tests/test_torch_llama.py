@@ -68,8 +68,8 @@ def _jax_params(seed=0, **kw):
 def _pair(params, **kw):
     """(JAX model, port model) of one configuration on the same weights;
     the JAX side never sees use_flash (it runs dense off the TPU anyway)."""
-    port = LlamaLM(**CFG, **kw)
-    port.load_state_dict(llama_from_flax(params))
+    port = LlamaLM(**CFG, **kw, device="cpu")
+    port.load_state_dict(llama_from_flax(params, device="cpu"))
     return JaxLlamaLM(**CFG, **{k: v for k, v in kw.items() if k != "use_flash"}), port
 
 
@@ -92,7 +92,7 @@ def _run_cached(jm, params, port, tokens, steps=3, chunks=(T,), **port_kw):
     ``steps`` tokens; yields (jax logits, port logits, jax attn, port attn)
     per call."""
     b = tokens.shape[0]
-    jcache, pcache = jax_init_cache(jm, b, CACHE), init_cache(port, b, CACHE)
+    jcache, pcache = jax_init_cache(jm, b, CACHE), init_cache(port, b, CACHE, device="cpu")
     rng = np.random.RandomState(1)
     calls, start = [], 0
     for size in chunks:
@@ -153,7 +153,7 @@ def test_kv8_cache(base, tokens, use_flash):
 def test_kv8_cache_contents(base, tokens):
     jm, port = _pair(base, quantized_kv=True)
     jcache = jm.apply(base, jnp.asarray(tokens), jax_init_cache(jm, 2, CACHE), jnp.int32(0))[3]
-    pcache = port(torch.from_numpy(tokens).long(), init_cache(port, 2, CACHE), 0)[3]
+    pcache = port(torch.from_numpy(tokens).long(), init_cache(port, 2, CACHE, device="cpu"), 0)[3]
     for jl, pl in zip(jcache["layers"], pcache["layers"]):
         for name in ("k", "v"):
             diff = np.abs(np.asarray(jl[name], np.int32) - pl[name].numpy().astype(np.int32))
@@ -164,7 +164,7 @@ def test_kv8_cache_contents(base, tokens):
 def test_quantization_matches_jax_exactly(base):
     _, port = _pair(base)
     ours = fuse_quantized_llama_params(quantize_llama_params(port.state_dict()))
-    theirs = llama_from_flax(jax_fuse(jax_quantize(base)))
+    theirs = llama_from_flax(jax_fuse(jax_quantize(base)), device="cpu")
     assert sorted(ours) == sorted(theirs)
     for name, value in ours.items():
         assert value.dtype == theirs[name].dtype and torch.equal(value, theirs[name]), name
@@ -212,7 +212,7 @@ def test_per_row_cache_index(base, tokens):
     """A (B,) cache_index writes and attends each row at its own offset."""
     jm, port = _pair(base)
     idx = np.asarray([3, 9], np.int32)
-    jcache, pcache = jax_init_cache(jm, 2, 32), init_cache(port, 2, 32)
+    jcache, pcache = jax_init_cache(jm, 2, 32), init_cache(port, 2, 32, device="cpu")
     chunk = tokens[:, :4]
     lj, aj, _, jcache = jm.apply(base, jnp.asarray(chunk), jcache, jnp.asarray(idx))
     lp, ap, _, pcache = port(torch.from_numpy(chunk).long(), pcache, torch.from_numpy(idx))
@@ -227,8 +227,8 @@ def test_bf16_model(base, tokens):
 
     bf16 = {"params": jax.tree_util.tree_map_with_path(store, base["params"])}
     jm = JaxLlamaLM(**CFG, dtype=jnp.bfloat16)
-    port = LlamaLM(**CFG, dtype=torch.bfloat16, use_flash=True)
-    port.load_state_dict(llama_from_flax(bf16))
+    port = LlamaLM(**CFG, dtype=torch.bfloat16, use_flash=True, device="cpu")
+    port.load_state_dict(llama_from_flax(bf16, device="cpu"))
     assert port.block_0.q.kernel.dtype == torch.bfloat16
     for lj, lp, _, _ in _run_cached(jm, bf16, port, tokens, need_attentions=False):
         assert lp.dtype == np.float32
@@ -237,4 +237,4 @@ def test_bf16_model(base, tokens):
 
 def test_moe_is_not_ported_yet():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LlamaLM(**CFG, num_experts=4)
+        LlamaLM(**CFG, num_experts=4, device="cpu")

@@ -132,8 +132,8 @@ def test_compute_uncertainties_end_to_end():
     cfg = dict(vocab_size=128, num_layers=2, num_heads=4, num_kv_heads=2, d_model=64, hidden_dim=128, max_len=256)
     jm = JaxLlamaLM(**cfg)
     params = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.key(1), jnp.zeros((1, 8), jnp.int32)))
-    port = LlamaLM(**cfg)
-    port.load_state_dict(llama_from_flax(params))
+    port = LlamaLM(**cfg, device="cpu")
+    port.load_state_dict(llama_from_flax(params, device="cpu"))
     prompt = list(np.random.RandomState(3).randint(1, 128, 24))
     jtext, want = jax_compute_uncertainties(JaxGenerator(jm, params, max_new_tokens=6), None, prompt, REQUESTS,
                                             num_samples=3)

@@ -12,7 +12,20 @@ import pytest
 import torch
 
 import runia_core_tpu_torch
-from runia_core_tpu_torch import _kernels
+from runia_core_tpu_torch import _kernels, default_device
+from runia_core_tpu_torch.models import (
+    LlamaLM,
+    ResNet,
+    ResNet18,
+    ResNet34,
+    ResNet50,
+    detector_state_from_arrays,
+    init_cache,
+    llama_from_flax,
+    pca_state_from_arrays,
+    resnet_from_flax,
+)
+from runia_core_tpu_torch.models.resnet import ResNetBlock
 from runia_core_tpu_torch.ops.entropy import marginal_entropy
 from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda
 from runia_core_tpu_torch.ops.flash_prefill import flash_prefix_attention
@@ -77,3 +90,90 @@ def test_cpu_calls_take_the_plain_versions_and_launch_nothing():
 
 def test_package_exposes_its_version():
     assert runia_core_tpu_torch.__version__
+
+
+def test_default_device_is_cuda_and_does_not_probe():
+    assert default_device() == torch.device("cuda")
+    source = (PACKAGE / "__init__.py").read_text()
+    assert "is_available" not in source and "device_count" not in source
+
+
+_TINY_LLAMA = dict(vocab_size=17, num_layers=1, num_heads=2, num_kv_heads=1, d_model=8, hidden_dim=16, max_len=8)
+
+
+def _llama(device="cpu", **kw):
+    return LlamaLM(**_TINY_LLAMA, device=device, **kw)
+
+
+class _PCA:
+    mean, components, explained_variance, whiten = np.zeros(3), np.eye(3)[:2], np.ones(2), True
+
+
+_ON_CPU = {
+    "LlamaLM": lambda: list(_llama().parameters()),
+    "LlamaLM_int8": lambda: list(_llama(quantized=True, quantized_kv=True, fused_qkv=True).parameters()),
+    "ResNet": lambda: list(ResNet((1, 1), ResNetBlock, 3, num_filters=4, device="cpu").state_dict().values()),
+    "ResNet18": lambda: list(ResNet18(num_classes=3, num_filters=4, device="cpu").state_dict().values()),
+    "ResNet34": lambda: list(ResNet34(num_classes=3, num_filters=4, device="cpu").state_dict().values()),
+    "ResNet50": lambda: list(ResNet50(num_classes=3, num_filters=4, device="cpu").state_dict().values()),
+    "init_cache": lambda: [t for layer in init_cache(_llama(), 2, 8, device="cpu")["layers"] for t in layer.values()],
+    "init_cache_kv8": lambda: [
+        t for layer in init_cache(_llama(quantized=True, quantized_kv=True), 2, 8, device="cpu")["layers"]
+        for t in layer.values()
+    ],
+    "pca_state_from_arrays": lambda: [
+        getattr(pca_state_from_arrays(_PCA, device="cpu"), name) for name in ("mean", "components", "explained_variance")
+    ],
+    "detector_state_from_arrays": lambda: [
+        detector_state_from_arrays({"feats_mean": np.zeros(3), "precision": np.eye(3)}, device="cpu")[name]
+        for name in ("feats_mean", "precision")
+    ],
+    "resnet_from_flax": lambda: list(resnet_from_flax(
+        {"params": {"conv_init": {"kernel": np.zeros((3, 3, 3, 4))}, "bn_init": {"scale": np.ones(4)}},
+         "batch_stats": {"bn_init": {"mean": np.zeros(4)}}}, device="cpu").values()),
+    "llama_from_flax": lambda: list(llama_from_flax(
+        {"params": {"embed": {"embedding": np.zeros((17, 8), np.float32)},
+                    "block_0": {"q": {"kernel_q": np.zeros((8, 8), np.int8)}}}}, device="cpu").values()),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ON_CPU))
+def test_constructors_and_converters_land_on_the_cpu_when_asked(name):
+    tensors = _ON_CPU[name]()
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
+
+
+@pytest.mark.parametrize("name", ["LlamaLM", "ResNet18", "init_cache", "pca_state_from_arrays",
+                                  "detector_state_from_arrays", "resnet_from_flax", "llama_from_flax"])
+def test_the_default_device_is_the_card_and_nothing_falls_back(name):
+    """With no ``device`` the constructors and converters go to the GPU: on a
+    host without one the first allocation raises; nothing carries on on the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the CPU-only host")
+    calls = {
+        "LlamaLM": lambda: LlamaLM(**_TINY_LLAMA),
+        "ResNet18": lambda: ResNet18(num_classes=3, num_filters=4),
+        "init_cache": lambda: init_cache(_llama(), 2, 8),
+        "pca_state_from_arrays": lambda: pca_state_from_arrays(_PCA),
+        "detector_state_from_arrays": lambda: detector_state_from_arrays({"feats_mean": np.zeros(3)}),
+        "resnet_from_flax": lambda: resnet_from_flax({"params": {"bn_init": {"scale": np.ones(4)}}}),
+        "llama_from_flax": lambda: llama_from_flax({"params": {"embed": {"embedding": np.zeros((2, 2), np.float32)}}}),
+    }
+    with pytest.raises((RuntimeError, AssertionError)):
+        calls[name]()
+
+
+def test_no_entry_point_tests_for_a_gpu():
+    """Only the kernel loader and the timers, which raise without a GPU, ask
+    whether there is one; no model, cache or converter does."""
+    asking = sorted(
+        str(path.relative_to(PACKAGE)) for path in PACKAGE.rglob("*.py") if "is_available" in path.read_text()
+    )
+    assert asking == ["_kernels.py", "utils/timing.py"]
+
+
+def test_chip_smoke_imports_no_jax_and_passes_no_device_to_the_models():
+    source = (REPO / "chip_smoke.py").read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|flax|runia_core_tpu)(\.|\s|$)", source, re.M)
+    assert "with torch.device(" not in source

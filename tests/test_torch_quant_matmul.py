@@ -15,7 +15,10 @@ import jax.numpy as jnp
 from runia_core_tpu.ops.quant_matmul import quant_matmul as jax_quant_matmul
 from runia_core_tpu_torch.models.llama import QDense
 from runia_core_tpu_torch.ops.quant_matmul import (
+    BLOCK_N,
     MAX_ROWS,
+    STAGE_K,
+    plan_split_k,
     quant_matmul,
     quant_matmul_plain,
     quant_matmul_supported,
@@ -78,3 +81,39 @@ def test_qdense_routes_by_rows_and_matches_the_dequantized_product(rows):
     want = x @ (wq.astype(np.float32) * scale[None, :])
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     assert quant_matmul.launches == before  # a CPU tensor launches nothing
+
+
+# The production Llama's int8 projections (K, N): qkv, gate|up, o, down, lm_head.
+_PROD_SHAPES = [(2048, 4096), (2048, 11264), (2048, 2048), (5632, 2048), (2048, 32000)]
+
+
+@pytest.mark.parametrize("rows", [1, 16, 17, 512, 1024])
+@pytest.mark.parametrize("k,n", _PROD_SHAPES + [(1000, 1000), (100, 37), (64, 2050), (65, 128), (5632, 1)])
+def test_split_k_plan_covers_k_once_and_sizes_the_scratch(rows, k, n):
+    plan = plan_split_k(rows, k, n)
+    assert plan.block_rows in (16, 32, 64) and plan.block_rows * plan.row_blocks >= rows
+    assert plan.block_rows * (plan.row_blocks - 1) < rows
+    assert plan.n_tiles == -(-n // BLOCK_N)
+    # The ranges [s * k_per_split, min(K, (s + 1) * k_per_split)) tile K exactly once.
+    assert plan.k_per_split % STAGE_K == 0 and plan.splits >= 1
+    covered = [0] * k
+    for split in range(plan.splits):
+        lo, hi = split * plan.k_per_split, min(k, (split + 1) * plan.k_per_split)
+        assert lo < hi, "no empty split"
+        if split < plan.splits - 1:
+            assert (hi - lo) % STAGE_K == 0  # only the last range may be ragged
+        for j in range(lo, hi):
+            covered[j] += 1
+    assert covered == [1] * k
+    want_scratch = plan.splits * plan.row_blocks * plan.block_rows * plan.n_tiles * BLOCK_N if plan.splits > 1 else 0
+    assert plan.scratch_floats == want_scratch
+    assert plan.blocks == plan.n_tiles * plan.splits * plan.row_blocks
+
+
+@pytest.mark.parametrize("rows", [1, 16])
+@pytest.mark.parametrize("k,n", _PROD_SHAPES)
+def test_split_k_plan_fills_the_card_at_the_decode_shapes(rows, k, n):
+    """At decode every projection gets at least one block for each of the
+    H100's 132 SMs, and no more than four."""
+    plan = plan_split_k(rows, k, n)
+    assert 132 <= plan.blocks <= 4 * 132

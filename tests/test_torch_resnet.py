@@ -68,8 +68,8 @@ def test_logits_and_taps_match_flax(case):
     variables = {name: randomize(init[name], rng) for name in ("params", "batch_stats")}
     want_logits, want_taps = model.apply(variables, jnp.asarray(images))
 
-    port = torch_resnet.ResNet(num_classes=10, num_filters=8, **torch_kw)
-    port.load_state_dict(resnet_from_flax(variables), strict=True)
+    port = torch_resnet.ResNet(num_classes=10, num_filters=8, device="cpu", **torch_kw)
+    port.load_state_dict(resnet_from_flax(variables, device="cpu"), strict=True)
     logits, taps = build_tapped_forward(port, TAPS)(torch.from_numpy(images))
     _close(logits.numpy(), np.asarray(want_logits))
     for name in TAPS:
@@ -86,7 +86,7 @@ def test_same_padding_is_xla_same():
 
 
 def test_channel_first_taps_and_bf16_compute():
-    port = torch_resnet.ResNet18(num_classes=10, cifar_stem=True, num_filters=8)
+    port = torch_resnet.ResNet18(num_classes=10, cifar_stem=True, num_filters=8, device="cpu")
     port.init_weights(torch.Generator().manual_seed(0))
     images = torch.rand(2, 16, 16, 3, generator=torch.Generator().manual_seed(1))
     _, taps = build_tapped_forward(port, ("pre_pool",), channel_first_taps=True)(images)

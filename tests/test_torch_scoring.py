@@ -87,7 +87,7 @@ def test_pca_fit_and_transform_match_jax_with_signs(whiten):
     want = np.asarray(jax_pca_transform(want_state, jnp.asarray(test)))
     _close(pca_transform(got_state, torch.from_numpy(test)).numpy(), want)
     # The JAX state carried across gives the same projection.
-    _close(apply_pca_transform(test, pca_state_from_arrays(want_state)).numpy(), want)
+    _close(apply_pca_transform(test, pca_state_from_arrays(want_state, device="cpu")).numpy(), want)
     assert got_state.n_components_ == 8
     with pytest.raises(NotImplementedError):
         pca_fit(x, 8, svd_solver="randomized")
@@ -102,7 +102,7 @@ def test_md_latent_space_matches_jax():
     want = jmd.postprocess(test)
     np.testing.assert_allclose(md.postprocess(test).numpy(), want, rtol=1e-4, atol=1e-3)
     loaded = MDLatentSpace()
-    loaded.load_state(detector_state_from_arrays(jmd.state))
+    loaded.load_state(detector_state_from_arrays(jmd.state, device="cpu"))
     np.testing.assert_allclose(loaded.postprocess(test).numpy(), want, rtol=1e-4, atol=1e-3)
     assert postprocessors_dict["LaREM"] is MDLatentSpace
     with pytest.warns(UserWarning):
@@ -117,7 +117,7 @@ def test_kde_latent_space_matches_jax():
     want = jkde.postprocess(test)
     np.testing.assert_allclose(kde.postprocess(test).numpy(), want, rtol=1e-5, atol=1e-4)
     loaded = KDELatentSpace()
-    loaded.load_state(detector_state_from_arrays(jkde.state))
+    loaded.load_state(detector_state_from_arrays(jkde.state, device="cpu"))
     np.testing.assert_allclose(loaded.postprocess(test).numpy(), want, rtol=1e-5, atol=1e-4)
     # Row chunking does not change the result.
     got = kde_log_density(torch.from_numpy(test), torch.from_numpy(train), 0.7, row_chunk=7).numpy()
