@@ -34,10 +34,11 @@ NVCC_FLAGS = (
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # (clouds, out, B, n, d, k, block width, min_dist, const, stream)
-    "runia_marginal_entropy": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
-    # (weights, fmap, out, B, S, HW, C, k, block width, min_dist, const, stream)
-    "runia_fused_mc_entropy": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # (clouds, out, B, n, d, k, register width, static k, block width, min_dist, const, stream)
+    "runia_marginal_entropy": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # (weights, fmap, out, B, S, HW, C, k, register width, sample-minor weights,
+    #  static k, block width, bf16 map, min_dist, const, stream)
+    "runia_fused_mc_entropy": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
     # (x, wq, scale, out, scratch, counters, rows, K, N, block rows, splits,
     #  K per split, dtype, stream)
     "runia_quant_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -34,6 +34,7 @@ from runia_core_tpu_torch.evaluation.entropy import neighbors_for
 from runia_core_tpu_torch.ops.entropy import marginal_entropy
 from runia_core_tpu_torch.ops.linalg import mahalanobis_quadform
 from runia_core_tpu_torch.ops.mc_entropy_cuda import (
+    MAP_DTYPES,
     fused_mc_entropy,
     fused_mc_entropy_plain,
     fused_mc_entropy_supported,
@@ -172,17 +173,22 @@ def build_larex_scorer(
         # Scoring is f32 whatever the forward's dtype. A channels_last
         # forward gives an NHWC tap that is already contiguous, so
         # .contiguous() makes no copy on the GPU.
-        latent = taps[tap].to(torch.float32).contiguous()
+        latent = taps[tap]
         b, h, w, _ = latent.shape
         if weights is None:
             weights = mc_dropblock_weights(
                 b, h, w, mcd_samples_nro, drop_block_size, drop_block_prob, generator, latent.device
             )
         if fused and fused_mc_entropy_supported(mcd_samples_nro, h * w, k_neighbors):
-            h_z = fused_mc_entropy(weights, latent, k_neighbors)
+            # The kernel widens a bf16 tap in registers (exact), so the f32
+            # copy is never made.
+            if latent.dtype not in MAP_DTYPES:
+                latent = latent.to(torch.float32)
+            h_z = fused_mc_entropy(weights, latent.contiguous(), k_neighbors)
         elif fused:
             h_z = fused_mc_entropy_plain(weights, latent, k_neighbors)
         else:
+            latent = latent.to(torch.float32).contiguous()
             mc = mc_dropblock_samples(
                 latent, mcd_samples_nro, drop_block_size, drop_block_prob, "Conv",
                 channel_axis=3, weights=weights,

@@ -17,6 +17,8 @@ on the CPU.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 __all__ = ["joint_entropy", "marginal_entropy"]
@@ -30,11 +32,13 @@ def _kth_nn_distance(pairwise: torch.Tensor, k: int) -> torch.Tensor:
     return torch.kthvalue(pairwise, k + 1, dim=-1).values
 
 
+@functools.lru_cache(maxsize=128)
 def _digamma_const(k: int, n: int) -> float:
     """-psi(k) + psi(n) in float64 on the host (k and n are Python ints).
 
     The single source of the estimator's constant for every path, the CUDA
     kernels included; an f32 digamma on the device would differ from it.
+    Cached: a scorer asks for the same (k, n) on every call.
     """
     from scipy.special import digamma
 
@@ -62,7 +66,7 @@ def marginal_entropy(clouds: torch.Tensor, k: int, min_dist: float = 1e-5) -> to
     """Marginal h(z_i) per cloud and dimension: (B, n, d) -> (B, d).
 
     The route is chosen by shape, before any launch: where the CUDA kernel
-    takes (n, k) (``marginal_entropy_supported``: k <= 15, n <= 512), the
+    takes (n, k) (``marginal_entropy_supported``: k < n <= 512), the
     kernel's wrapper runs, which launches it on a CUDA tensor and takes the
     sorted-window plain version on a CPU tensor; any other shape takes the
     sorted-window form on either device. All routes select the same f32
@@ -75,8 +79,9 @@ def marginal_entropy(clouds: torch.Tensor, k: int, min_dist: float = 1e-5) -> to
     return marginal_entropy_cuda(clouds, k, min_dist)
 
 
-def _marginal_entropy_sorted(clouds: torch.Tensor, k: int, min_dist: float = 1e-5) -> torch.Tensor:
-    """Sorted-window form: (B, n, d) -> (B, d).
+def _sorted_kth_distances(clouds: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, n, d) -> (B, n, d): per column, in ascending order of its points,
+    each point's distance to its k-th nearest neighbour (unclamped).
 
     The clouds are scalar per dimension, so after sorting each column the k
     nearest neighbours of point i form a contiguous window around it:
@@ -95,7 +100,13 @@ def _marginal_entropy_sorted(clouds: torch.Tensor, k: int, min_dist: float = 1e-
         right = xp[:, 2 * k - a : 2 * k - a + n] - center
         cand = torch.maximum(left, right)
         kth = cand if kth is None else torch.minimum(kth, cand)
-    eps = torch.clamp_min(kth, min_dist)
+    return kth
+
+
+def _marginal_entropy_sorted(clouds: torch.Tensor, k: int, min_dist: float = 1e-5) -> torch.Tensor:
+    """Sorted-window form: (B, n, d) -> (B, d), from :func:`_sorted_kth_distances`."""
+    n = clouds.shape[1]
+    eps = torch.clamp_min(_sorted_kth_distances(clouds, k), min_dist)
     return _digamma_const(k, n) + torch.log(2.0 * eps).sum(dim=1) / n
 
 

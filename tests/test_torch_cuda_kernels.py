@@ -34,17 +34,34 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize("b,n,d,k", [
+def _offset_view(t):
+    """A copy of t that starts one element into its buffer (no 16-byte alignment)."""
+    view = torch.empty((t.numel() + 1,), dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 != 0
+    return view
+
+
+_ENTROPY_SHAPES = [
     (512, 16, 512, 5), (3, 4, 300, 3), (1, 16, 1, 5), (7, 64, 130, 15), (5, 2, 129, 1), (9, 32, 64, 8),
     (16, 100, 300, 5), (4, 300, 200, 5), (2, 512, 70, 15),  # past the old n <= 64 (dynamic shared memory)
-])
+    (3, 40, 70, 16), (2, 100, 40, 99),  # k past the 15 it was held to as a template parameter
+] + [
+    # around every register width and chunk edge, with the least, the usual and the largest k
+    (3, n, 70, k) for n in (5, 8, 17, 31, 32, 33, 64, 65, 128, 257) for k in sorted({1, min(5, n - 1), n - 1})
+]
+
+
+@pytest.mark.parametrize("b,n,d,k", _ENTROPY_SHAPES)
 def test_marginal_entropy_kernel_matches_plain(gen, b, n, d, k):
     clouds = torch.randn((b, n, d), generator=gen, device="cuda")
     clouds[:, : n // 2, : d // 2] = 0.0  # exact duplicates, as DropBlock makes
     before = marginal_entropy_cuda.launches
     got = marginal_entropy_cuda(clouds, k)
+    again = marginal_entropy_cuda(clouds, k)
     torch.cuda.synchronize()
-    assert marginal_entropy_cuda.launches == before + 1
+    assert marginal_entropy_cuda.launches == before + 2
+    assert torch.equal(got, again)  # no atomics: two runs are bit-identical
     torch.testing.assert_close(got, marginal_entropy_plain(clouds, k), rtol=0, atol=ENTROPY_ATOL)
 
 
@@ -55,25 +72,67 @@ def test_marginal_entropy_kernel_integer_ties(gen):
     )
 
 
-@pytest.mark.parametrize("b,h,w,c,s,bs,p", [
+@pytest.mark.parametrize("n", [16, 32, 100])
+@pytest.mark.parametrize("order", ["sorted", "reversed", "all_equal", "outliers_1e20"])
+def test_marginal_entropy_kernel_column_orders(gen, n, order):
+    """Columns the sort meets already ascending, descending or constant, and
+    columns with one value at +1e20 and one at -1e20 (their distances stay
+    far below the 1e30 padding)."""
+    clouds = torch.randn((4, n, 96), generator=gen, device="cuda")
+    if order == "sorted":
+        clouds = clouds.sort(dim=1).values
+    elif order == "reversed":
+        clouds = clouds.sort(dim=1, descending=True).values
+    elif order == "all_equal":
+        clouds = clouds[:, :1].expand(-1, n, -1)
+    else:
+        clouds[:, 1], clouds[:, n - 2] = 1e20, -1e20
+    clouds = clouds.contiguous()
+    torch.testing.assert_close(
+        marginal_entropy_cuda(clouds, 5), marginal_entropy_plain(clouds, 5), rtol=0, atol=ENTROPY_ATOL
+    )
+
+
+@pytest.mark.parametrize("n", [16, 40])
+@pytest.mark.parametrize("d", [1, 3, 127, 130])
+def test_marginal_entropy_kernel_ragged_and_misaligned_d(gen, n, d):
+    """d off every block and vector width, in a view that starts one element
+    into its buffer (4-byte aligned only)."""
+    clouds = _offset_view(torch.randn((5, n, d), generator=gen, device="cuda"))
+    assert clouds.is_contiguous() and clouds.data_ptr() % 8 != 0
+    torch.testing.assert_close(
+        marginal_entropy_cuda(clouds, 5), marginal_entropy_plain(clouds, 5), rtol=0, atol=ENTROPY_ATOL
+    )
+
+
+_FUSED_SHAPES = [
     (512, 4, 4, 512, 16, 3, 0.5), (8, 7, 7, 2048, 16, 3, 0.5), (3, 8, 8, 130, 8, 2, 0.3),
     (2, 14, 14, 64, 64, 5, 0.5),  # 64 x 196 keep-weights: above 48 KB of shared memory
     (4, 4, 4, 300, 300, 3, 0.5), (2, 7, 7, 200, 512, 3, 0.5),  # S past the old 64; narrower blocks
-])
-def test_fused_kernel_matches_plain(gen, b, h, w, c, s, bs, p):
-    fmap = torch.rand((b, h, w, c), generator=gen, device="cuda")
+    (2, 56, 56, 40, 17, 3, 0.5),  # S = 17 at a tap whose padded sample-minor rows pass 227 KB: the (S, HW) layout
+] + [(3, 4, 4, 130, s, 3, 0.5) for s in (8, 17, 32, 33, 64)]  # around every register width and chunk edge
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32_map", "bf16_map"])
+@pytest.mark.parametrize("b,h,w,c,s,bs,p", _FUSED_SHAPES)
+def test_fused_kernel_matches_plain(gen, b, h, w, c, s, bs, p, dtype):
+    fmap = torch.rand((b, h, w, c), generator=gen, device="cuda").to(dtype)
     weights = mc_dropblock_weights(b, h, w, s, bs, p, gen, "cuda")
     before = fused_mc_entropy.launches
     got = fused_mc_entropy(weights, fmap)
+    again = fused_mc_entropy(weights, fmap)
     torch.cuda.synchronize()
-    assert fused_mc_entropy.launches == before + 1
+    assert fused_mc_entropy.launches == before + 2
+    assert torch.equal(got, again)  # no atomics: two runs are bit-identical
     # The bound of tests/test_mc_entropy_fused.py: the products sum in another order.
     torch.testing.assert_close(got, fused_mc_entropy_plain(weights, fmap), rtol=1e-4, atol=1e-5)
+    if dtype == torch.bfloat16:  # widening in registers is exact: the f32 copy gives the same bits
+        assert torch.equal(got, fused_mc_entropy(weights, fmap.float()))
 
 
 def test_wrappers_raise_on_inputs_the_kernels_do_not_take(gen):
     clouds = torch.randn((4, 16, 32), generator=gen, device="cuda")
-    for bad, k in ((clouds.transpose(1, 2), 5), (clouds.double(), 5), (clouds, 16), (clouds, 0)):
+    for bad, k in ((clouds.transpose(1, 2), 5), (clouds.double(), 5), (clouds.bfloat16(), 5), (clouds, 16), (clouds, 0)):
         with pytest.raises(ValueError):
             marginal_entropy_cuda(bad, k)
     with pytest.raises(ValueError):
@@ -84,6 +143,9 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(gen):
         fused_mc_entropy(weights[:, :, :8].contiguous(), fmap)
     with pytest.raises(ValueError):
         fused_mc_entropy(weights, fmap.permute(0, 2, 1, 3))
+    for bad_weights, bad_map in ((weights, fmap.half()), (weights.bfloat16(), fmap), (weights, fmap.double())):
+        with pytest.raises(ValueError):
+            fused_mc_entropy(bad_weights, bad_map)
 
 
 # quant_matmul: relative to max|ref|, one bf16 ulp in bf16 (the kernel and
@@ -197,14 +259,6 @@ def flash_bf16_within(got, want, q, k, v, q_start, kv_start=None, ks=None, vs=No
     spread = torch.einsum("bgrtk,bgkd->bgrtd", probs.square(), vf.square()).sqrt().reshape(b, hq, tq, d)
     bound = 2.0**-7 * want.float().abs() + 2.0**-6 * spread
     return bool(((got.float() - want.float()).abs() <= bound).all())
-
-
-def _offset_view(t):
-    """A copy of t that starts one element into its buffer (no 16-byte alignment)."""
-    view = torch.empty((t.numel() + 1,), dtype=t.dtype, device=t.device)[1:].view(t.shape)
-    view.copy_(t)
-    assert view.data_ptr() % 16 != 0
-    return view
 
 
 _FLASH_CASES = [  # (name, B, Hq, G, Tq, K, D, q_start, kv_start, dtype, kv8)

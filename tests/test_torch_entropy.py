@@ -52,8 +52,9 @@ def test_marginal_entropy_matches_every_jax_path(n, k):
 
 @pytest.mark.parametrize("n,k", [(100, 5), (600, 5), (40, 20)])
 def test_marginal_entropy_past_the_old_kernel_limit_matches_jax(n, k):
-    """n = 100 raised on the card while the kernel took n <= 64; n = 600 and
-    k = 20 are past the kernel's contract and take the sorted-window form."""
+    """n = 100 raised on the card while the kernel took n <= 64, and k = 20
+    was past its contract while k was a template parameter; n = 600 still is
+    and takes the sorted-window form."""
     clouds = _clouds(n, seed=n, b=2, d=24)
     got = marginal_entropy(torch.from_numpy(clouds), k).numpy()
     np.testing.assert_allclose(got, np.asarray(jax_marginal_entropy(jnp.asarray(clouds), k)), **TOL)
@@ -70,9 +71,10 @@ def test_marginal_entropy_route_is_chosen_by_shape(monkeypatch):
         return kernel_wrapper(clouds, k, min_dist)
 
     monkeypatch.setattr(entropy_cuda, "marginal_entropy_cuda", spy)
-    for n, k in ((100, 5), (512, 15), (513, 5), (40, 16)):
+    # k is taken at run time, so any k < n goes to the kernel's wrapper.
+    for n, k in ((100, 5), (512, 15), (513, 5), (40, 16), (40, 39), (40, 40), (40, 0)):
         marginal_entropy(torch.zeros((1, n, 3)), k)
-    assert seen == [(100, 5), (512, 15)]
+    assert seen == [(100, 5), (512, 15), (40, 16), (40, 39)]
 
 
 def test_entropy_kernels_block_width_fits_shared_memory():

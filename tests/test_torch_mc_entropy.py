@@ -56,6 +56,7 @@ def test_fused_contract():
     assert fused_mc_entropy_supported(512, 49, 5)  # RN50 tap, 512 samples
     assert not fused_mc_entropy_supported(513, 16, 5)
     assert not fused_mc_entropy_supported(16, 16, 16)
+    assert fused_mc_entropy_supported(40, 16, 20)  # k past the 15 it was held to as a template parameter
     assert not fused_mc_entropy_supported(256, 196, 5)  # keep-weights past 227 KB
 
 
@@ -80,3 +81,35 @@ def test_scorer_fused_route_takes_the_plain_version_past_the_contract(monkeypatc
         for fused in (False, True)
     }
     torch.testing.assert_close(scores[True], scores[False], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+def test_scorer_fused_route_reads_the_tap_in_the_forwards_type(monkeypatch, dtype):
+    """A bf16 or f32 tap reaches the fused kernel's wrapper as it is, with no
+    f32 copy (widening is exact, so the scores equal those of the f32-cast
+    tap bit for bit); any other type is cast to f32 first."""
+    import runia_core_tpu_torch.inference.image_level as image_level
+
+    seen = []
+    wrapper = image_level.fused_mc_entropy
+
+    def spy(weights, fmap, k=None, min_dist=1e-5):
+        seen.append(fmap)
+        return wrapper(weights, fmap, k, min_dist)
+
+    monkeypatch.setattr(image_level, "fused_mc_entropy", spy)
+    rng = np.random.RandomState(1)
+    tap = torch.from_numpy(rng.rand(3, 4, 4, 24).astype(np.float32)).to(dtype)
+    weights = torch.from_numpy(rng.rand(3, 16, 16).astype(np.float32))
+    state = {"feats_mean": torch.zeros(24), "precision": torch.eye(24)}
+
+    def scores(latent, fused):
+        scorer = image_level.build_larex_scorer(lambda x: (x, {"pre_pool": latent}), None, state, 16, 0.5, 3, fused=fused)
+        return scorer(latent, weights=weights)[1]
+
+    got = scores(tap, True)
+    assert len(seen) == 1 and seen[0].dtype == (torch.float32 if dtype == torch.float16 else dtype)
+    if dtype != torch.float16:
+        assert seen[0].data_ptr() == tap.data_ptr()  # the tap itself, not a copy
+    assert torch.equal(got, scores(tap.to(torch.float32), True))
+    torch.testing.assert_close(got, scores(tap, False), rtol=1e-6, atol=1e-6)
