@@ -28,6 +28,19 @@ kernel against its plain PyTorch version on the card. Then, through
   bf16 and KV8 variants. A 2-layer full-width f32 copy is held against the
   CPU route, and tokens/s are timed.
 
+Both paths run as the port runs them by default: the LaREx scorer and the
+decode steps as replays of CUDA graphs (``utils/graphs.py``; the JAX
+package's compiled programs), every replay under
+``torch.cuda.set_sync_debug_mode("error")``, so a hidden host sync raises.
+``larex_graph`` and ``llm_graph`` hold the replays against the eager routes
+at full width (scores within 1e-6 relative; greedy tokens identical,
+log-probs within 1e-5; sampled tokens the same from one seed), and
+``throughput`` / ``llm_throughput`` time the eager and graph routes side by
+side in interleaved windows (the scorer with a new generator every call),
+with the kernels' share of the time (``torch.profiler``), the graphs
+captured, the first call's cost, and ``compute_uncertainties`` over prompts
+of mixed lengths.
+
 Models, caches and states are built with no ``device`` argument: the port's
 default is the GPU. Every kernel's line carries its bound (the least time the
 card could take: bytes over 3.35 TB/s or operations over the peak rate of
@@ -36,7 +49,8 @@ of one sort and one window per column, whatever the kernel does). Kernels
 1-3 are timed as replays of a CUDA graph with copies of their input cycled
 past the L2, so neither the host nor the cache is in the number. Where one PyTorch call computes the
 same function (``scaled_dot_product_attention`` for kernel 4), that call's
-time, which the port itself never uses.
+time, which the port itself never uses. A kernel's launch count is what the
+main path launched, the kernels inside each graph replay included.
 
 Every phase prints one JSON line. Any failed check raises, so the script
 exits non-zero and never prints its last line, which on success is
@@ -46,6 +60,7 @@ before doing anything. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import statistics
@@ -70,7 +85,7 @@ BLOCK_SIZE = 3
 K = 5
 PCA_DIMS = 256
 SCORE_BATCHES = 4  # scored per scorer route in the counted main-path run
-ROUTE_PAIRS = 10  # timed windows of 30 scorer calls per route
+ROUTE_PAIRS = 10  # timed windows of 30 scorer calls per route and mode (eager, graph)
 XCHECK_IMAGES = 8
 SEED = 0
 
@@ -87,8 +102,11 @@ LLM_CFG = dict(vocab_size=32000, num_layers=22, num_heads=16, num_kv_heads=8, d_
 PREFILL_BATCH, PREFILL_LEN, PREFILL_NEW = 8, 1024, 16
 DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 16, 64, 256  # bench.py:316
 UQ_PROMPT, UQ_SAMPLES, UQ_NEW = 256, 5, 32
+UQ_MIXED_LENGTHS = (150, 200, 230, 256, 300, 350)  # 4 prompt buckets of 64
 XCHECK_LAYERS, XCHECK_PROMPT, XCHECK_STEPS = 2, 256, 8
-DECODE_PAIRS = 2  # timed windows per model, in the order bf16, int8, int8, bf16
+PROFILE_STEPS = 16  # greedy tokens of the profiled decode window (device-busy share)
+GRAPH_REL = 1e-6  # scorer replay against eager, relative per score
+GRAPH_LOGPROB_ATOL = 1e-5  # decode replay against eager
 # Kernel 3 against its plain version, relative to max|ref|: the sums run in
 # f32 in other orders, then round once (one bf16 ulp, the JAX bound of
 # tests/test_quant_matmul.py:33-35).
@@ -147,6 +165,17 @@ def emit(record: dict) -> None:
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Every synchronising call raises inside the block but for the port's
+    own copies of results to the host (``utils.graphs.host_sync``)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
 
 
 def nvidia_smi_line() -> str:
@@ -394,7 +423,7 @@ def slice_phase(device, gen) -> dict:
     from runia_core_tpu_torch.ops.mc_entropy_cuda import fused_mc_entropy, mc_dropblock_weights
     from runia_core_tpu_torch.reduction import apply_pca_ds_split, pca_transform
     from runia_core_tpu_torch.sampling import mc_dropblock_samples
-    from runia_core_tpu_torch.utils import cuda_time_ms
+    from runia_core_tpu_torch.utils import CudaGraph, cuda_time_ms, device_profile
 
     model = build_model(torch.bfloat16)
     require(model.head.weight.device == device, f"the default device is the card: {model.head.weight.device}")
@@ -422,7 +451,9 @@ def slice_phase(device, gen) -> dict:
     results = {}
     for fused, scorer in scorers.items():
         for _ in range(SCORE_BATCHES):
-            logits, scores = scorer(images(BATCH), generator=gen)
+            x = images(BATCH)
+            with no_host_sync():  # the first call captures the scorer's graph, every call replays it
+                logits, scores = scorer(x, generator=gen)
             torch.cuda.synchronize()
             require(tuple(scores.shape) == (BATCH,) and bool(torch.isfinite(scores).all()),
                     f"fused={fused}: finite ({BATCH},) scores")
@@ -460,16 +491,83 @@ def slice_phase(device, gen) -> dict:
         require(rel <= XCHECK_RTOL, f"card vs CPU f32 scores (fused={fused}): rel err {rel} > {XCHECK_RTOL}")
     emit({"phase": "xcheck_f32_cpu", "images": XCHECK_IMAGES, "max_rel_err": xcheck, "bound": XCHECK_RTOL})
 
-    # ---- throughput and per-stage times (CUDA events, after warm-up) ----
-    # Pairs of windows, the route that goes first alternating, so that a
-    # drift of the shared host shows in both routes alike.
+    # ---- larex_graph: replays against the eager route, full width ----
+    eager_scorers = {
+        fused: build_larex_scorer(forward, pca_state, larem.state, MC_SAMPLES, DROP_PROB, BLOCK_SIZE, fused=fused,
+                                  use_graph=False)
+        for fused in (False, True)
+    }
     x = images(BATCH)
-    times = {False: [], True: []}
+    w = mc_dropblock_weights(BATCH, 4, 4, MC_SAMPLES, BLOCK_SIZE, DROP_PROB, gen, device)
+    graph_record = {}
+    for fused in (False, True):
+        route = "fused" if fused else "two_step"
+        drawn = torch.Generator(device=device)
+        want_logits, want = eager_scorers[fused](x, weights=w)
+        seeded = []
+        for scorer in (scorers[fused], scorers[fused], eager_scorers[fused]):
+            drawn.manual_seed(SEED + 9)
+            with no_host_sync() if scorer is scorers[fused] else contextlib.nullcontext():
+                seeded.append(scorer(x, generator=drawn)[1])
+        with no_host_sync():
+            got_logits, got = scorers[fused](x, weights=w)  # injected weights: another graph, weights copied in
+        torch.cuda.synchronize()
+        rel = float(((got - want).abs() / want.abs()).max())
+        rel_logits = float((got_logits - want_logits).abs().max() / want_logits.abs().max())
+        rel_seeded = float(((seeded[0] - seeded[2]).abs() / seeded[2].abs()).max())
+        require(rel <= GRAPH_REL and rel_logits <= GRAPH_REL,
+                f"larex_graph {route}: replay vs eager rel err {rel} (logits {rel_logits}) > {GRAPH_REL}")
+        require(torch.equal(seeded[0], seeded[1]), f"larex_graph {route}: replays from one seed are identical")
+        require(rel_seeded <= GRAPH_REL, f"larex_graph {route}: drawn keep-weights, replay vs eager {rel_seeded}")
+        captures = CudaGraph.captures
+        for seed in range(3):  # a new generator object per call: replays of the same graph
+            with no_host_sync():
+                fresh = scorers[fused](x, generator=torch.Generator(device=device).manual_seed(seed))[1]
+            want_fresh = eager_scorers[fused](x, generator=torch.Generator(device=device).manual_seed(seed))[1]
+            require(bool(((fresh - want_fresh).abs() <= GRAPH_REL * want_fresh.abs()).all()),
+                    f"larex_graph {route}: a new generator per call, replay vs eager")
+        require(CudaGraph.captures == captures, f"larex_graph {route}: a new generator per call captured again")
+        graph_record[route] = {"max_rel_err_injected_weights": rel, "max_rel_err_logits": rel_logits,
+                               "max_rel_err_drawn_from_one_seed": rel_seeded,
+                               "bit_identical": bool(torch.equal(got, want)),
+                               "captures_for_3_new_generators": CudaGraph.captures - captures}
+    emit({"phase": "larex_graph", "batch": BATCH, "bound_rel": GRAPH_REL, "sync_debug_mode": "error",
+          "routes": graph_record})
+
+    # ---- throughput, eager against graph (CUDA events around windows of calls) ----
+    # Windows of 30 calls after 5 warm-up, the four variants in an order that
+    # turns by one each round, so that a drift of the shared host shows in
+    # every variant alike. Every call gets a new generator, as a caller
+    # seeding each batch would: the graph's key does not hold it.
+    variants = [(mode, fused) for mode in ("eager", "graph") for fused in (False, True)]
+    runner = {("eager", f): eager_scorers[f] for f in (False, True)} | {("graph", f): scorers[f] for f in (False, True)}
+    times = {v: [] for v in variants}
+    captures = CudaGraph.captures
     for pair in range(ROUTE_PAIRS):
-        for fused in ((False, True) if pair % 2 == 0 else (True, False)):
-            times[fused].append(cuda_time_ms(lambda: scorers[fused](x, generator=gen), iters=30, warmup=5))
-    ips = {("fused" if f else "two_step"): BATCH / (statistics.median(ms) * 1e-3) for f, ms in times.items()}
-    fused_wins = sum(f < t for f, t in zip(times[True], times[False]))
+        for v in variants[pair % 4:] + variants[: pair % 4]:
+            times[v].append(cuda_time_ms(
+                lambda: runner[v](x, generator=torch.Generator(device=device).manual_seed(pair)), iters=30, warmup=5))
+    captures = CudaGraph.captures - captures
+    # The first call of a new scorer: its warm-up calls and capture (the
+    # graph route) or one eager call, host clock.
+    first_call_ms = {}
+    for mode, fused in variants:
+        fresh = build_larex_scorer(forward, pca_state, larem.state, MC_SAMPLES, DROP_PROB, BLOCK_SIZE, fused=fused,
+                                   use_graph=mode == "graph")
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fresh(x, generator=gen)
+        torch.cuda.synchronize()
+        first_call_ms[f"{mode}_{'fused' if fused else 'two_step'}"] = (time.perf_counter() - start) * 1e3
+
+    def label(v):
+        return f"{v[0]}_{'fused' if v[1] else 'two_step'}"
+
+    ips = {label(v): BATCH / (statistics.median(ms) * 1e-3) for v, ms in times.items()}
+    busy = {label(v): device_profile(lambda: [runner[v](x, generator=gen) for _ in range(10)], 10) for v in variants}
+    fused_wins = {mode: sum(f < t for f, t in zip(times[(mode, True)], times[(mode, False)]))
+                  for mode in ("eager", "graph")}
+    graph_wins = sum(g < e for f in (False, True) for g, e in zip(times[("graph", f)], times[("eager", f)]))
     _, taps = forward(x)
     tap = taps["pre_pool"]
     latent = tap.to(torch.float32).contiguous()
@@ -494,8 +592,16 @@ def slice_phase(device, gen) -> dict:
         ),
     }
     emit({"phase": "throughput", "batch": BATCH, "img_per_s_median": ips,
-          "scorer_ms": {("fused" if f else "two_step"): ms for f, ms in times.items()},
-          "fused_faster_in_pairs": f"{fused_wins}/{ROUTE_PAIRS}", "stage_ms": stages})
+          "scorer_ms": {label(v): ms for v, ms in times.items()},
+          "fused_faster_in_pairs": {mode: f"{n}/{ROUTE_PAIRS}" for mode, n in fused_wins.items()},
+          "graph_faster_in_pairs": f"{graph_wins}/{2 * ROUTE_PAIRS}",
+          "generator": "a new one per call", "captures_in_timed_windows": captures,
+          "calls_in_timed_windows": ROUTE_PAIRS * 2 * 35, "first_call_ms": first_call_ms,
+          "device_busy": {k: {"share": r["device_busy_share"], "device_ms_per_call": r["device_busy_ms_per_unit"],
+                              "wall_ms_per_call_profiled": r["wall_ms_per_unit"],
+                              "kernels_per_call": r["kernels_per_unit"], "device_time_seen": r["device_time_seen"]}
+                          for k, r in busy.items()},
+          "stage_ms": stages})
     return launches
 
 
@@ -819,22 +925,23 @@ def llm_slice_phase(device, models) -> dict:
         require(out["sequences"].shape == (b, length + new), f"{name}: sequences shape")
         require(bool(np.isfinite(out["log_probs"]).all()), f"{name}: finite log-probs")
 
-    # ---- the main path, counted ----
+    # ---- the main path, counted: decode steps replay CUDA graphs ----
     quant_matmul.launches = 0
     flash_prefix_attention.launches = flash_prefix_attention.kv8_launches = 0
     long_prompts = prompts(PREFILL_BATCH, PREFILL_LEN)
     decode_prompts = prompts(DECODE_BATCH, DECODE_PROMPT)
+    uq_prompt = prompts(1, UQ_PROMPT)[0]
     gens = {name: TorchGenerator(model, max_new_tokens=DECODE_NEW) for name, model in models.items()}
-    check("bf16 prefill", gens["bf16"].generate_batch(long_prompts, max_new_tokens=PREFILL_NEW),
-          PREFILL_BATCH, PREFILL_LEN, PREFILL_NEW)
-    greedy = {}
-    for name, gen in gens.items():
-        greedy[name] = gen.generate_batch(decode_prompts, output_scores=False)
-        check(f"{name} decode", greedy[name], DECODE_BATCH, DECODE_PROMPT, DECODE_NEW)
-    check("int8_kv8 prefill", gens["int8_kv8"].generate_batch(long_prompts, max_new_tokens=PREFILL_NEW),
-          PREFILL_BATCH, PREFILL_LEN, PREFILL_NEW)
     uq_gen = TorchGenerator(models["bf16"], max_new_tokens=UQ_NEW)
-    text, scores = compute_uncertainties(uq_gen, None, prompts(1, UQ_PROMPT)[0], UQ_REQUESTS, num_samples=UQ_SAMPLES)
+    greedy = {}
+    with no_host_sync():
+        prefilled = {name: gen.generate_batch(long_prompts, max_new_tokens=PREFILL_NEW) for name, gen in gens.items()}
+        for name, gen in gens.items():
+            greedy[name] = gen.generate_batch(decode_prompts, output_scores=False)
+        text, scores = compute_uncertainties(uq_gen, None, uq_prompt, UQ_REQUESTS, num_samples=UQ_SAMPLES)
+    for name in gens:
+        check(f"{name} prefill", prefilled[name], PREFILL_BATCH, PREFILL_LEN, PREFILL_NEW)
+        check(f"{name} decode", greedy[name], DECODE_BATCH, DECODE_PROMPT, DECODE_NEW)
     torch.cuda.synchronize()
     launches = {
         "quant_matmul": quant_matmul.launches,
@@ -852,6 +959,72 @@ def llm_slice_phase(device, models) -> dict:
           "uq_tokens": len(text[0]), "weight_bytes": {n: _weight_bytes(m) for n, m in models.items()},
           "bf16_vs_int8_greedy_token_agreement": agree})
     return launches
+
+
+def llm_graph_phase(device, models) -> dict:
+    """Decode replays against the eager loop at full width, both forms:
+    greedy 16 x 64 + 256 tokens identical with log-probs within 1e-5; the
+    uncertainty call's taps (256-token prompt, 5 samples, hidden states and
+    attentions); sampled tokens the same from one seed, replay against
+    replay and against the eager loop. Every graph call under
+    ``set_sync_debug_mode("error")``; afterwards kernel 3's tile counters of
+    every cached decode graph are zero."""
+    from runia_core_tpu_torch.llm import TorchGenerator
+    from runia_core_tpu_torch.llm.generate import _PROGRAM_CACHE
+    from runia_core_tpu_torch.ops.quant_matmul import quant_matmul
+
+    rng = torch.Generator().manual_seed(SEED + 4)
+    vocab = LLM_CFG["vocab_size"]
+    prompts = torch.randint(1, vocab, (DECODE_BATCH, DECODE_PROMPT), generator=rng).tolist()
+    uq_prompt = torch.randint(1, vocab, (UQ_PROMPT,), generator=rng).tolist()
+    drawn = torch.Generator(device=device)
+    record = {}
+    for name, model in models.items():
+        eager = TorchGenerator(model, max_new_tokens=DECODE_NEW, use_scan=False)
+        graph = TorchGenerator(model, max_new_tokens=DECODE_NEW)
+        want = eager.generate_batch(prompts, output_scores=False)
+        want_taps = eager.generate(uq_prompt, num_return_sequences=UQ_SAMPLES, max_new_tokens=UQ_NEW)
+        drawn.manual_seed(SEED + 5)
+        want_sampled = eager.generate_batch(prompts, do_sample=True, generator=drawn, output_scores=False,
+                                            max_new_tokens=UQ_NEW)
+        sampled = []
+        with no_host_sync():
+            got = graph.generate_batch(prompts, output_scores=False)
+            got_taps = graph.generate(uq_prompt, num_return_sequences=UQ_SAMPLES, max_new_tokens=UQ_NEW)
+            for _ in range(2):
+                drawn.manual_seed(SEED + 5)
+                sampled.append(graph.generate_batch(prompts, do_sample=True, generator=drawn, output_scores=False,
+                                                    max_new_tokens=UQ_NEW))
+        same = bool((got["sequences"] == want["sequences"]).all())
+        lp_err = float(np.abs(got["log_probs"] - want["log_probs"]).max())
+        require(same, f"llm_graph {name}: greedy replay tokens equal the eager loop's")
+        require(lp_err <= GRAPH_LOGPROB_ATOL, f"llm_graph {name}: log-prob err {lp_err} > {GRAPH_LOGPROB_ATOL}")
+        taps_same = bool((got_taps["sequences"] == want_taps["sequences"]).all())
+        taps_err = max(float(np.abs(a - b).max()) for key in ("attentions", "hidden_states")
+                       for sg, sw in zip(got_taps[key], want_taps[key]) for a, b in zip(sg, sw))
+        taps_lp = float(np.abs(got_taps["log_probs"] - want_taps["log_probs"]).max())
+        require(taps_same and taps_lp <= GRAPH_LOGPROB_ATOL,
+                f"llm_graph {name}: generate with taps, tokens {taps_same}, log-prob err {taps_lp}")
+        require(bool((sampled[0]["sequences"] == sampled[1]["sequences"]).all()),
+                f"llm_graph {name}: sampled tokens from one seed are reproducible")
+        record[name] = {
+            "greedy_tokens_identical": same, "max_abs_err_log_probs": lp_err,
+            "taps": {"tokens_identical": taps_same, "max_abs_err_log_probs": taps_lp,
+                     "max_abs_err_attn_hidden": taps_err},
+            "sampled_reproducible": True,
+            "sampled_equal_to_eager": bool((sampled[0]["sequences"] == want_sampled["sequences"]).all()),
+        }
+    graphs = [program.graph for program in _PROGRAM_CACHE.entries.values() if program.graph is not None]
+    counters = [ws[1] for g in graphs for key, ws in g.workspaces.items() if key[0] == "quant_matmul"]
+    torch.cuda.synchronize()
+    require(counters and all(int(c.abs().sum()) == 0 for c in counters),
+            "kernel 3's tile counters are zero after every decode graph's replays")
+    per_replay = sorted({g.launches.get((quant_matmul, "launches"), 0) for g in graphs})
+    emit({"phase": "llm_graph", "shape": [DECODE_BATCH, DECODE_PROMPT, DECODE_NEW], "sync_debug_mode": "error",
+          "bound_log_probs": GRAPH_LOGPROB_ATOL, "models": record, "decode_graphs": len(graphs),
+          "replays": sum(g.replays for g in graphs), "kernel3_launches_per_replay": per_replay,
+          "kernel3_workspaces_checked_zero": len(counters)})
+    return record
 
 
 def llm_xcheck_phase(device) -> dict:
@@ -887,10 +1060,62 @@ def llm_xcheck_phase(device) -> dict:
     return errors
 
 
+def _decode_program(model, rows: int, max_new: int):
+    """The most recently used cached decode graph of that shape."""
+    from runia_core_tpu_torch.llm.generate import _PROGRAM_CACHE
+
+    return next(p for p in reversed(list(_PROGRAM_CACHE.entries.values()))
+                if p.graph is not None and p.model is model and p.rows == rows and p.max_new == max_new)
+
+
+def decode_replay_ms(model, rows: int, max_new: int) -> float:
+    """Ms of one decode step at a cached program's shape: its graph replayed
+    back to back from step 0 (the dense decode attention covers the whole
+    cache, so every step costs the same), timed with events; the host is not
+    in the number, a replay being one launch, but the gaps between the
+    graph's nodes are."""
+    from runia_core_tpu_torch.utils import cuda_time_ms
+
+    program = _decode_program(model, rows, max_new)
+
+    def first_step():  # the step index back to 0, so no replay writes past the program's buffers
+        program.index.zero_()
+        program.graph.replay()
+
+    return cuda_time_ms(first_step, iters=50, warmup=5)
+
+
+def decode_replay_kernels(model, rows: int, max_new: int, replays: int = PROFILE_STEPS) -> dict:
+    """The kernels of one replayed decode step at a cached program's shape
+    (its whole cache): ``replays`` replays from step 0 under the profiler;
+    per replay the kernels and the sum of their durations."""
+    from runia_core_tpu_torch.utils import device_profile
+
+    program = _decode_program(model, rows, max_new)
+    program.index.zero_()
+
+    def steps():
+        for _ in range(replays):
+            program.graph.replay()
+
+    return device_profile(steps, replays)
+
+
 def llm_throughput_phase(device, models) -> dict:
+    """Prefill tokens/s; decode tokens/s, ms a step and HBM GB/s of the eager
+    loop and of the graph replays in interleaved windows. Beside them: the
+    replay share of a step (the graph's event-timed replay at the cell's
+    320-slot cache over the route's ms a step, which says how far the host
+    still paces the step), the kernel share (the kernels' summed durations
+    in a profiled replay at that cache over the route's ms a step, which
+    says how busy the kernels keep the card), and the kernels a step of a
+    profiled window of PROFILE_STEPS steps of each route.
+    ``compute_uncertainties`` seconds per prompt on both routes, for one
+    prompt repeated and for prompts of mixed lengths, with the graphs
+    captured per call and the first call's cost."""
     from runia_core_tpu_torch.llm import TorchGenerator, compute_uncertainties
     from runia_core_tpu_torch.models import init_cache
-    from runia_core_tpu_torch.utils import cuda_time_ms
+    from runia_core_tpu_torch.utils import CudaGraph, cuda_time_ms, device_profile
 
     rng = torch.Generator().manual_seed(SEED + 3)
     vocab, cfg = LLM_CFG["vocab_size"], LLM_CFG
@@ -904,43 +1129,89 @@ def llm_throughput_phase(device, models) -> dict:
         del cache
 
     prompts = torch.randint(1, vocab, (DECODE_BATCH, DECODE_PROMPT), generator=rng).tolist()
-    gens = {name: TorchGenerator(model, max_new_tokens=DECODE_NEW) for name, model in models.items()}
-    seconds = {name: [] for name in models}
-    order = ["bf16", "int8_kv8", "int8_kv8", "bf16"] * DECODE_PAIRS
-    for name in order[: 2 * len(models)]:
-        gens[name].generate_batch(prompts, output_scores=False, max_new_tokens=8)  # warm-up
-    for name in order:
+    routes = {"eager": False, "graph": True}
+    gens = {(name, route): TorchGenerator(model, max_new_tokens=DECODE_NEW, use_scan=scan)
+            for name, model in models.items() for route, scan in routes.items()}
+    for gen in gens.values():
+        gen.generate_batch(prompts, output_scores=False, max_new_tokens=8)  # warm-up
+    # Two windows per model and route, in turns (the graphs of this shape
+    # were captured by the main path).
+    order = [("bf16", "eager"), ("bf16", "graph"), ("int8_kv8", "graph"), ("int8_kv8", "eager"),
+             ("int8_kv8", "eager"), ("int8_kv8", "graph"), ("bf16", "graph"), ("bf16", "eager")]
+    seconds = {key: [] for key in gens}
+    for key in order:
         torch.cuda.synchronize()
         start = time.perf_counter()
-        gens[name].generate_batch(prompts, output_scores=False)
+        gens[key].generate_batch(prompts, output_scores=False)
         torch.cuda.synchronize()
-        seconds[name].append(time.perf_counter() - start)
+        seconds[key].append(time.perf_counter() - start)
+    # A replayed step at this shape, events, and its kernels under the profiler.
+    step_ms = {name: decode_replay_ms(model, DECODE_BATCH, DECODE_NEW) for name, model in models.items()}
+    step_kernels = {name: decode_replay_kernels(model, DECODE_BATCH, DECODE_NEW) for name, model in models.items()}
     head_dim = cfg["d_model"] // cfg["num_heads"]
     avg_ctx = DECODE_PROMPT + DECODE_NEW / 2
     decode = {}
-    for name, model in models.items():
+    for (name, route), secs in seconds.items():
+        model = models[name]
         # All the windows' tokens over all their time, so a stalled window counts.
-        total, steps = sum(seconds[name]), DECODE_NEW * len(seconds[name])
+        total, steps = sum(secs), DECODE_NEW * len(secs)
         kv_item = 1 if model.quantized_kv else 2
         kv_read = DECODE_BATCH * cfg["num_layers"] * 2 * avg_ctx * cfg["num_kv_heads"] * head_dim * kv_item
         if model.quantized_kv:
             kv_read += DECODE_BATCH * cfg["num_layers"] * 2 * avg_ctx * cfg["num_kv_heads"] * 4
         hbm = steps / total * (_weight_bytes(model) + kv_read)
-        decode[name] = {"seconds": seconds[name], "median_s": statistics.median(seconds[name]),
-                        "spread_s": [min(seconds[name]), max(seconds[name])],
-                        "tokens_per_s": DECODE_BATCH * steps / total, "ms_per_step": total / steps * 1e3,
-                        "hbm_GBps": hbm / 1e9,
-                        "hbm_share_of_3.35TBps": hbm / H100_HBM_BYTES_PER_S}
-    uq_gen = TorchGenerator(models["bf16"], max_new_tokens=UQ_NEW)
+        profiled = TorchGenerator(model, max_new_tokens=PROFILE_STEPS, use_scan=routes[route])
+        profiled.generate_batch(prompts, output_scores=False)  # warm-up, capture
+        busy = device_profile(lambda: profiled.generate_batch(prompts, output_scores=False), PROFILE_STEPS)
+        ms_per_step = total / steps * 1e3
+        kernel_ms = step_kernels[name]["device_busy_ms_per_unit"]
+        decode[f"{name}_{route}"] = {
+            "seconds": secs, "median_s": statistics.median(secs), "spread_s": [min(secs), max(secs)],
+            "tokens_per_s": DECODE_BATCH * steps / total, "ms_per_step": ms_per_step,
+            "hbm_GBps": hbm / 1e9, "hbm_share_of_3.35TBps": hbm / H100_HBM_BYTES_PER_S,
+            "cache_slots": DECODE_PROMPT + DECODE_NEW,
+        }
+        if route == "graph":
+            decode[f"{name}_{route}"] |= {
+                "replay_ms": step_ms[name], "replay_share_of_step": step_ms[name] / ms_per_step,
+                "kernel_ms_per_replay": kernel_ms, "kernels_per_replay": step_kernels[name]["kernels_per_unit"],
+                "kernel_share_of_replay": kernel_ms / step_ms[name], "kernel_share_of_step": kernel_ms / ms_per_step,
+            }
+        decode[f"{name}_{route}"] |= {
+            "profiled_window": {"steps": PROFILE_STEPS, "cache_slots": DECODE_PROMPT + PROFILE_STEPS,
+                                "device_busy_share": busy["device_busy_share"],
+                                "device_busy_ms_per_step": busy["device_busy_ms_per_unit"],
+                                "wall_ms_per_step": busy["wall_ms_per_unit"],
+                                "kernels_per_step": busy["kernels_per_unit"],
+                                "device_time_seen": busy["device_time_seen"]},
+        }
+    uq_gens = {route: TorchGenerator(models["bf16"], max_new_tokens=UQ_NEW, use_scan=scan)
+               for route, scan in routes.items()}
     prompt = torch.randint(1, vocab, (UQ_PROMPT,), generator=rng).tolist()
-    uq_seconds = []
-    for _ in range(2):
+    uq_seconds = {route: [] for route in routes}
+    for route in ("eager", "graph", "graph", "eager", "eager", "graph"):
         start = time.perf_counter()
-        compute_uncertainties(uq_gen, None, prompt, UQ_REQUESTS, num_samples=UQ_SAMPLES)
-        uq_seconds.append(time.perf_counter() - start)
+        compute_uncertainties(uq_gens[route], None, prompt, UQ_REQUESTS, num_samples=UQ_SAMPLES)
+        uq_seconds[route].append(time.perf_counter() - start)
+    # Prompts of mixed lengths, each new to the graph route on its first
+    # pass: the graphs each call captures, then a second pass on the same
+    # prompts. The eager route runs between the two.
+    mixed = [torch.randint(1, vocab, (n,), generator=rng).tolist() for n in UQ_MIXED_LENGTHS]
+    uq_mixed = {}
+    for label, route in (("graph_first_pass", "graph"), ("eager", "eager"), ("graph_second_pass", "graph")):
+        secs, captured = [], []
+        for p in mixed:
+            before = CudaGraph.captures
+            start = time.perf_counter()
+            compute_uncertainties(uq_gens[route], None, p, UQ_REQUESTS, num_samples=UQ_SAMPLES)
+            secs.append(time.perf_counter() - start)
+            captured.append(CudaGraph.captures - before)
+        uq_mixed[label] = {"s_per_prompt": secs, "mean_s": statistics.mean(secs), "captures_per_call": captured}
     emit({"phase": "llm_throughput", "prefill": prefill, "decode": decode,
-          "decode_shape": [DECODE_BATCH, DECODE_PROMPT, DECODE_NEW],
-          "compute_uncertainties_s_per_prompt": uq_seconds})
+          "decode_shape": [DECODE_BATCH, DECODE_PROMPT, DECODE_NEW], "decode_order": order,
+          "compute_uncertainties_s_per_prompt": uq_seconds,
+          "note": "the first compute_uncertainties call of each route includes its graphs' captures",
+          "compute_uncertainties_mixed_lengths": {"prompt_lengths": list(UQ_MIXED_LENGTHS), **uq_mixed}})
     return {"prefill": prefill, "decode": decode}
 
 
@@ -960,6 +1231,7 @@ def main() -> None:
     dense, int8 = build_llms(device, LLM_CFG["num_layers"], torch.bfloat16)
     models = {"bf16": dense, "int8_kv8": int8}
     launches.update(llm_slice_phase(device, models))
+    llm_graph_phase(device, models)
     llm_xcheck_phase(device)
     llm_throughput_phase(device, models)
     emit({"kernels": [

@@ -7,27 +7,27 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
     python3 profile_torch_llm.py [--steps 32] [--layers 22]
 
-For each model form it prints one JSON line for the decode window (16 prompts
-of 64 tokens, ``--steps`` greedy tokens, after a warm-up window) and one for
-the 8 x 1024 prefill: wall milliseconds with the profiler on, kernels
-launched, device-busy milliseconds (the sum of the kernels' durations: they
-run on one stream), the busy share, and device milliseconds by category with
-the port's own kernels named. The profiler stretches the wall time, so the
-shares matter more than the milliseconds. It imports nothing of JAX.
+For each model form it prints one JSON line for each decode route (16
+prompts of 64 tokens, ``--steps`` greedy tokens, after a warm-up window): the
+eager loop (``TorchGenerator(use_scan=False)``) and the decode step as a
+CUDA graph replay (``use_scan=True``); and one for the 8 x 1024 prefill: wall
+milliseconds with the profiler on, kernels launched, device-busy
+milliseconds (the sum of the kernels' durations: they run on one stream),
+the busy share, and device milliseconds by category with the port's own
+kernels named (``utils/timing.py::device_profile``). The profiler stretches
+the eager route's wall time, so the shares matter more than the
+milliseconds. It imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
-import collections
 import json
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
@@ -52,38 +52,23 @@ def category(name: str) -> str:
     return "other"
 
 
-def profiled(fn, units: int) -> dict:
-    """Run fn() under the profiler; per-unit wall, kernel count and device
-    milliseconds by category (a unit is a decode step or a prefill)."""
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - start) * 1e3
-    by_category = collections.defaultdict(float)
-    by_kernel = collections.defaultdict(lambda: [0, 0.0])
-    kernels, busy_us = 0, 0.0
-    for event in prof.events():
-        if str(event.device_type).endswith("CUDA") and event.name and not event.name.startswith("Memcpy HtoD (Pageable"):
-            micros = float(getattr(event, "device_time", 0.0) or getattr(event, "cuda_time", 0.0) or 0.0)
-            if micros <= 0.0:
-                continue
-            kernels += 1
-            busy_us += micros
-            by_category[category(event.name)] += micros
-            if category(event.name).startswith(("quant_matmul", "flash_prefix")):
-                by_kernel[category(event.name)][0] += 1
-                by_kernel[category(event.name)][1] += micros
-    return {
-        "device_time_seen": busy_us > 0.0,
-        "wall_ms_per_unit": wall_ms / units,
-        "kernels_per_unit": kernels / units,
-        "device_busy_ms_per_unit": busy_us / 1e3 / units,
-        "device_busy_share": busy_us / 1e3 / wall_ms,
-        "device_ms_per_unit_by_category": {k: v / 1e3 / units for k, v in sorted(by_category.items(), key=lambda kv: -kv[1])},
-        "port_kernels_per_unit": {k: {"launches": n / units, "ms_each": us / 1e3 / n} for k, (n, us) in by_kernel.items()},
-    }
+def replay_floor(model, steps: int, kernels: int) -> dict:
+    """The decode step's device time at the profiled shape
+    (``chip_smoke.decode_replay_ms``) beside a graph of ``kernels``
+    one-element kernels: what that many graph nodes cost without their
+    work."""
+    from runia_core_tpu_torch.utils import CudaGraph, cuda_time_ms
+
+    step_ms = chip_smoke.decode_replay_ms(model, chip_smoke.DECODE_BATCH, steps)
+    flag = torch.zeros((), device="cuda")
+
+    def tiny():
+        for _ in range(kernels):
+            flag.add_(1)
+
+    tiny_ms = cuda_time_ms(CudaGraph(tiny).replay, iters=50, warmup=5)
+    return {"step_ms": step_ms, "tiny_kernels": kernels, "tiny_kernel_graph_ms": tiny_ms,
+            "us_per_tiny_kernel": tiny_ms * 1e3 / kernels}
 
 
 def main() -> None:
@@ -95,6 +80,7 @@ def main() -> None:
         raise SystemExit("profile_torch_llm: no CUDA device; nothing was run")
     from runia_core_tpu_torch.llm import TorchGenerator
     from runia_core_tpu_torch.models import init_cache
+    from runia_core_tpu_torch.utils import device_profile
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -106,19 +92,24 @@ def main() -> None:
     prompts = torch.randint(1, vocab, (chip_smoke.DECODE_BATCH, chip_smoke.DECODE_PROMPT), generator=rng).tolist()
     tokens = torch.randint(1, vocab, (chip_smoke.PREFILL_BATCH, chip_smoke.PREFILL_LEN), generator=rng).to(device)
     for name, model in (("bf16", dense), ("int8_kv8", int8)):
-        gen = TorchGenerator(model, max_new_tokens=args.steps)
-        gen.generate_batch(prompts, output_scores=False)  # warm-up: builds, allocations
-        record = profiled(lambda: gen.generate_batch(prompts, output_scores=False), args.steps)
-        print(json.dumps({"phase": "decode", "model": name, "layers": args.layers, "steps": args.steps,
-                          "shape": [chip_smoke.DECODE_BATCH, chip_smoke.DECODE_PROMPT], "nvidia_smi": smi,
-                          "note": "the window holds one 64-token prefill beside its decode steps", **record}), flush=True)
+        for route, use_scan in (("eager", False), ("graph", True)):
+            gen = TorchGenerator(model, max_new_tokens=args.steps, use_scan=use_scan)
+            gen.generate_batch(prompts, output_scores=False)  # warm-up: builds, allocations, the capture
+            record = device_profile(lambda: gen.generate_batch(prompts, output_scores=False), args.steps, category)
+            if use_scan:
+                record["replay"] = replay_floor(model, args.steps, round(record["kernels_per_unit"]))
+            print(json.dumps({"phase": "decode", "model": name, "route": route, "layers": args.layers,
+                              "steps": args.steps, "shape": [chip_smoke.DECODE_BATCH, chip_smoke.DECODE_PROMPT],
+                              "nvidia_smi": smi,
+                              "note": "the window holds one 64-token prefill beside its decode steps", **record}),
+                  flush=True)
         cache = init_cache(model, chip_smoke.PREFILL_BATCH, chip_smoke.PREFILL_LEN)
 
         def prefill():
             model(tokens, cache, 0, need_attentions=False, need_hiddens=False, last_logits_only=True)
 
         prefill()
-        record = profiled(prefill, 1)
+        record = device_profile(prefill, 1, category)
         print(json.dumps({"phase": "prefill", "model": name, "layers": args.layers,
                           "shape": [chip_smoke.PREFILL_BATCH, chip_smoke.PREFILL_LEN], "nvidia_smi": smi, **record}),
               flush=True)

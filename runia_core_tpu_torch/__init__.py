@@ -10,7 +10,9 @@ Two slices run end to end: image-level LaREx scoring (``models.resnet`` ->
 ``sampling`` / ``ops.mc_entropy_cuda`` -> ``ops.entropy`` /
 ``ops.entropy_cuda`` -> ``reduction`` -> ``detectors.latent`` ->
 ``inference.image_level.build_larex_scorer``) and the Llama LLM-uncertainty
-path (``models.llama`` -> ``llm.generate`` -> ``llm.scores``).
+path (``models.llama`` -> ``llm.generate`` -> ``llm.scores``). On the GPU
+both run as replays of CUDA graphs (``utils.graphs``), the counterpart of the
+JAX package's compiled programs.
 
 Models, caches and converted states are built on :func:`default_device`, the
 GPU, unless the caller names another device (the CPU tests pass

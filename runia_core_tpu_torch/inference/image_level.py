@@ -6,18 +6,24 @@ Counterpart of ``runia_core_tpu/inference/image_level.py``:
   object API (model + postprocessor + optional PCA, ``get_score`` per batch);
 * :func:`build_larex_scorer` is the production scoring path: forward ->
   MC-DropBlock keep-weights -> per-dimension KL entropy -> PCA -> Mahalanobis
-  or KDE score, with every stage on the model's device. PyTorch runs it
-  eagerly; there is no single compiled program as in JAX.
+  or KDE score, with every stage on the model's device. As JAX runs it as
+  one jitted program, the port runs it on a GPU as one CUDA graph
+  (``utils/graphs.py``): captured per image shape and dtype and injected
+  weights or not, and replayed for every later call. The graph draws the
+  keep-weights from a generator of its own, lent the caller's state for the
+  call, so a new generator per call replays too.
 
 Two routes lead from the tap to the entropies:
 
-* ``fused=False`` (the default, as in JAX): keep-weights -> ``bmm`` ->
-  ``ops/entropy_cuda.py`` (CUDA kernel 1, marginal entropy);
-* ``fused=True``: keep-weights -> ``ops/mc_entropy_cuda.py`` (CUDA kernel 2,
-  channel means and entropy in one pass over the tap). A sample count or tap
-  beyond kernel 2's contract (``fused_mc_entropy_supported``) takes its plain
-  version (``bmm`` then the sorted-window entropy) instead, chosen by shape
-  before any launch.
+* ``fused=False`` (the default), the JAX package's route: keep-weights ->
+  ``bmm`` -> ``ops/entropy_cuda.py`` (CUDA kernel 1, marginal entropy);
+* ``fused=True``: keep-weights -> ``ops/mc_entropy_cuda.py`` (CUDA kernel
+  2, channel means and entropy in one pass over the tap). A sample count or
+  tap beyond kernel 2's contract (``fused_mc_entropy_supported``) takes its
+  plain version (``bmm`` then the sorted-window entropy) instead, chosen by
+  shape before any launch.
+
+The two give the same scores to the entropies' f32 rounding.
 
 On CPU tensors both routes take the kernels' plain versions.
 """
@@ -42,6 +48,7 @@ from runia_core_tpu_torch.ops.mc_entropy_cuda import (
 )
 from runia_core_tpu_torch.reduction import PCAState, apply_pca_transform, pca_transform
 from runia_core_tpu_torch.sampling import mc_dropblock_samples
+from runia_core_tpu_torch.utils.graphs import CudaGraph, ProgramCache, drawing_from
 
 __all__ = ["InferenceModule", "LaRDInference", "LaRExInference", "build_larex_scorer"]
 
@@ -136,6 +143,9 @@ class LaRDInference(InferenceModule):
         return self.get_score(input_image, layer_hook)
 
 
+_SCORER_PROGRAMS = 8  # graphs a scorer keeps (shapes), least recently used dropped
+
+
 def build_larex_scorer(
     forward: Callable,
     pca_state: Optional[PCAState],
@@ -144,36 +154,51 @@ def build_larex_scorer(
     drop_block_prob: float = 0.5,
     drop_block_size: int = 3,
     tap: str = "pre_pool",
+    channel_axis: int = 3,
     detector: str = "MD",
     fused: bool = False,
+    use_graph: bool = True,
 ) -> Callable:
     """The LaREx pipeline as one callable.
 
     Args:
-        forward: images -> (logits, taps dict) with NHWC taps.
+        forward: images -> (logits, taps dict).
         pca_state: fitted PCAState or None.
         detector_state: for 'MD' {"feats_mean", "precision"}; for 'KDE'
             {"train_embeddings", "bandwidth"}; tensors on the model's device.
+        channel_axis: 3 for an NHWC tap (B, H, W, C), 1 for a channel-first
+            one (B, C, H, W), which is permuted to NHWC once, before either
+            route.
         detector: 'MD' (LaREM) or 'KDE' (LaRED).
         fused: route the tap through the fused kernel (see the module doc).
+        use_graph: on a GPU, capture each (image shape and dtype, weights
+            given or not) once into a CUDA graph and replay it; False runs
+            every call eagerly. A capture that fails raises.
 
     Returns:
         ``score(images, generator=None, weights=None) -> (logits, scores (B,))``.
         ``weights`` (B, S, H*W) replaces the keep-weights drawn from
-        ``generator`` (tests inject the JAX package's).
+        ``generator`` (None: the device's default generator; tests inject
+        the JAX package's weights); it is copied into the graph's input. A
+        replay draws what the eager call would draw from ``generator`` and
+        advances it alike. The results of a replay are copies: a later call
+        does not overwrite them.
     """
     if detector not in ("MD", "KDE"):
         raise ValueError(f"Unsupported fused detector {detector}")
+    if channel_axis not in (1, 3, -1):
+        raise ValueError("channel_axis must be 1 or 3/-1")
     k_neighbors = neighbors_for(mcd_samples_nro)
 
-    @torch.inference_mode()
-    def score(images: torch.Tensor, generator: Optional[torch.Generator] = None,
-              weights: Optional[torch.Tensor] = None):
+    def run(images: torch.Tensor, generator: Optional[torch.Generator] = None,
+            weights: Optional[torch.Tensor] = None):
         logits, taps = forward(images)
         # Scoring is f32 whatever the forward's dtype. A channels_last
         # forward gives an NHWC tap that is already contiguous, so
         # .contiguous() makes no copy on the GPU.
         latent = taps[tap]
+        if channel_axis == 1:
+            latent = latent.permute(0, 2, 3, 1)
         b, h, w, _ = latent.shape
         if weights is None:
             weights = mc_dropblock_weights(
@@ -201,5 +226,30 @@ def build_larex_scorer(
         else:
             scores = kde_log_density(h_z, detector_state["train_embeddings"], detector_state["bandwidth"])
         return logits, scores
+
+    programs = ProgramCache(_SCORER_PROGRAMS)
+
+    @torch.inference_mode()
+    def score(images: torch.Tensor, generator: Optional[torch.Generator] = None,
+              weights: Optional[torch.Tensor] = None):
+        if not (use_graph and images.is_cuda):
+            return run(images, generator, weights)
+        inputs = {"images": images} if weights is None else {"images": images, "weights": weights}
+        graph = programs.get_or_build((tuple(images.shape), images.dtype, weights is not None),
+                                      lambda: _capture(images.device, inputs))
+        graph.load(**inputs)
+        if weights is not None:
+            return tuple(t.clone() for t in graph.replay())
+        source = generator or torch.cuda.default_generators[graph.device.index]
+        with drawing_from(graph.generators[0], source):
+            return tuple(t.clone() for t in graph.replay())
+
+    def _capture(device: torch.device, inputs: dict) -> CudaGraph:
+        """The scorer's graph; one that draws its keep-weights owns the
+        generator it draws from."""
+        if "weights" in inputs:
+            return CudaGraph(lambda images, weights: run(images, None, weights), inputs, device=device)
+        own = torch.Generator(device=device)
+        return CudaGraph(lambda images: run(images, own), inputs, generators=[own], device=device)
 
     return score

@@ -6,27 +6,56 @@ is the port's ``JaxGenerator``: a KV-cached decode loop over
 (``scores`` a tuple of (S, V), ``attentions`` a tuple over steps of
 per-layer (S, H, tgt, src), ``hidden_states`` a tuple over steps of
 per-layer (S, tgt, D)), so every score in ``llm/scores.py`` reads it as it
-reads an HF model's output. The JAX ``lax.scan`` is a Python loop over the
-steps here; every step's outputs stay on the device until the loop ends.
-The step after the last sampled token is not run: its outputs are never
-read.
+reads an HF model's output. The step after the last sampled token is not
+run: its outputs are never read.
+
+Two routes, as ``JaxGenerator(use_scan=)``:
+
+* ``use_scan=True`` (the default): the decode steps are one program, the
+  counterpart of JAX's ``lax.scan`` (``_scanned_decode`` and the batch
+  program). A :class:`_DecodeProgram` holds the cache, the step's logits,
+  ``finished``, the step index (a device tensor) and the stacked (T, ...)
+  outputs in static buffers, and one step function samples, writes row
+  ``step`` of the outputs, runs the model on the per-row cache path at
+  ``cache_index = P + step`` and advances the step. On a CUDA device that
+  step is captured once into a CUDA graph (``utils/graphs.py``) and
+  replayed T - 1 times, with no host sync until the results' copy to the
+  host; on the CPU the same function runs without capture. Programs are
+  kept in the JAX package's LRU program cache (``_PROGRAM_CACHE``, 64
+  entries), under the JAX keys with the device and the model added. Where
+  JAX keys on the prompt length, the port keys on it rounded up to a
+  multiple of ``_PROMPT_BUCKET``: the length itself is a device input, and
+  the cache's slots past a row's last token are masked, so one program
+  serves every prompt length of its bucket. A program holds device buffers
+  (the KV cache, the stacked outputs), so the cache also drops the least
+  recently used past ``_PROGRAM_CACHE_BYTES`` of them, holds the model
+  weakly and forgets a model's programs when the model goes. A sampling
+  program draws from a generator of its own, lent the caller's state for
+  the call (``utils.graphs.drawing_from``), so any generator object reuses
+  it. The prompt's prefill stays eager: it runs once a call.
+* ``use_scan=False``: the eager loop, a Python loop over the steps whose
+  outputs stay on the device until the loop ends.
 
 Random draws come from a ``torch.Generator``. ``sample_logits`` splits the
 HF top-k/top-p/temperature filter (:func:`filter_logits`) from the draw, an
 argmax over the filtered logits plus Gumbel noise (what
 ``jax.random.categorical`` does), so a test can hand both frameworks the
-same noise. The two frameworks' random streams differ by design.
+same noise. The two frameworks' random streams differ by design; the two
+routes of the port draw the same numbers from the same generator state.
 """
 
 from __future__ import annotations
 
+import contextlib
 import warnings
+import weakref
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from runia_core_tpu_torch.models.transformer import init_cache
+from runia_core_tpu_torch.utils.graphs import CudaGraph, ProgramCache, drawing_from, host_sync
 
 __all__ = [
     "TorchGenerator",
@@ -80,11 +109,228 @@ def sample_logits(
     return torch.argmax(filtered + noise, dim=-1)
 
 
+# The JAX package's program cache: programs are built once per key and kept,
+# least recently used dropped past 64, or past 4 GiB of the programs' device
+# buffers (a batch program of 16 x 64 + 256 with scores holds about 1 GB).
+_PROGRAM_CACHE_MAX = 64
+_PROGRAM_CACHE_BYTES = 4 << 30
+_PROGRAM_CACHE = ProgramCache(_PROGRAM_CACHE_MAX, _PROGRAM_CACHE_BYTES)
+_PROMPT_BUCKET = 64  # a program's prompt slots: the prompt length rounded up to a multiple of this
+
+
+def _cached_program(key: tuple, build):
+    return _PROGRAM_CACHE.get_or_build(key, build)
+
+
+def _cache_put(key: tuple, program) -> None:
+    _PROGRAM_CACHE.put(key, program)
+
+
+def _forget_model(ref: weakref.ref) -> None:
+    """A model went: drop its programs (their graphs read its weights)."""
+    _PROGRAM_CACHE.discard(lambda key: len(key) > 2 and key[2] is ref)
+
+
+def _next_token(step_logits, finished, eos_id, do_sample, generator, temperature, top_k, top_p):
+    """One sampling step: (token, its log-probability, finished)."""
+    log_soft = torch.log_softmax(step_logits, dim=-1)
+    if do_sample:
+        token = sample_logits(step_logits, generator, temperature, top_k, top_p)
+    else:
+        token = torch.argmax(step_logits, dim=-1)
+    lp = log_soft.gather(1, token[:, None])[:, 0]
+    lp = lp.masked_fill(finished, float("-inf"))
+    if eos_id is not None:
+        # Pad with EOS once finished, as the HF backend strips it.
+        token = token.masked_fill(finished, eos_id)
+        finished = finished | (token == eos_id)
+    return token, lp, finished
+
+
+def _bucket(prompt_len: int) -> int:
+    """A program's prompt slots: ``prompt_len`` rounded up to a multiple of
+    ``_PROMPT_BUCKET``."""
+    return -(-prompt_len // _PROMPT_BUCKET) * _PROMPT_BUCKET
+
+
+def _upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``; to a GPU through pinned memory, without
+    waiting for the copy."""
+    tensor = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        return tensor.pin_memory().to(device, non_blocking=True)
+    return tensor.to(device)
+
+
+def _host(*tensors: Optional[torch.Tensor]):
+    """Numpy copies of device tensors (None stays None): the one wait for
+    the device."""
+    device = next(t.device for t in tensors if t is not None)
+    with host_sync(device):
+        return tuple(None if t is None else t.to("cpu", copy=True).numpy() for t in tensors)
+
+
+class _DecodeProgram:
+    """The decode steps of one key as one program: the port's
+    ``_scanned_decode``.
+
+    Static buffers: the KV cache of ``rows`` rows and ``prompt_slots +
+    max_new`` slots, the step's logits (rows, V), ``finished``, the step
+    index and the call's prompt length P (0-d device tensors), with
+    ``batch_inputs`` the ``kv_valid`` (rows, slots) mask and the prompt
+    lengths, and the stacked outputs: tokens and log-probs (T, rows), with
+    ``out_scores`` the logits (T, rows, V), with ``out_prev`` each step's
+    attention on the previous token (T-1, L, rows, H), with ``out_attn`` the
+    attention rows (T-1, L, rows, H, slots), with ``out_hid`` the hidden
+    rows (T-1, L+1, rows, D). Step ``i`` writes slot ``P + i``; the slots
+    past it are masked (causal), so any P up to ``prompt_slots`` fits.
+
+    A call loads the cache (the prefill writes it), the logits, P and the
+    batch inputs, then :meth:`run` takes every step. On a CUDA device
+    :meth:`step` is captured once, when the program is built (its warm-up
+    runs on the buffers before any call loads them), and replayed. Draws
+    come from the program's own generator, which :meth:`run` lends the
+    caller's state. The model is held weakly: the cache drops a program
+    whose model went.
+    """
+
+    def __init__(self, model, rows: int, prompt_slots: int, max_new: int, eos_id, do_sample: bool,
+                 temperature: float, top_k: int, top_p: float, batch_inputs: bool,
+                 out_scores: bool = False, out_prev: bool = False, out_attn: bool = False, out_hid: bool = False):
+        dev = next(model.parameters()).device
+        total = prompt_slots + max_new
+        self._model = weakref.ref(model)
+        self.rows, self.prompt_slots, self.max_new = rows, prompt_slots, max_new
+        self.generator = torch.Generator(device=dev) if do_sample else None
+        self.sampling = (eos_id, do_sample, temperature, top_k, top_p)
+        self.out_prev, self.out_attn, self.out_hid = out_prev, out_attn, out_hid
+        self.cache = init_cache(model, rows, total, dev)
+        self.kv_valid = torch.zeros((rows, total), dtype=torch.bool, device=dev) if batch_inputs else None
+        self.lengths = torch.zeros((rows,), dtype=torch.int64, device=dev) if batch_inputs else None
+        self.index = torch.zeros((), dtype=torch.int64, device=dev)
+        # Until a call loads P, the full bucket: the warm-up's step then
+        # reads and writes slots inside the buffers.
+        self.prompt_len = torch.full((), prompt_slots, dtype=torch.int64, device=dev)
+        self.logits = torch.zeros((rows, model.vocab_size), dtype=torch.float32, device=dev)
+        self.finished = torch.zeros((rows,), dtype=torch.bool, device=dev)
+        self.tokens = torch.zeros((max_new, rows), dtype=torch.int64, device=dev)
+        self.log_probs = torch.zeros((max_new, rows), dtype=torch.float32, device=dev)
+        self.scores = torch.zeros((max_new, rows, model.vocab_size), device=dev) if out_scores else None
+        layers, heads, steps = model.num_layers, model.num_heads, max_new - 1
+        self.prev = torch.zeros((steps, layers, rows, heads), device=dev) if out_prev else None
+        self.attn = torch.zeros((steps, layers, rows, heads, total), device=dev) if out_attn else None
+        self.hid = torch.zeros((steps, layers + 1, rows, model.d_model), device=dev) if out_hid else None
+        self.nbytes = sum(t.numel() * t.element_size() for layer in self.cache["layers"] for t in layer.values())
+        self.nbytes += sum(t.numel() * t.element_size() for t in (
+            self.kv_valid, self.lengths, self.logits, self.tokens, self.log_probs, self.scores, self.prev,
+            self.attn, self.hid) if t is not None)
+        self.graph = None
+        if dev.type == "cuda" and max_new > 1:
+            # One warm-up step: a second would write output row 1, past the
+            # (T-1)-row taps of a two-token program.
+            self.graph = CudaGraph(self.step, generators=[self.generator] if do_sample else [], device=dev,
+                                   warmup=1)
+
+    @property
+    def model(self):
+        return self._model()
+
+    def _sample(self) -> torch.Tensor:
+        """Sample from the step's logits into row ``index`` of the outputs."""
+        eos_id, do_sample, temperature, top_k, top_p = self.sampling
+        token, lp, finished = _next_token(self.logits, self.finished, eos_id, do_sample, self.generator,
+                                          temperature, top_k, top_p)
+        self.finished.copy_(finished)
+        at = self.index.view(1)
+        self.tokens.index_copy_(0, at, token[None])
+        self.log_probs.index_copy_(0, at, lp[None])
+        if self.scores is not None:
+            self.scores.index_copy_(0, at, self.logits[None])
+        return token
+
+    def step(self) -> None:
+        """One decode step: sample, run the model on the token at slot
+        ``P + index`` of every row, keep its taps, advance."""
+        token = self._sample()
+        slot = self.index + self.prompt_len
+        positions = None
+        if self.kv_valid is not None:
+            self.kv_valid.index_fill_(1, slot.view(1), True)
+            positions = (self.lengths + self.index)[:, None]
+        out, attn, hid, _ = self.model(
+            token[:, None], self.cache, slot.expand(self.rows), token_valid=self.kv_valid, positions=positions,
+            need_attentions=self.out_prev or self.out_attn, need_hiddens=self.out_hid,
+        )
+        self.logits.copy_(out[:, 0])
+        at = self.index.view(1)
+        if self.out_prev:
+            # (L, B, H, 1, total): the column of the previous token.
+            self.prev.index_copy_(0, at, attn[:, :, :, 0].index_select(-1, (slot - 1).view(1))[None, ..., 0])
+        if self.out_attn:
+            self.attn.index_copy_(0, at, attn[None, :, :, :, 0])
+        if self.out_hid:
+            self.hid.index_copy_(0, at, hid[None, :, :, 0])
+        self.index.add_(1)
+
+    def run(self, generator: Optional[torch.Generator]) -> None:
+        """Every step from the loaded state: T - 1 steps (replays on a GPU),
+        then the last sample, drawing from ``generator``'s state."""
+        self.finished.zero_()
+        self.index.zero_()
+        with drawing_from(self.generator, generator) if self.generator is not None else contextlib.nullcontext():
+            for _ in range(self.max_new - 1):
+                if self.graph is not None:
+                    self.graph.replay()
+                else:
+                    self.step()
+            self._sample()
+
+
+def _batch_result(tokens, lengths, toks, lps, scores, prev) -> Dict[str, Any]:
+    """generate_batch's result from host arrays: toks, lps (T, B), scores
+    (T, B, V) and prev (T-1, L, B, H), each None where not asked for."""
+    result = {
+        "sequences": np.concatenate([tokens, toks.T], axis=1),
+        "scores": () if scores is None else tuple(scores),
+        "log_probs": lps.T,
+        "prompt_lengths": lengths.astype(np.int32),
+    }
+    if prev is not None:
+        result["prev_token_attention"] = np.transpose(prev, (2, 1, 3, 0))  # (B, L, H, T-1)
+    return result
+
+
+def _generate_result(prompt_np, s, toks, lps, scores, attn0, hid0, attn_rows, hidden_rows) -> Dict[str, Any]:
+    """generate's result from host arrays: toks, lps (T, S), scores (T, S,
+    V), the prompt's attn0 (L, H, P, P) and hid0 (L+1, P, D) at batch 1 (or
+    None where not asked for), attn_rows (T-1, L, S, H, total) and
+    hidden_rows (T-1, L+1, S, D)."""
+    p = prompt_np.shape[1]
+    attentions, hidden_states = [], []
+    if attn0 is not None:
+        attentions.append(tuple(np.broadcast_to(a, (s,) + a.shape) for a in attn0))
+        for step, rows in enumerate(attn_rows):
+            attentions.append(tuple(r[:, :, None, : p + step + 1] for r in rows))
+    if hid0 is not None:
+        hidden_states.append(tuple(np.broadcast_to(h, (s,) + h.shape) for h in hid0))
+        for rows in hidden_rows:
+            hidden_states.append(tuple(h[:, None, :] for h in rows))
+    return {
+        "sequences": np.concatenate([np.repeat(prompt_np, s, 0), toks.T], axis=1),
+        "scores": tuple(scores),
+        "attentions": tuple(attentions),
+        "hidden_states": tuple(hidden_states),
+        "log_probs": lps.T,
+    }
+
+
 class TorchGenerator:
     """A LlamaLM and its decode configuration.
 
     ``generator`` is the default source of random draws (a
     ``torch.Generator`` on the model's device, seeded 0 if not given).
+    ``use_scan`` runs the decode steps as one program (see the module doc);
+    False keeps the eager loop.
     """
 
     def __init__(
@@ -93,10 +339,12 @@ class TorchGenerator:
         max_new_tokens: int = 16,
         eos_id: Optional[int] = None,
         generator: Optional[torch.Generator] = None,
+        use_scan: bool = True,
     ):
         self.model = model
         self.max_new_tokens = max_new_tokens
         self.eos_id = eos_id
+        self.use_scan = use_scan
         self.device = next(model.parameters()).device
         self.generator = generator or torch.Generator(device=self.device).manual_seed(0)
 
@@ -109,20 +357,13 @@ class TorchGenerator:
                 stacklevel=3,
             )
 
-    def _next_token(self, step_logits, finished, do_sample, generator, temperature, top_k, top_p):
-        """One sampling step: (token, its log-probability, finished)."""
-        log_soft = torch.log_softmax(step_logits, dim=-1)
-        if do_sample:
-            token = sample_logits(step_logits, generator, temperature, top_k, top_p)
-        else:
-            token = torch.argmax(step_logits, dim=-1)
-        lp = log_soft.gather(1, token[:, None])[:, 0]
-        lp = lp.masked_fill(finished, float("-inf"))
-        if self.eos_id is not None:
-            # Pad with EOS once finished, as the HF backend strips it.
-            token = token.masked_fill(finished, self.eos_id)
-            finished = finished | (token == self.eos_id)
-        return token, lp, finished
+    def _program(self, kind: str, shape_key: tuple, do_sample: bool, **build) -> _DecodeProgram:
+        """The cached program of a key: JAX's (kind, model, EOS id, shapes
+        and flags, the prompt length bucketed) with the device; the model
+        is held weakly."""
+        key = (kind, self.device, weakref.ref(self.model, _forget_model), self.eos_id) + shape_key
+        return _cached_program(key, lambda: _DecodeProgram(self.model, eos_id=self.eos_id, do_sample=do_sample,
+                                                           **build))
 
     @torch.no_grad()
     def generate_batch(
@@ -159,7 +400,40 @@ class TorchGenerator:
             tokens[i, p - len(seq):] = seq
             valid[i, p - len(seq):] = True
         self._check_context(p + max_new)
+        uniform = bool((lengths == p).all())
+        if not self.use_scan:
+            return self._eager_batch(tokens, valid, lengths, max_new, do_sample, temperature, gen,
+                                     output_attentions, output_scores, top_k, top_p)
 
+        slots = _bucket(p)
+        prog = self._program(
+            "batch", (b, slots, max_new, do_sample, float(temperature), output_attentions, output_scores, uniform,
+                      int(top_k), float(top_p)), do_sample,
+            rows=b, prompt_slots=slots, max_new=max_new, temperature=temperature, top_k=top_k, top_p=top_p,
+            batch_inputs=True, out_scores=output_scores, out_prev=output_attentions,
+        )
+        kv_valid = np.zeros((b, slots + max_new), bool)
+        kv_valid[:, :p] = valid
+        prog.kv_valid.copy_(_upload(kv_valid, dev))
+        prog.lengths.copy_(_upload(lengths, dev))
+        prog.prompt_len.fill_(p)
+        prefill_kwargs = {}
+        if not uniform:
+            positions = torch.clamp_min(torch.cumsum(prog.kv_valid[:, :p].to(torch.int64), dim=1) - 1, 0)
+            prefill_kwargs = {"token_valid": prog.kv_valid, "positions": positions}
+        logits, _, _, _ = model(
+            _upload(tokens, dev), prog.cache, 0, **prefill_kwargs, need_attentions=False, need_hiddens=False,
+            last_logits_only=True,
+        )
+        prog.logits.copy_(logits[:, -1])
+        prog.run(gen)
+        return _batch_result(tokens, lengths, *_host(prog.tokens, prog.log_probs, prog.scores, prog.prev))
+
+    def _eager_batch(self, tokens, valid, lengths, max_new, do_sample, temperature, gen, output_attentions,
+                     output_scores, top_k, top_p) -> Dict[str, Any]:
+        """generate_batch's eager loop (``use_scan=False``)."""
+        model, dev = self.model, self.device
+        b, p = tokens.shape
         prompt = torch.from_numpy(tokens).to(dev)
         kv_valid = torch.zeros((b, p + max_new), dtype=torch.bool, device=dev)
         kv_valid[:, :p] = torch.from_numpy(valid).to(dev)
@@ -176,7 +450,8 @@ class TorchGenerator:
         finished = torch.zeros((b,), dtype=torch.bool, device=dev)
         toks, lps, scores, prev = [], [], [], []
         for step in range(max_new):
-            token, lp, finished = self._next_token(step_logits, finished, do_sample, gen, temperature, top_k, top_p)
+            token, lp, finished = _next_token(step_logits, finished, self.eos_id, do_sample, gen, temperature,
+                                              top_k, top_p)
             toks.append(token)
             lps.append(lp)
             if output_scores:
@@ -193,17 +468,13 @@ class TorchGenerator:
                 prev.append(attn[:, :, :, 0, p - 1 + step])
             step_logits = step_out[:, 0]
 
-        result = {
-            "sequences": np.concatenate([tokens, torch.stack(toks, 1).cpu().numpy()], axis=1),
-            "scores": tuple(torch.stack(scores).cpu().numpy()) if output_scores else (),
-            "log_probs": torch.stack(lps, 1).cpu().numpy(),
-            "prompt_lengths": lengths.astype(np.int32),
-        }
+        prev_np = None
         if output_attentions:
-            # (T-1, L, B, H) -> (B, L, H, T-1)
-            stacked = torch.stack(prev).cpu().numpy() if prev else np.zeros((0, model.num_layers, b, model.num_heads))
-            result["prev_token_attention"] = np.transpose(stacked, (2, 1, 3, 0))
-        return result
+            prev_np = torch.stack(prev).cpu().numpy() if prev else np.zeros((0, model.num_layers, b, model.num_heads))
+        return _batch_result(
+            tokens, lengths, torch.stack(toks).cpu().numpy(), torch.stack(lps).cpu().numpy(),
+            torch.stack(scores).cpu().numpy() if output_scores else None, prev_np,
+        )
 
     @torch.no_grad()
     def generate(
@@ -234,7 +505,38 @@ class TorchGenerator:
         prompt_np = np.asarray(prompt_tokens, np.int64)[None, :]
         p = prompt_np.shape[1]
         self._check_context(p + max_new)
+        if not self.use_scan:
+            return self._eager_generate(prompt_np, s, max_new, do_sample, temperature, gen, output_attentions,
+                                        output_hidden_states, top_k, top_p)
 
+        slots = _bucket(p)
+        prog = self._program(
+            "scan", (slots, max_new, s, do_sample, float(temperature), output_attentions, output_hidden_states,
+                     int(top_k), float(top_p)), do_sample,
+            rows=s, prompt_slots=slots, max_new=max_new, temperature=temperature, top_k=top_k, top_p=top_p,
+            batch_inputs=False, out_scores=True, out_attn=output_attentions, out_hid=output_hidden_states,
+        )
+        cache = init_cache(model, 1, p + max_new, dev)
+        logits, attn0, hid0, cache = model(
+            _upload(prompt_np, dev), cache, 0, need_attentions=output_attentions,
+            need_hiddens=output_hidden_states, last_logits_only=True,
+        )
+        for dst, src in zip(prog.cache["layers"], cache["layers"]):
+            for name, buf in src.items():
+                dst[name][:, :p].copy_(buf[:, :p])  # the one prompt row to all S rows
+        prog.logits.copy_(logits[:, -1].expand(s, -1))
+        prog.prompt_len.fill_(p)
+        prog.run(gen)
+        return _generate_result(prompt_np, s, *_host(
+            prog.tokens, prog.log_probs, prog.scores, attn0[:, 0, :, :, :p] if output_attentions else None,
+            hid0[:, 0] if output_hidden_states else None, prog.attn, prog.hid,
+        ))
+
+    def _eager_generate(self, prompt_np, s, max_new, do_sample, temperature, gen, output_attentions,
+                        output_hidden_states, top_k, top_p) -> Dict[str, Any]:
+        """generate's eager loop (``use_scan=False``)."""
+        model, dev = self.model, self.device
+        p = prompt_np.shape[1]
         cache = init_cache(model, 1, p + max_new, dev)
         logits, attn0, hid0, cache = model(
             torch.from_numpy(prompt_np).to(dev), cache, 0, need_attentions=output_attentions,
@@ -248,7 +550,8 @@ class TorchGenerator:
         finished = torch.zeros((s,), dtype=torch.bool, device=dev)
         toks, lps, scores, attn_rows, hidden_rows = [], [], [], [], []
         for step in range(max_new):
-            token, lp, finished = self._next_token(step_logits, finished, do_sample, gen, temperature, top_k, top_p)
+            token, lp, finished = _next_token(step_logits, finished, self.eos_id, do_sample, gen, temperature,
+                                              top_k, top_p)
             toks.append(token)
             lps.append(lp)
             scores.append(step_logits)
@@ -264,26 +567,16 @@ class TorchGenerator:
                 hidden_rows.append(hiddens[:, :, 0, :])  # (L+1, S, D)
             step_logits = step_out[:, 0]
 
-        attentions, hidden_states = [], []
-        if output_attentions:
-            a0 = attn0[:, 0, :, :, :p].cpu().numpy()  # (L, H, P, P)
-            attentions.append(tuple(np.broadcast_to(a, (s,) + a.shape) for a in a0))
-            if attn_rows:
-                for step, rows in enumerate(torch.stack(attn_rows).cpu().numpy()):
-                    attentions.append(tuple(r[:, :, None, : p + step + 1] for r in rows))
-        if output_hidden_states:
-            h0 = hid0[:, 0].cpu().numpy()  # (L+1, P, D)
-            hidden_states.append(tuple(np.broadcast_to(h, (s,) + h.shape) for h in h0))
-            if hidden_rows:
-                for rows in torch.stack(hidden_rows).cpu().numpy():
-                    hidden_states.append(tuple(h[:, None, :] for h in rows))
-        return {
-            "sequences": np.concatenate([np.repeat(prompt_np, s, 0), torch.stack(toks, 1).cpu().numpy()], axis=1),
-            "scores": tuple(torch.stack(scores).cpu().numpy()),
-            "attentions": tuple(attentions),
-            "hidden_states": tuple(hidden_states),
-            "log_probs": torch.stack(lps, 1).cpu().numpy(),
-        }
+        def stacked(rows):
+            return torch.stack(rows).cpu().numpy() if rows else ()
+
+        return _generate_result(
+            prompt_np, s, torch.stack(toks).cpu().numpy(), torch.stack(lps).cpu().numpy(),
+            torch.stack(scores).cpu().numpy(),
+            attn0[:, 0, :, :, :p].cpu().numpy() if output_attentions else None,
+            hid0[:, 0].cpu().numpy() if output_hidden_states else None,
+            stacked(attn_rows), stacked(hidden_rows),
+        )
 
 
 def _strip_eos(ids, eos_id):

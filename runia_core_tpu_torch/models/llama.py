@@ -313,6 +313,9 @@ class LlamaLM(nn.Module):
             self.norm_f = RMSNorm(d_model, rms_eps)
             if not tie_embeddings:
                 self.lm_head = (QDense if quantized else Dense)(d_model, vocab_size, dtype)
+            # sqrt(d_model) rounded to the compute dtype, made once: a tensor
+            # made per call would be a host-to-device copy in every step.
+            self.register_buffer("embed_multiplier", torch.tensor(d_model**0.5, dtype=dtype), persistent=False)
 
     def blocks(self):
         return [getattr(self, f"block_{i}") for i in range(self.num_layers)]
@@ -396,7 +399,7 @@ class LlamaLM(nn.Module):
         cos, sin = _rope_cos_sin(positions, self.head_dim, self.rope_theta)
         x = self.embed.embedding[tokens].to(self.dtype)
         if self.embed_scale:
-            x = x * torch.tensor(self.d_model**0.5, dtype=x.dtype, device=dev)
+            x = x * self.embed_multiplier
         hiddens = [x] if need_hiddens else None
         attns = [] if need_attentions else None
         for i, block in enumerate(self.blocks()):

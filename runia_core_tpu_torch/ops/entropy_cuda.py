@@ -25,6 +25,7 @@ import torch
 
 from runia_core_tpu_torch import _kernels
 from runia_core_tpu_torch.ops.entropy import _BIG, _digamma_const, _marginal_entropy_sorted
+from runia_core_tpu_torch.utils.graphs import count_launch
 
 __all__ = [
     "CHUNK", "MAX_N", "REGISTER_WIDTHS", "STATIC_K", "EntropyPlan", "batcher_pairs", "block_width", "entropy_plan",
@@ -195,7 +196,7 @@ def marginal_entropy_cuda(clouds: torch.Tensor, k: int, min_dist: float = 1e-5) 
             float(min_dist), _digamma_const(k, n), torch.cuda.current_stream().cuda_stream,
         )
     _kernels.check(code, "marginal_entropy")
-    marginal_entropy_cuda.launches += 1
+    count_launch(marginal_entropy_cuda)
     return out
 
 

@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 
 from runia_core_tpu_torch import _kernels
+from runia_core_tpu_torch.utils.graphs import count_launch
 
 __all__ = ["flash_prefix_attention", "reference_prefix_attention"]
 
@@ -157,8 +158,9 @@ def flash_prefix_attention(
             torch.cuda.current_stream().cuda_stream,
         )
     _kernels.check(code, "flash_prefix_attention")
-    flash_prefix_attention.launches += 1
-    flash_prefix_attention.kv8_launches += int(kv8)
+    count_launch(flash_prefix_attention)
+    if kv8:
+        count_launch(flash_prefix_attention, "kv8_launches")
     return out
 
 

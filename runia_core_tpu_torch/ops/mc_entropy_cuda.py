@@ -29,6 +29,7 @@ from runia_core_tpu_torch.evaluation.entropy import neighbors_for
 from runia_core_tpu_torch.ops.dropblock import dropblock_keep_weights, dropblock_seed
 from runia_core_tpu_torch.ops.entropy import _digamma_const, _marginal_entropy_sorted
 from runia_core_tpu_torch.ops.entropy_cuda import CHUNK, MAX_N, REGISTER_WIDTHS, STATIC_K, resident_width
+from runia_core_tpu_torch.utils.graphs import count_launch
 
 __all__ = [
     "MAP_DTYPES", "FusedPlan", "fused_mc_entropy", "fused_mc_entropy_plain", "fused_mc_entropy_supported",
@@ -150,7 +151,7 @@ def fused_mc_entropy(
             float(min_dist), _digamma_const(k, s), torch.cuda.current_stream().cuda_stream,
         )
     _kernels.check(code, "fused_mc_entropy")
-    fused_mc_entropy.launches += 1
+    count_launch(fused_mc_entropy)
     return out
 
 

@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from runia_core_tpu_torch import _kernels
+from runia_core_tpu_torch.utils.graphs import count_launch, current_graph
 
 __all__ = [
     "MAX_ROWS", "SplitKPlan", "plan_split_k", "quant_matmul", "quant_matmul_plain", "quant_matmul_supported",
@@ -87,16 +88,29 @@ _workspaces = {}  # (device index, stream) -> (f32 scratch, zeroed int32 tile co
 
 def _workspace(device: torch.device, stream: int, plan: SplitKPlan):
     """The scratch of partial sums and the output tiles' arrival counters of
-    one stream. Launches of a stream run one after the other, so they share
-    both: the scratch is written before it is read within a launch, and the
-    counters are zero before a launch and set back to zero by it."""
-    key = (device.index, stream)
-    scratch, counters = _workspaces.get(key, (None, None))
+    one stream, or of the CUDA graph being warmed up or captured
+    (``utils/graphs.py``), which owns its own. Launches of a stream, and of
+    a graph, run one after the other, so they share both: the scratch is
+    written before it is read within a launch, and the counters are zero
+    before a launch and set back to zero by it. A graph's workspace is made
+    by its warm-up; one that would be made during a capture (inside the
+    graph's memory pool) raises."""
+    graph = current_graph()
+    if graph is None:
+        store, key = _workspaces, (device.index, stream)
+    else:
+        store, key = graph.workspaces, ("quant_matmul", device.index)
+    scratch, counters = store.get(key, (None, None))
     tiles = plan.n_tiles * plan.row_blocks
     if scratch is None or scratch.numel() < plan.scratch_floats or counters.numel() < tiles:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "quant_matmul: its workspace would be allocated inside a CUDA graph capture; "
+                "capture through utils.graphs.CudaGraph, whose warm-up allocates it"
+            )
         scratch = torch.empty((max(plan.scratch_floats, 1 << 22),), dtype=torch.float32, device=device)
         counters = torch.zeros((max(tiles, 4096),), dtype=torch.int32, device=device)
-        _workspaces[key] = (scratch, counters)
+        store[key] = (scratch, counters)
     return scratch, counters
 
 
@@ -152,7 +166,7 @@ def quant_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torc
             _DTYPE_CODES[x.dtype], stream,
         )
     _kernels.check(code, "quant_matmul")
-    quant_matmul.launches += 1
+    count_launch(quant_matmul)
     return out.reshape(*lead, n)
 
 

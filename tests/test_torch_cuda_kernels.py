@@ -6,6 +6,8 @@ so on a machine without it they run with the repository's conftest left out:
     python -m pytest --noconftest -m requires_cuda tests/test_torch_cuda_kernels.py
 """
 
+import contextlib
+
 import pytest
 import torch
 
@@ -17,6 +19,7 @@ from runia_core_tpu_torch.ops.mc_entropy_cuda import (
     mc_dropblock_weights,
 )
 from runia_core_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
+from runia_core_tpu_torch.utils.graphs import CudaGraph
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -339,3 +342,189 @@ def test_flash_reads_a_transposed_cache_and_skips_garbage(gen, d, kv8):
     assert bool(torch.isfinite(got).all())
     clean = (None, None) if not kv8 else (ks.nan_to_num(0.0), vs.nan_to_num(0.0))
     assert flash_bf16_within(got, want, q, k, v, [0, 200], None, *clean)
+
+
+# ---- the compiled-program layer: CUDA graphs of the decode step and the scorer ----
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Every synchronising call raises inside the block but for the port's
+    own copies of results to the host (``utils.graphs.host_sync``)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _tiny_llama(form, use_flash=True):
+    from runia_core_tpu_torch.models import LlamaLM, fuse_quantized_llama_params, quantize_llama_params
+
+    cfg = dict(vocab_size=512, num_layers=2, num_heads=4, num_kv_heads=2, d_model=128, hidden_dim=256, max_len=512)
+    dense = LlamaLM(**cfg, use_flash=use_flash, device="cuda").eval()
+    dense.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    if form == "f32":
+        return dense
+    int8 = LlamaLM(**cfg, use_flash=True, quantized=True, quantized_kv=True, fused_qkv=True, device="cuda").eval()
+    int8.load_state_dict(fuse_quantized_llama_params(quantize_llama_params(dense.state_dict())))
+    return int8
+
+
+@pytest.mark.parametrize("form", ["f32", "int8_kv8"])
+def test_decode_graph_replays_match_the_eager_loop(gen, form):
+    from runia_core_tpu_torch.llm import TorchGenerator
+
+    new = 12
+    model = _tiny_llama(form)
+    prompts = torch.randint(1, 512, (3, 140), generator=torch.Generator().manual_seed(1)).tolist()
+    prompts[2] = prompts[2][:100]  # left-padded
+    graph, eager = TorchGenerator(model, max_new_tokens=new), TorchGenerator(model, max_new_tokens=new, use_scan=False)
+    for kwargs in (dict(output_attentions=True), dict(output_scores=False)):
+        want = eager.generate_batch(prompts, **kwargs)
+        with no_host_sync():
+            graph.generate_batch(prompts, **kwargs)  # captures
+            before = quant_matmul.launches
+            got = graph.generate_batch(prompts, **kwargs)  # replays
+        if form == "int8_kv8":  # 2 x 4 projections + lm_head a forward: the prefill, then one a replay
+            assert quant_matmul.launches - before == 9 * new
+        assert (got["sequences"] == want["sequences"]).all()
+        torch.testing.assert_close(torch.from_numpy(got["log_probs"]), torch.from_numpy(want["log_probs"]),
+                                   atol=1e-5, rtol=0)
+    assert "prev_token_attention" not in got
+    want = eager.generate_batch(prompts, output_attentions=True, max_new_tokens=2)  # a one-row tap buffer
+    with no_host_sync():
+        got = graph.generate_batch(prompts, output_attentions=True, max_new_tokens=2)
+    assert (got["sequences"] == want["sequences"]).all()
+    torch.testing.assert_close(torch.from_numpy(got["prev_token_attention"]),
+                               torch.from_numpy(want["prev_token_attention"]), atol=1e-5, rtol=0)
+    want = eager.generate(prompts[0], num_return_sequences=3)
+    with no_host_sync():
+        got = graph.generate(prompts[0], num_return_sequences=3)
+    assert (got["sequences"] == want["sequences"]).all()
+    torch.testing.assert_close(torch.from_numpy(got["log_probs"]), torch.from_numpy(want["log_probs"]),
+                               atol=1e-5, rtol=0)
+    for key in ("attentions", "hidden_states"):
+        for step_got, step_want in zip(got[key], want[key]):
+            for a, b in zip(step_got, step_want):
+                torch.testing.assert_close(torch.from_numpy(a), torch.from_numpy(b), atol=1e-5, rtol=0)
+    # Sampling: from one seed the replays draw what the eager loop draws,
+    # and a new generator object per call replays the same graph.
+    drawn = torch.Generator(device="cuda")
+    sampled = []
+    for g in (graph, graph, eager):
+        drawn.manual_seed(7)
+        with no_host_sync() if g is graph else contextlib.nullcontext():
+            sampled.append(g.generate(prompts[0], num_return_sequences=4, do_sample=True, top_k=50,
+                                      generator=drawn)["sequences"])
+    assert (sampled[0] == sampled[1]).all() and (sampled[0] == sampled[2]).all()
+    captures = CudaGraph.captures
+    for seed in (8, 9):
+        want = eager.generate(prompts[0], num_return_sequences=4, do_sample=True, top_k=50,
+                              generator=torch.Generator(device="cuda").manual_seed(seed))["sequences"]
+        with no_host_sync():
+            got = graph.generate(prompts[0], num_return_sequences=4, do_sample=True, top_k=50,
+                                 generator=torch.Generator(device="cuda").manual_seed(seed))["sequences"]
+        assert (got == want).all()
+    assert CudaGraph.captures == captures
+
+
+def test_decode_programs_stay_bounded_over_many_prompt_lengths(gen, monkeypatch):
+    """70 distinct prompt lengths over 8 buckets with a byte budget of three
+    of the largest programs: the cached programs keep to it, and the device
+    memory allocated never grows past it. (Head dim 32: the prefill takes
+    the dense route.)"""
+    import runia_core_tpu_torch.llm.generate as generate
+    from runia_core_tpu_torch.llm import TorchGenerator
+    from runia_core_tpu_torch.utils.graphs import ProgramCache
+
+    model = _tiny_llama("f32", use_flash=False)
+    tokens = torch.randint(1, 512, (600,), generator=torch.Generator().manual_seed(2)).tolist()
+    graph = TorchGenerator(model, max_new_tokens=4)
+    graph.generate_batch([tokens[:484]])
+    largest = max(program.nbytes for program in generate._PROGRAM_CACHE.entries.values())
+    cache = ProgramCache(generate._PROGRAM_CACHE_MAX, max_bytes=3 * largest)
+    monkeypatch.setattr(generate, "_PROGRAM_CACHE", cache)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    lengths = range(1, 485, 7)
+    for n in lengths:
+        graph.generate_batch([tokens[:n]])
+        assert cache.nbytes <= cache.max_bytes
+        assert torch.cuda.memory_allocated() <= base + cache.max_bytes + (1 << 20)
+    assert len(lengths) == 70 and len({generate._bucket(n) for n in lengths}) == 8 and len(cache) < 8
+
+
+def test_a_pool_whose_graphs_went_is_replaced(gen):
+    x = torch.randn((1024,), generator=gen, device="cuda")
+    first = CudaGraph(lambda x: x * 3, {"x": x})
+    assert torch.equal(first.replay()[0], x * 3)
+    del first
+    torch.cuda.empty_cache()
+    second = CudaGraph(lambda x: x + 1, {"x": x})  # the old pool went with its last graph
+    assert torch.equal(second.replay()[0], x + 1)
+
+
+def test_a_graph_of_kernel_3_resets_its_counters_on_every_replay(gen):
+    x, wq, scale = _qmm_inputs(gen, 16, 2048, 11264, torch.bfloat16)
+    want = quant_matmul(x, wq, scale)
+    graph = CudaGraph(lambda x: quant_matmul(x, wq, scale), {"x": x})
+    scratch, counters = graph.workspaces[("quant_matmul", torch.cuda.current_device())]
+    before = quant_matmul.launches
+    for _ in range(256):
+        (out,) = graph.replay()
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == before + 256
+    assert int(counters.abs().sum()) == 0
+    assert torch.equal(out, want)
+    x2 = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+    graph.load(x=x2)
+    (out,) = graph.replay()
+    assert torch.equal(out, quant_matmul(x2, wq, scale)) and int(counters.abs().sum()) == 0
+
+
+def _tiny_scorer_parts():
+    from runia_core_tpu_torch.models import ResNet18, build_tapped_forward
+
+    model = ResNet18(num_classes=10, cifar_stem=True, num_filters=16, device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    model = model.to(memory_format=torch.channels_last).eval()
+    state = {"feats_mean": torch.zeros(128, device="cuda"), "precision": torch.eye(128, device="cuda")}
+    return build_tapped_forward(model), state
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_scorer_replays_match_eager(gen, fused):
+    from runia_core_tpu_torch.inference import build_larex_scorer
+
+    torch.backends.cudnn.allow_tf32 = False
+    forward, state = _tiny_scorer_parts()
+    graph = build_larex_scorer(forward, None, state, 16, 0.5, 3, fused=fused)
+    eager = build_larex_scorer(forward, None, state, 16, 0.5, 3, fused=fused, use_graph=False)
+    images = [torch.rand((64, 32, 32, 3), generator=gen, device="cuda") for _ in range(3)]
+    weights = [mc_dropblock_weights(64, 4, 4, 16, 3, 0.5, gen, "cuda") for _ in range(3)]
+    kept = []
+    for x, w in zip(images, weights):
+        with no_host_sync():
+            logits, scores = graph(x, weights=w)
+        want_logits, want = eager(x, weights=w)
+        kept.append((scores, want))
+        torch.testing.assert_close(logits, want_logits, rtol=1e-6, atol=1e-6 * float(want_logits.abs().max()))
+    for scores, want in kept:  # later replays did not overwrite what an earlier call returned
+        torch.testing.assert_close(scores, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
+    captures = None
+    for seed in (5, 6, 7):  # a new generator per call: one capture, then replays
+        with no_host_sync():
+            got = graph(images[0], generator=torch.Generator(device="cuda").manual_seed(seed))[1]
+        want = eager(images[0], generator=torch.Generator(device="cuda").manual_seed(seed))[1]
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
+        captures = CudaGraph.captures if captures is None else captures
+    assert CudaGraph.captures == captures
+
+
+def test_a_capture_that_fails_raises(gen):
+    x = torch.randn((8,), generator=gen, device="cuda")
+    with pytest.raises(RuntimeError):
+        CudaGraph(lambda x: x * float(x.sum()), {"x": x})  # a host read inside the capture
+    torch.cuda.synchronize()
+    assert torch.equal(CudaGraph(lambda x: x * 2, {"x": x}).replay()[0], x * 2)  # the device is still usable

@@ -238,3 +238,59 @@ def test_bf16_model(base, tokens):
 def test_moe_is_not_ported_yet():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LlamaLM(**CFG, num_experts=4, device="cpu")
+
+
+# Combinations checked against the JAX dense path by hand before they were
+# tests: (id, model configuration, prefill chunks, a left-padded row).
+_CHECKED = [
+    ("window_flash", dict(sliding_window=16, use_flash=True), (T,), False),
+    ("window_flash_chunked", dict(sliding_window=16, use_flash=True), (20, 110), False),
+    ("window_flash_kv8", dict(sliding_window=16, use_flash=True, quantized_kv=True), (20, 110), False),
+    ("window_wider_than_prompt", dict(sliding_window=200, use_flash=True), (T,), False),
+    ("chunks_128_2", dict(use_flash=True), (128, 2), False),
+    ("chunks_1_129", dict(use_flash=True), (1, 129), False),
+    ("head_dim_32", dict(head_dim=32, rope_theta=5e5, rms_eps=1e-5), (T,), False),
+    ("kv_heads_1", dict(num_kv_heads=1), (T,), False),
+    ("kv_heads_4", dict(num_kv_heads=4), (T,), False),
+    ("left_padded", dict(), (T,), True),
+    ("left_padded_window", dict(sliding_window=16), (T,), True),
+    ("left_padded_flash", dict(use_flash=True), (T,), True),
+    ("left_padded_kv8", dict(quantized_kv=True), (T,), True),
+]
+
+
+@pytest.mark.parametrize("kw,chunks,left_padded", [case[1:] for case in _CHECKED], ids=[case[0] for case in _CHECKED])
+def test_checked_combinations(tokens, kw, chunks, left_padded):
+    """Prefill in ``chunks`` (the flash route where the configuration and a
+    chunk of 128 or more allow it), then three decode steps; with a
+    left-padded row, ``token_valid`` and ``positions`` in every call, as
+    ``generate_batch`` passes them."""
+    cfg = {**CFG, **{k: v for k, v in kw.items() if k != "use_flash"}}
+    jm = JaxLlamaLM(**cfg)
+    params = jm.init(jax.random.key(4), jnp.zeros((1, 8), jnp.int32))
+    params = {"params": _randomize(jax.tree_util.tree_map(np.asarray, params)["params"], np.random.RandomState(4))}
+    port = LlamaLM(**cfg, use_flash=kw.get("use_flash", False), device="cpu")
+    port.load_state_dict(llama_from_flax(params, device="cpu"))
+    atol = KV8_ATOL if kw.get("quantized_kv") else F32_ATOL
+    b, steps = tokens.shape[0], 3
+    valid = np.ones((b, CACHE), bool)
+    if left_padded:
+        valid[1, :10] = False
+    positions = np.maximum(np.cumsum(valid, axis=1) - 1, 0)
+    jcache, pcache = jax_init_cache(jm, b, CACHE), init_cache(port, b, CACHE, device="cpu")
+    rng = np.random.RandomState(1)
+    calls, start = [], 0
+    for size in chunks:
+        calls.append((tokens[:, start:start + size], start))
+        start += size
+    calls += [(rng.randint(0, 128, (b, 1)).astype(np.int32), start + i) for i in range(steps)]
+    for chunk, index in calls:
+        extra_j, extra_p = {}, {}
+        if left_padded:
+            here = positions[:, index:index + chunk.shape[1]]
+            extra_j = dict(token_valid=jnp.asarray(valid), positions=jnp.asarray(here))
+            extra_p = dict(token_valid=torch.from_numpy(valid), positions=torch.from_numpy(here))
+        lj = jm.apply(params, jnp.asarray(chunk), jcache, jnp.int32(index), **extra_j)
+        lp = port(torch.from_numpy(chunk).long(), pcache, index, **extra_p, need_attentions=False)
+        jcache = lj[3]
+        np.testing.assert_allclose(lp[0].numpy(), _np(lj[0]), atol=atol, rtol=0)
