@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two paths once on one NVIDIA GPU: LaREx image
-scoring and the Llama LLM-uncertainty slice.
+"""Drive the PyTorch port's paths once on one NVIDIA GPU: LaREx image
+scoring, the Llama LLM-uncertainty slice with semantic entropy on a DeBERTa
+NLI judge, and the Mixtral sparse-MoE LlamaLM.
 
 Run from the root of a checkout, with no arguments:
 
@@ -27,6 +28,22 @@ kernel against its plain PyTorch version on the card. Then, through
   projections, kernel 4 (``flash_prefix_attention``) the prefills, in its
   bf16 and KV8 variants. A 2-layer full-width f32 copy is held against the
   CPU route, and tokens/s are timed.
+* NLI (``nli``): ``DebertaV2Classifier`` at the deberta-v2-xxlarge-mnli
+  geometry (``bench.py`` ``_NLI_XXLARGE``: 48 layers, d 1,536, 24 heads, FFN
+  6,144, vocab 128,100, 256 position buckets, conv 3; random bf16 weights
+  from a seed), 16 pairs x 128 tokens through ``wrap_torch_nli``, graph
+  replay against the eager forward, and a 2-layer f32 copy against the CPU.
+* Semantic entropy (``llm_semantic``): ``compute_uncertainties`` with all
+  six methods on the production Llama, its judge a DeBERTa at the
+  deberta-v2-large geometry (``bench.py`` ``_NLI_LARGE``, 96-token pairs),
+  on six prompts of 150-350 tokens, with and without semantic entropy.
+* MoE (``moe_slice``): ``LlamaLM`` at the ``mistralai/Mixtral-8x7B-v0.1``
+  width (d 4,096, 32/8 heads of 128, 8 experts of 14,336, top-2, vocab
+  32,000, rope theta 1e6), depth cut to 2 of 32 layers (32 layers in bf16
+  are 93 GB, more than the card holds), bf16 with ``use_flash`` and int8 +
+  KV8 + fused qkv: a 4 x 512 prefill and a 16 x 64 + 64 greedy decode,
+  graph against eager, and a 1-layer f32 copy against the CPU. Kernel 3
+  carries every expert projection of the int8 decode.
 
 Both paths run as the port runs them by default: the LaREx scorer and the
 decode steps as replays of CUDA graphs (``utils/graphs.py``; the JAX
@@ -50,7 +67,9 @@ of one sort and one window per column, whatever the kernel does). Kernels
 past the L2, so neither the host nor the cache is in the number. Where one PyTorch call computes the
 same function (``scaled_dot_product_attention`` for kernel 4), that call's
 time, which the port itself never uses. A kernel's launch count is what the
-main path launched, the kernels inside each graph replay included.
+main paths launched (the Llama slice, semantic entropy and the MoE slice,
+each counted from zero just before it runs), the kernels inside each graph
+replay included.
 
 Every phase prints one JSON line. Any failed check raises, so the script
 exits non-zero and never prints its last line, which on success is
@@ -128,6 +147,24 @@ FLASH_BF16_RTOL, FLASH_BF16_ATOL_OF_S = 2.0**-7, 2.0**-6
 # value by max|x| / 127 (seen at 2e-4 relative on the CPU tests' small
 # model) -> 5e-3.
 LLM_XCHECK_REL = {"f32": 1e-4, "int8_kv8": 5e-3}
+# microsoft/deberta-v2-xxlarge-mnli's geometry (bench.py:979-982), and the
+# deberta-v2-large one the serving leg judges with (bench.py:983-986).
+NLI_XXLARGE = dict(vocab_size=128100, num_labels=3, num_layers=48, num_heads=24, d_model=1536,
+                   intermediate_size=6144, max_position_embeddings=512, position_buckets=256, conv_kernel_size=3)
+NLI_LARGE = dict(NLI_XXLARGE, num_layers=24, num_heads=16, d_model=1024, intermediate_size=4096)
+NLI_PAIRS, NLI_LEN, NLI_CALLS = 16, 128, 10  # bench.py:1012-1045; NLI_CALLS calls a timed window
+NLI_IDS = 62  # ids each side: [CLS] 62 [SEP] 62 [SEP] fills the 128 bucket but one slot
+NLI_XCHECK_LAYERS = 2
+# Card against CPU, f32, TF32 off, relative to max|logits|: the same f32
+# arithmetic summed in other orders over K = 1,536..6,144 (about 1e-6
+# relative a layer, two layers and a pooler).
+NLI_XCHECK_REL = 1e-4
+# mistralai/Mixtral-8x7B-v0.1 config.json; depth cut from 32 layers to 2.
+MOE_CFG = dict(vocab_size=32000, num_layers=2, num_heads=32, num_kv_heads=8, d_model=4096, hidden_dim=14336,
+               max_len=32768, rope_theta=1e6, rms_eps=1e-5, num_experts=8, num_experts_per_tok=2)
+MOE_PREFILL_BATCH, MOE_PREFILL_LEN, MOE_PREFILL_NEW = 4, 512, 8
+MOE_DECODE_BATCH, MOE_DECODE_PROMPT, MOE_DECODE_NEW = 16, 64, 64
+MOE_XCHECK_LAYERS, MOE_XCHECK_PROMPT, MOE_XCHECK_STEPS = 1, 128, 4
 H100_HBM_BYTES_PER_S = 3.35e12
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor cores,
 # and f32 outside them, where an FMA counts as two operations. Single
@@ -156,6 +193,34 @@ def with_share(bound: dict, ms: float) -> dict:
 # and carries their relative error; PCA whitening divides by the smallest of
 # 256 explained variances. Relative to max(|score|, 1).
 XCHECK_RTOL = 2e-3
+
+
+KERNEL_CATEGORIES = (  # first match wins, on the kernel's name
+    ("quant_matmul (kernel 3)", ("quant_matmul_kernel",)),
+    ("flash_prefix_attention (kernel 4)", ("flash_mma_kernel", "flash_kernel")),
+    ("library GEMM", ("gemm", "cutlass", "cublas", "gemv", "sm90_xmma", "sm80_xmma", "nvjet")),
+    ("softmax", ("softmax",)),
+    ("cat / copy / cast", ("CatArray", "copy", "Memcpy", "Memset", "index", "gather", "scatter")),
+    ("reductions", ("reduce", "argmax", "sort")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def kernel_category(name: str) -> str:
+    """A profiled kernel's category (``KERNEL_CATEGORIES``), or "other"."""
+    for label, needles in KERNEL_CATEGORIES:
+        if any(needle in name for needle in needles):
+            return label
+    return "other"
+
+
+def nli_category(name: str) -> str:
+    """``kernel_category`` with the judge's c2p / p2c gathers, LayerNorms
+    and conv apart."""
+    for label, needle in (("gather (c2p, p2c)", "gather"), ("layer norm", "layer_norm"), ("conv", "conv")):
+        if needle in name:
+            return label
+    return kernel_category(name)
 
 
 def emit(record: dict) -> None:
@@ -618,6 +683,8 @@ def quant_matmul_phase(device, gen) -> dict:
     from runia_core_tpu_torch.utils import cuda_graph_time_ms
 
     d, h, g, hd = LLM_CFG["d_model"], LLM_CFG["hidden_dim"], LLM_CFG["num_kv_heads"], LLM_CFG["d_model"] // LLM_CFG["num_heads"]
+    md, mh, mg = MOE_CFG["d_model"], MOE_CFG["hidden_dim"], MOE_CFG["num_kv_heads"]
+    mhd = md // MOE_CFG["num_heads"]
     decode_names = ("qkv", "gate_up", "o", "down")
     shapes = {  # the int8 model's projections at decode, rows = batch 16
         "qkv": (16, d, d + 2 * g * hd), "gate_up": (16, d, 2 * h), "o": (16, d, d),
@@ -630,6 +697,15 @@ def quant_matmul_phase(device, gen) -> dict:
         "rows17_down": (17, h, d), "rows100_down": (100, h, d), "rows1024_down": (1024, h, d),
         "ragged_k1000_n1000": (16, 1000, 1000), "f32_ragged_k1000_n1000": (33, 1000, 1000),
         "n2050": (16, d, 2050), "misaligned_wq": (16, d, d),
+        # the int8 Mixtral's products at the MoE main path's shapes: a decode
+        # step of 16 rows (fused qkv, o, one expert's w_gate / w_up and
+        # w_down, lm_head) and of 4 rows (the 4 x 512 prompts' steps, whose
+        # prefill ends in a 4-row lm_head), the 16 x 64 prompts' prefill
+        # (1,024 rows)
+        **{f"moe_{name}": (rows, k, n) for rows, tag in ((16, ""), (4, "rows4_"), (1024, "rows1024_"))
+           for name, (k, n) in ((f"{tag}qkv", (md, md + 2 * mg * mhd)), (f"{tag}o", (md, md)),
+                                (f"{tag}gate_up", (md, mh)), (f"{tag}down", (mh, md)))},
+        "moe_lm_head": (16, md, MOE_CFG["vocab_size"]), "moe_rows4_lm_head": (4, md, MOE_CFG["vocab_size"]),
     }
     errors, abs_errors, timings = {}, {}, {}
     for name, (rows, k, n) in shapes.items():
@@ -652,7 +728,7 @@ def quant_matmul_phase(device, gen) -> dict:
         abs_errors[name] = float((got.float() - want).abs().max())
         errors[name] = abs_errors[name] / float(want.abs().max())
         require(errors[name] <= QMM_BOUND[dtype], f"quant_matmul {name}: rel err {errors[name]} > {QMM_BOUND[dtype]}")
-        if name in decode_names or name == "lm_head" or name.startswith("rows"):
+        if name in decode_names or name == "lm_head" or name.startswith(("rows", "moe")):
             # Copies that together exceed the 50 MB L2, used in turns: every
             # call reads its weights from device memory, as a decode step does.
             copies = [(x, wq, scale)] + [(x, wq.clone(), scale) for _ in range(max(0, -(-64 * 2**20 // (k * n)) - 1))]
@@ -663,7 +739,7 @@ def quant_matmul_phase(device, gen) -> dict:
                              "grid": [plan.n_tiles, plan.splits, plan.row_blocks],
                              **with_share(quant_matmul_bound(rows, k, n, dtype), ms)}
             require(ms <= plain_ms, f"quant_matmul {name}: the kernel ({ms} ms) is no slower than plain ({plain_ms} ms)")
-            if name in decode_names or name == "lm_head":
+            if name in decode_names or name == "lm_head" or name.startswith("moe"):
                 # A different function, as a reference point only: cuBLAS on
                 # the dequantized bf16 weight, twice the bytes.
                 dense = [(x, copies[i % len(copies)][1].to(torch.bfloat16))
@@ -772,6 +848,8 @@ def flash_phase(device, gen) -> dict:
     hq, g, hd = LLM_CFG["num_heads"], LLM_CFG["num_kv_heads"], LLM_CFG["d_model"] // LLM_CFG["num_heads"]
     bf16, f32 = torch.bfloat16, torch.float32
     pb, pl = PREFILL_BATCH, PREFILL_LEN
+    mb, mt, mhq, mg = MOE_PREFILL_BATCH, MOE_PREFILL_LEN, MOE_CFG["num_heads"], MOE_CFG["num_kv_heads"]
+    mhd = MOE_CFG["d_model"] // mhq
     cases = {  # (B, Hq, G, Tq, K, D, q_start, kv_start, dtype, kv8[, layout])
         "prefill": (pb, hq, g, pl, pl + 256, hd, [0] * pb, None, bf16, False),
         "chunked": (2, hq, g, 256, 2048, hd, [0, 700], None, bf16, False),
@@ -792,6 +870,10 @@ def flash_phase(device, gen) -> dict:
         "tq65": (2, hq, g, 65, 129, hd, [0, 64], None, bf16, False),
         "misaligned": (2, hq, g, 130, 300, hd, [0, 150], [0, 3], bf16, False, "misaligned"),
         "misaligned_kv8": (2, hq, g, 130, 300, hd, [0, 150], [0, 3], bf16, True, "misaligned"),
+        # the Mixtral-width 4 x 512 prefill of the MoE main path: 32 / 8 heads
+        # of 128 over its 520-slot (B, K, G, D) cache, bf16 and KV8
+        **{name: (mb, mhq, mg, mt, mt + MOE_PREFILL_NEW, mhd, [0] * mb, None, bf16, kv8, "transposed")
+           for name, kv8 in (("moe_prefill", False), ("moe_kv8_prefill", True))},
     }
     errors, err_over_bound, timings = {}, {}, {}
     for name, (b, nh, ng, tq, kk, d, q_start, kv_start, dtype, kv8, *layout) in cases.items():
@@ -846,13 +928,13 @@ def flash_phase(device, gen) -> dict:
             for row, (qs_r, kvs_r) in enumerate(zip(q_start, kv_start)):
                 empty = max(0, kvs_r - qs_r)
                 require(bool((got[row, :, :empty] == 0).all()), f"flash {name}: empty-window rows are exact zeros")
-        if name in ("prefill", "kv8_prefill", "chunked"):
+        if name in ("prefill", "kv8_prefill", "chunked", "moe_prefill", "moe_kv8_prefill"):
             # The kernel by CUDA-graph replays (the chunk case is shorter than
             # its enqueue), the plain version, milliseconds long, by events.
             plain, kernel = [], []
             for _ in range(2):
                 plain.append(cuda_time_ms(lambda: reference_prefix_attention(q, k, v, qs, kvs, None, ks, vs), 10))
-                kernel.append(cuda_graph_time_ms(lambda: flash_prefix_attention(q, k, v, qs, kvs, ks, vs), 20))
+                kernel.append(cuda_graph_time_ms(lambda: flash_prefix_attention(q_in, k_in, v_in, qs, kvs, ks, vs), 20))
             ms, plain_ms = sum(kernel) / 2, sum(plain) / 2
             starts = kv_start or [0] * b
             flops = 4 * d * nh * _window_pairs(q_start, starts, tq, kk)
@@ -864,7 +946,7 @@ def flash_phase(device, gen) -> dict:
             if kv8:
                 timings[name]["library_ms"] = None  # no PyTorch call attends an int8 cache with per-key scales
                 continue
-            if name == "prefill":
+            if name in ("prefill", "moe_prefill"):  # causal from key 0: the first tq keys
                 library = sdpa_library(q, k, v, q_start, tq)
             else:
                 rows = qs.long()[:, None, None] + torch.arange(tq, device=device)[:, None]
@@ -1215,6 +1297,398 @@ def llm_throughput_phase(device, models) -> dict:
     return {"prefill": prefill, "decode": decode}
 
 
+class PairTok:
+    """``bench.py``'s ``_PairTok`` (bench.py:948-973): an HF-style pair
+    tokenizer for texts that are token-id lists, packing ``[CLS] p [SEP] h
+    [SEP]`` with the ids folded into the NLI vocabulary."""
+
+    def __init__(self, vocab: int):
+        self.vocab = vocab
+
+    def __call__(self, premises, hypotheses, padding=True, truncation=True, max_length=128, return_tensors="np"):
+        half = (max_length - 3) // 2
+        rows = []
+        for p, h in zip(premises, hypotheses):
+            def fold(seq):
+                return [1 + int(t) % (self.vocab - 2) for t in seq]
+
+            rows.append([1] + fold(p)[:half] + [2] + fold(h)[:half] + [2])
+        t = max(len(r) for r in rows)
+        ids = np.zeros((len(rows), t), np.int64)
+        mask = np.zeros((len(rows), t), np.int64)
+        for i, r in enumerate(rows):
+            ids[i, : len(r)] = r
+            mask[i, : len(r)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+def reachable_buckets(t: int, span: int, max_position: int) -> int:
+    """Rows of the (2 x span, d) relative table a call of length t reads:
+    the distinct log buckets (HF ``make_log_bucket_position``) of the
+    offsets 1 - t .. t - 1, clipped to the table."""
+    rel = np.arange(1 - t, t, dtype=np.float64)
+    mid = span // 2
+    far = np.abs(rel) > mid
+    log_pos = np.ceil(np.log(np.abs(rel[far]) / mid) / np.log((max_position - 1) / mid) * (mid - 1)) + mid
+    rel[far] = np.sign(rel[far]) * log_pos
+    return len(np.unique(np.clip(rel + span, 0, 2 * span - 1)))
+
+
+def deberta_work(cfg: dict, rows: int, t: int) -> dict:
+    """Operations and bytes of one DeBERTa call on (rows, t) padded tokens,
+    from its shapes: every matmul (projections, FFN, the position keys and
+    queries of the reachable rows of the relative table, QK, c2p and p2c
+    over those rows, PV, the conv, pooler and classifier) at 2 operations a
+    multiply-add; bytes the bf16 weights once (of the embedding only the
+    rows read), the reachable f32 table rows, and the ids, mask and
+    logits."""
+    d, ff, layers = cfg["d_model"], cfg["intermediate_size"], cfg["num_layers"]
+    buckets = reachable_buckets(t, cfg["position_buckets"], cfg["max_position_embeddings"])
+    tokens = rows * t
+    per_layer = (2 * tokens * (4 * d * d + 2 * d * ff)  # q, k, v, attention out; FFN in and out
+                 + 2 * 2 * buckets * d * d  # position keys and queries (share_att_key)
+                 + 2 * rows * (2 * t * t * d + 2 * t * buckets * d))  # QK and PV; c2p and p2c
+    ops = layers * per_layer + 2 * tokens * cfg["conv_kernel_size"] * d * d + 2 * rows * (d * d + d * 3)
+    weights = layers * (4 * d * d + 2 * d * ff) + cfg["conv_kernel_size"] * d * d + d * d + 3 * d
+    return {**roofline(2 * weights + 4 * buckets * d + 2 * tokens * d + 2 * 8 * tokens + 4 * rows * 3, ops,
+                       H100_BF16_OPS_PER_S), "table_rows_read": buckets}
+
+
+def nli_phase(device) -> dict:
+    """The deberta-v2-xxlarge-mnli judge at full depth and width, bf16, 16
+    pairs x 128 tokens through ``wrap_torch_nli``: the replayed bucket
+    against the eager forward (labels identical, logits bit-identical),
+    pairs/s of both routes in turns, a replay's device ms and TFLOP/s
+    against the bound, the profiler's kernel share of a call, captures per
+    call and the first call's ms; then 2 layers in f32 against the CPU."""
+    from runia_core_tpu_torch.models import DebertaV2Classifier, wrap_torch_nli
+    from runia_core_tpu_torch.utils import CudaGraph, cuda_time_ms, device_profile
+    from runia_core_tpu_torch.utils.graphs import upload
+
+    model = DebertaV2Classifier(**NLI_XXLARGE, dtype=torch.bfloat16).eval()
+    require(model.pooler.kernel.device == device, f"the default device is the card: {model.pooler.kernel.device}")
+    model.init_weights(torch.Generator(device=device).manual_seed(SEED + 6))
+    tok = PairTok(NLI_XXLARGE["vocab_size"])
+    rng = np.random.RandomState(3)
+    premises = [list(rng.randint(1, 32000, NLI_IDS)) for _ in range(NLI_PAIRS)]
+    hypotheses = [list(rng.randint(1, 32000, NLI_IDS)) for _ in range(NLI_PAIRS)]
+    judges = {route: wrap_torch_nli(model, tok, max_len=NLI_LEN, len_buckets=(NLI_LEN,), batch_bucket=NLI_PAIRS,
+                                    use_graph=route == "graph") for route in ("eager", "graph")}
+    captures = CudaGraph.captures
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with no_host_sync():
+        first = judges["graph"].logits(premises, hypotheses)  # warm-up calls and the capture
+    first_ms = (time.perf_counter() - start) * 1e3
+    first_captures = CudaGraph.captures - captures
+    want = judges["eager"].logits(premises, hypotheses)
+    captures = CudaGraph.captures
+    with no_host_sync():
+        got = judges["graph"].logits(premises, hypotheses)
+        labels = judges["graph"](premises, hypotheses)
+    require(got.shape == (NLI_PAIRS, 3) and bool(np.isfinite(got).all()), "nli: finite (16, 3) logits")
+    require(np.array_equal(got, want) and np.array_equal(first, want), "nli: replayed logits bit-identical to eager")
+    require(np.array_equal(labels, judges["eager"](premises, hypotheses)), "nli: replayed labels equal eager's")
+
+    def window(route):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(NLI_CALLS):
+            judges[route](premises, hypotheses)  # each call ends in the labels' copy to the host
+        return (time.perf_counter() - start) / NLI_CALLS
+
+    seconds = {"eager": [], "graph": []}
+    for route in ("eager", "graph", "graph", "eager", "eager", "graph"):
+        seconds[route].append(window(route))
+    steady_captures = CudaGraph.captures - captures
+    enc = tok(premises, hypotheses, max_length=NLI_LEN)
+    inputs = {"input_ids": np.zeros((NLI_PAIRS, NLI_LEN), np.int64), "attention_mask": np.zeros((NLI_PAIRS, NLI_LEN),
+                                                                                               np.int64)}
+    for name in inputs:
+        inputs[name][:, : enc[name].shape[1]] = enc[name]
+    inputs = {name: upload(v, device) for name, v in inputs.items()}
+    graph = CudaGraph(model, inputs)
+    replay_ms = cuda_time_ms(graph.replay, iters=10, warmup=2)
+    eager_ms = cuda_time_ms(lambda: model(**inputs), iters=5, warmup=1)
+    del graph
+    busy = device_profile(lambda: [judges["graph"](premises, hypotheses) for _ in range(5)], 5, nli_category)
+    work = deberta_work(NLI_XXLARGE, NLI_PAIRS, NLI_LEN)
+    record = {
+        "phase": "nli", "config": NLI_XXLARGE, "dtype": "bfloat16", "pairs": NLI_PAIRS, "tokens": NLI_LEN,
+        "valid_tokens_per_pair": 3 + 2 * NLI_IDS,
+        "params": sum(p.numel() for p in model.parameters()),
+        "replay_vs_eager": {"logits_bit_identical": True, "labels_identical": True},
+        "pairs_per_s": {route: NLI_PAIRS / statistics.median(secs) for route, secs in seconds.items()},
+        "call_s": seconds, "first_call_ms": first_ms, "captures_first_call": first_captures,
+        "captures_per_call_after": steady_captures / (6 * NLI_CALLS + 2),
+        "replay_ms": replay_ms, "eager_forward_ms": eager_ms,
+        "TFLOPs_replay": work["operations"] / (replay_ms * 1e-3) / 1e12,
+        "share_of_bf16_peak": work["operations"] / (replay_ms * 1e-3) / H100_BF16_OPS_PER_S,
+        **with_share(work, replay_ms),
+        "kernel_share_of_call": busy["device_busy_share"], "kernels_per_call": busy["kernels_per_unit"],
+        "device_ms_per_call_profiled": busy["device_busy_ms_per_unit"], "device_time_seen": busy["device_time_seen"],
+        "device_ms_per_call_by_category": busy["device_ms_per_unit_by_category"],
+        "kernels_per_call_by_category": busy["kernels_per_unit_by_category"],
+    }
+    del judges, model
+    torch.cuda.empty_cache()
+
+    # ---- f32 cross-check: 2 layers at full width, card against CPU ----
+    cfg = dict(NLI_XXLARGE, num_layers=NLI_XCHECK_LAYERS)
+    card = DebertaV2Classifier(**cfg).eval()
+    card.init_weights(torch.Generator(device=device).manual_seed(SEED + 7))
+    cpu = DebertaV2Classifier(**cfg, device="cpu").eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    ids, mask = torch.from_numpy(enc["input_ids"]), torch.from_numpy(enc["attention_mask"])
+    got = card(ids.to(device), mask.to(device)).cpu()
+    want = cpu(ids, mask)
+    rel = float((got - want).abs().max() / want.abs().max())
+    require(rel <= NLI_XCHECK_REL, f"nli card vs CPU f32: rel err {rel} > {NLI_XCHECK_REL}")
+    record["xcheck_f32_cpu"] = {"layers": NLI_XCHECK_LAYERS, "max_rel_err": rel, "bound": NLI_XCHECK_REL}
+    del card, cpu
+    torch.cuda.empty_cache()
+    emit(record)
+    return record
+
+
+SEMANTIC_REQUESTS = [  # bench.py:1066-1074, the six methods
+    {"method_name": "perplexity"}, {"method_name": "generation_entropy"},
+    {"method_name": "RAUQ", "token_aggregation": "original", "head_aggregation": "original"},
+    {"method_name": "normalized_entropy"}, {"method_name": "eigen_score", "layer_index": 15},
+    {"method_name": "semantic_entropy"},
+]
+
+
+def llm_semantic_phase(device, model) -> dict:
+    """``compute_uncertainties`` with all six methods on the production
+    Llama (bf16, graph route), semantic entropy judged by a DeBERTa at the
+    deberta-v2-large geometry (``wrap_torch_nli``, 96-token pairs in
+    batches of 16): s per prompt with and without semantic entropy on six
+    prompts of 150-350 tokens, in turns, and the judge's share of the time.
+    The main path of kernels 3 and 4 counted from zero."""
+    from runia_core_tpu_torch.llm import TorchGenerator, compute_uncertainties
+    from runia_core_tpu_torch.models import DebertaV2Classifier, wrap_torch_nli
+    from runia_core_tpu_torch.ops.flash_prefill import flash_prefix_attention
+    from runia_core_tpu_torch.ops.quant_matmul import quant_matmul
+
+    nli = DebertaV2Classifier(**NLI_LARGE, dtype=torch.bfloat16).eval()
+    nli.init_weights(torch.Generator(device=device).manual_seed(SEED + 8))
+    judge = wrap_torch_nli(nli, PairTok(NLI_LARGE["vocab_size"]), max_len=96, len_buckets=(96,), batch_bucket=16)
+    judged = []  # (seconds, texts seen) per judge call
+
+    def timed_judge(premises, hypotheses):
+        start = time.perf_counter()
+        labels = judge(premises, hypotheses)
+        judged.append((time.perf_counter() - start, {tuple(p) for p in premises}))
+        return labels
+
+    timed_judge.is_batch_labels = True
+    gen = TorchGenerator(model, max_new_tokens=UQ_NEW)
+    rng = torch.Generator().manual_seed(SEED + 9)
+    prompts = [torch.randint(1, LLM_CFG["vocab_size"], (n,), generator=rng).tolist() for n in UQ_MIXED_LENGTHS]
+    without = SEMANTIC_REQUESTS[:-1]
+    quant_matmul.launches = 0
+    flash_prefix_attention.launches = flash_prefix_attention.kv8_launches = 0
+    seconds = {"six_methods": [], "without_semantic_entropy": []}
+    nli_seconds, scores_seen = [], []
+    for i, prompt in enumerate(prompts):
+        order = (("six_methods", SEMANTIC_REQUESTS), ("without_semantic_entropy", without))
+        for label, requests in order if i % 2 == 0 else order[::-1]:
+            judged.clear()
+            start = time.perf_counter()
+            with no_host_sync():
+                _, scores = compute_uncertainties(gen, None, prompt, requests, num_samples=UQ_SAMPLES,
+                                                  entailment_model=timed_judge)
+            seconds[label].append(time.perf_counter() - start)
+            if label == "six_methods":
+                require(len(judged) == 1, f"llm_semantic: one batched judge call a prompt, got {len(judged)}")
+                nli_seconds.append(judged[0][0])
+                require(set(scores["clusters"]) == judged[0][1], "llm_semantic: clusters cover every sample")
+                scores_seen.append({k: v for k, v in scores.items() if k != "clusters"})
+            require(all(np.isfinite(v) for k, v in scores.items() if k != "clusters"),
+                    f"llm_semantic: every score finite: {scores}")
+    launches = {"quant_matmul": quant_matmul.launches, "flash_prefix_attention": flash_prefix_attention.launches,
+                "flash_prefix_attention_kv8": flash_prefix_attention.kv8_launches}
+    require(launches["flash_prefix_attention"] > 0, f"llm_semantic: kernel 4 launched: {launches}")
+    record = {
+        "phase": "llm_semantic", "methods": [r["method_name"] for r in SEMANTIC_REQUESTS],
+        "judge": {"geometry": "deberta-v2-large (bench.py _NLI_LARGE)", "max_len": 96, "batch_bucket": 16},
+        "prompt_lengths": list(UQ_MIXED_LENGTHS), "samples": UQ_SAMPLES, "new_tokens": UQ_NEW,
+        "s_per_prompt": seconds, "mean_s": {k: statistics.mean(v) for k, v in seconds.items()},
+        "nli_s_per_prompt": nli_seconds,
+        "nli_share_of_six_methods": sum(nli_seconds) / sum(seconds["six_methods"]),
+        "semantic_entropy": [s_["semantic_entropy"] for s_ in scores_seen], "launches": launches,
+    }
+    emit(record)
+    del judge, nli
+    torch.cuda.empty_cache()
+    return launches
+
+
+def build_moe(device, num_layers: int, dtype):
+    """The Mixtral-width LlamaLM (depth ``num_layers``) with seeded random
+    weights, and its int8 + KV8 + fused qkv form made from it on the device."""
+    from runia_core_tpu_torch.models import LlamaLM, fuse_quantized_llama_params, quantize_llama_params
+
+    cfg = dict(MOE_CFG, num_layers=num_layers)
+    dense = LlamaLM(**cfg, dtype=dtype, use_flash=True).eval()
+    require(dense.embed.embedding.device == device, f"the default device is the card: {dense.embed.embedding.device}")
+    dense.init_weights(torch.Generator(device=device).manual_seed(SEED + 10))
+    int8 = LlamaLM(**cfg, dtype=dtype, use_flash=True, quantized=True, quantized_kv=True, fused_qkv=True).eval()
+    int8.load_state_dict(fuse_quantized_llama_params(quantize_llama_params(dense.state_dict())))
+    return {"bf16" if dtype == torch.bfloat16 else "f32": dense, "int8_kv8": int8}
+
+
+def moe_slice_phase(device) -> dict:
+    """The Mixtral-width MoE LlamaLM, 2 layers, bf16 (``use_flash``) and
+    int8 + KV8 + fused qkv: the main path counted (a 4 x 512 prefill and a
+    16 x 64 + 64 greedy decode per form, graph route), replays against the
+    eager loop (tokens identical, log-probs within 1e-5), prefill and decode
+    rates of both routes, decode HBM GB/s, and kernel 3 and 4 launches per
+    replay and per prefill; then 1 layer in f32 against the CPU."""
+    from runia_core_tpu_torch.llm import TorchGenerator
+    from runia_core_tpu_torch.models import init_cache
+    from runia_core_tpu_torch.ops.flash_prefill import flash_prefix_attention
+    from runia_core_tpu_torch.ops.quant_matmul import quant_matmul
+    from runia_core_tpu_torch.utils import cuda_time_ms
+
+    models = build_moe(device, MOE_CFG["num_layers"], torch.bfloat16)
+    rng = torch.Generator().manual_seed(SEED + 11)
+    vocab = MOE_CFG["vocab_size"]
+    long_prompts = torch.randint(1, vocab, (MOE_PREFILL_BATCH, MOE_PREFILL_LEN), generator=rng).tolist()
+    prompts = torch.randint(1, vocab, (MOE_DECODE_BATCH, MOE_DECODE_PROMPT), generator=rng).tolist()
+    gens = {name: TorchGenerator(m, max_new_tokens=MOE_DECODE_NEW) for name, m in models.items()}
+
+    # ---- the main path, counted ----
+    quant_matmul.launches = 0
+    flash_prefix_attention.launches = flash_prefix_attention.kv8_launches = 0
+    greedy = {}
+    with no_host_sync():
+        for name, gen in gens.items():
+            out = gen.generate_batch(long_prompts, max_new_tokens=MOE_PREFILL_NEW)
+            require(out["sequences"].shape == (MOE_PREFILL_BATCH, MOE_PREFILL_LEN + MOE_PREFILL_NEW)
+                    and bool(np.isfinite(out["log_probs"]).all()), f"moe {name}: prefill run finite")
+            greedy[name] = gen.generate_batch(prompts, output_scores=False)
+    torch.cuda.synchronize()
+    launches = {"quant_matmul": quant_matmul.launches, "flash_prefix_attention": flash_prefix_attention.launches,
+                "flash_prefix_attention_kv8": flash_prefix_attention.kv8_launches}
+    require(launches["quant_matmul"] > 0 and launches["flash_prefix_attention_kv8"] > 0
+            and launches["flash_prefix_attention"] > launches["flash_prefix_attention_kv8"],
+            f"moe: kernels 3 and 4 (bf16 and KV8) launched on the main path: {launches}")
+
+    # ---- replay against the eager loop ----
+    record = {}
+    for name, model in models.items():
+        want = TorchGenerator(model, max_new_tokens=MOE_DECODE_NEW, use_scan=False).generate_batch(
+            prompts, output_scores=False)
+        same = bool((greedy[name]["sequences"] == want["sequences"]).all())
+        lp_err = float(np.abs(greedy[name]["log_probs"] - want["log_probs"]).max())
+        require(same and lp_err <= GRAPH_LOGPROB_ATOL,
+                f"moe {name}: replay vs eager, tokens identical {same}, log-prob err {lp_err}")
+        record[name] = {"greedy_tokens_identical": same, "max_abs_err_log_probs": lp_err}
+
+    # ---- rates: prefill (events), decode (host clock, routes in turns) ----
+    tokens = torch.randint(1, vocab, (MOE_PREFILL_BATCH, MOE_PREFILL_LEN), generator=rng).to(device)
+    routes = {"eager": False, "graph": True}
+    timed = {(name, route): TorchGenerator(m, max_new_tokens=MOE_DECODE_NEW, use_scan=scan)
+             for name, m in models.items() for route, scan in routes.items()}
+    for gen in timed.values():
+        gen.generate_batch(prompts, output_scores=False, max_new_tokens=4)  # warm-up
+    seconds = {key: [] for key in timed}
+    for key in [("bf16", "eager"), ("bf16", "graph"), ("int8_kv8", "graph"), ("int8_kv8", "eager"),
+                ("int8_kv8", "eager"), ("int8_kv8", "graph"), ("bf16", "graph"), ("bf16", "eager")]:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        timed[key].generate_batch(prompts, output_scores=False)
+        torch.cuda.synchronize()
+        seconds[key].append(time.perf_counter() - start)
+    head_dim = MOE_CFG["d_model"] // MOE_CFG["num_heads"]
+    avg_ctx = MOE_DECODE_PROMPT + MOE_DECODE_NEW / 2
+    for name, model in models.items():
+        cache = init_cache(model, MOE_PREFILL_BATCH, MOE_PREFILL_LEN)
+        k3, k4 = quant_matmul.launches, flash_prefix_attention.launches
+        prefill_ms = cuda_time_ms(lambda: model(tokens, cache, 0, need_attentions=False, need_hiddens=False,
+                                                last_logits_only=True), iters=3, warmup=1)
+        per_prefill = {"quant_matmul": (quant_matmul.launches - k3) / 4,
+                       "flash_prefix_attention": (flash_prefix_attention.launches - k4) / 4}
+        del cache
+        program = _decode_program(model, MOE_DECODE_BATCH, MOE_DECODE_NEW)
+        kv_item = 1 if model.quantized_kv else 2
+        kv_read = MOE_DECODE_BATCH * MOE_CFG["num_layers"] * 2 * avg_ctx * MOE_CFG["num_kv_heads"] * (
+            head_dim * kv_item + (4 if model.quantized_kv else 0))
+        step_bytes = _weight_bytes(model) + kv_read
+        replay_ms = decode_replay_ms(model, MOE_DECODE_BATCH, MOE_DECODE_NEW)
+        record[name] |= {
+            "prefill_ms": prefill_ms, "prefill_tokens_per_s": MOE_PREFILL_BATCH * MOE_PREFILL_LEN / (prefill_ms * 1e-3),
+            "launches_per_prefill": per_prefill,
+            "kernel3_launches_per_replay": program.graph.launches.get((quant_matmul, "launches"), 0),
+            "kernel4_launches_per_replay": program.graph.launches.get((flash_prefix_attention, "launches"), 0),
+            "weight_bytes": _weight_bytes(model), "decode_bytes_per_step": step_bytes,
+            "replay_ms": replay_ms, "replay_hbm_GBps": step_bytes / (replay_ms * 1e-3) / 1e9,
+            "replay_hbm_share_of_3.35TBps": step_bytes / (replay_ms * 1e-3) / H100_HBM_BYTES_PER_S,
+            "decode_bound_ms": step_bytes / H100_HBM_BYTES_PER_S * 1e3,
+        }
+        for route in routes:
+            secs = seconds[(name, route)]
+            total, steps = sum(secs), MOE_DECODE_NEW * len(secs)
+            record[name][f"decode_{route}"] = {
+                "seconds": secs, "tokens_per_s": MOE_DECODE_BATCH * steps / total,
+                "ms_per_step": total / steps * 1e3, "hbm_GBps": steps / total * step_bytes / 1e9,
+            }
+    require(record["int8_kv8"]["kernel3_launches_per_replay"] > 0, "moe: kernel 3 in every int8 decode replay")
+    emit({"phase": "moe_slice", "config": MOE_CFG, "cut": "depth 2 of 32 layers (32 in bf16: 93 GB)",
+          "prefill_shape": [MOE_PREFILL_BATCH, MOE_PREFILL_LEN],
+          "decode_shape": [MOE_DECODE_BATCH, MOE_DECODE_PROMPT, MOE_DECODE_NEW], "launches": launches,
+          "bound_log_probs": GRAPH_LOGPROB_ATOL, "models": record, "hbm_peak_GBps": H100_HBM_BYTES_PER_S / 1e9})
+    del models, gens, timed
+    _drop_programs()
+    torch.cuda.empty_cache()
+    moe_xcheck_phase(device)
+    return launches
+
+
+def moe_xcheck_phase(device) -> dict:
+    """1 layer at the Mixtral width, f32 (TF32 off): card route against CPU
+    route on the same weights, the float and the int8 + KV8 + fused form,
+    a 128-token prefill (kernel 4 on the card) then teacher-forced decode
+    steps."""
+    from runia_core_tpu_torch.models import LlamaLM, init_cache
+
+    card = build_moe(device, MOE_XCHECK_LAYERS, torch.float32)
+    rng = torch.Generator().manual_seed(SEED + 12)
+    tokens = torch.randint(1, MOE_CFG["vocab_size"], (1, MOE_XCHECK_PROMPT + MOE_XCHECK_STEPS), generator=rng)
+    n = MOE_XCHECK_PROMPT + MOE_XCHECK_STEPS
+    errors = {}
+    for name, model in card.items():
+        cpu = LlamaLM(**dict(MOE_CFG, num_layers=MOE_XCHECK_LAYERS), use_flash=True, quantized=model.quantized,
+                      quantized_kv=model.quantized_kv, fused_qkv=model.fused_qkv, device="cpu").eval()
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        card_cache, cpu_cache = init_cache(model, 1, n), init_cache(cpu, 1, n, "cpu")
+        calls = [(tokens[:, :MOE_XCHECK_PROMPT], 0)] + [
+            (tokens[:, MOE_XCHECK_PROMPT + i: MOE_XCHECK_PROMPT + i + 1], MOE_XCHECK_PROMPT + i)
+            for i in range(MOE_XCHECK_STEPS)]
+        worst = 0.0
+        for chunk, index in calls:
+            got = model(chunk.to(device), card_cache, index, need_attentions=False, need_hiddens=False)[0].cpu()
+            want = cpu(chunk, cpu_cache, index, need_attentions=False, need_hiddens=False)[0]
+            worst = max(worst, float((got - want).abs().max() / want.abs().max()))
+        errors[name] = worst
+        require(worst <= LLM_XCHECK_REL[name], f"MoE card vs CPU ({name}): rel err {worst} > {LLM_XCHECK_REL[name]}")
+        del cpu
+    emit({"phase": "moe_xcheck_f32_cpu", "layers": MOE_XCHECK_LAYERS, "prompt": MOE_XCHECK_PROMPT,
+          "steps": MOE_XCHECK_STEPS, "max_rel_err": errors, "bound": LLM_XCHECK_REL})
+    del card
+    torch.cuda.empty_cache()
+    return errors
+
+
+def _drop_programs() -> None:
+    """Forget every cached decode program (their buffers and graphs)."""
+    from runia_core_tpu_torch.llm.generate import _PROGRAM_CACHE
+
+    _PROGRAM_CACHE.discard(lambda key: True)
+
+
 def main() -> None:
     sys.path.insert(0, str(REPO))
     import runia_core_tpu_torch  # noqa: F401  (fails outside a checkout)
@@ -1234,6 +1708,16 @@ def main() -> None:
     llm_graph_phase(device, models)
     llm_xcheck_phase(device)
     llm_throughput_phase(device, models)
+    semantic = llm_semantic_phase(device, models["bf16"])
+    del models, dense, int8
+    _drop_programs()
+    torch.cuda.empty_cache()
+    nli_phase(device)
+    moe = moe_slice_phase(device)
+    for counts in (semantic, moe):
+        for name, n in counts.items():
+            if name in launches:
+                launches[name] += n
     emit({"kernels": [
         {"name": "marginal_entropy", "route": "cuda",
          "source": "runia_core_tpu_torch/csrc/marginal_entropy.cu",

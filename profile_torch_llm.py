@@ -32,24 +32,9 @@ import torch
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
-import chip_smoke  # noqa: E402  (the production configuration and build_llms)
+import chip_smoke  # noqa: E402  (the production configuration, build_llms and the kernel categories)
 
-CATEGORIES = (  # first match wins, on the kernel's name
-    ("quant_matmul (kernel 3)", ("quant_matmul_kernel",)),
-    ("flash_prefix_attention (kernel 4)", ("flash_mma_kernel", "flash_kernel")),
-    ("library GEMM", ("gemm", "cutlass", "cublas", "gemv", "sm90_xmma", "sm80_xmma", "nvjet")),
-    ("softmax", ("softmax",)),
-    ("cat / copy / cast", ("CatArray", "copy", "Memcpy", "Memset", "index", "gather", "scatter")),
-    ("reductions", ("reduce", "argmax", "sort")),
-    ("elementwise", ("elementwise", "vectorized", "unrolled")),
-)
-
-
-def category(name: str) -> str:
-    for label, needles in CATEGORIES:
-        if any(needle in name for needle in needles):
-            return label
-    return "other"
+category = chip_smoke.kernel_category
 
 
 def replay_floor(model, steps: int, kernels: int) -> dict:

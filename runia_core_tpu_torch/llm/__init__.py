@@ -1,5 +1,5 @@
-"""LLM uncertainty of the PyTorch port: the TorchGenerator decode backend
-and the scores that read its output."""
+"""LLM uncertainty of the PyTorch port: the TorchGenerator decode backend,
+the scores that read its output, and the NLI judges of semantic entropy."""
 
 from runia_core_tpu_torch.llm.generate import (
     TorchGenerator,
@@ -22,6 +22,7 @@ from runia_core_tpu_torch.llm.scores import (
     rauq_uncertainty_rollout,
     semantic_entropy,
 )
+from runia_core_tpu_torch.llm.utils import make_nli_batch_labels, make_nli_equivalence
 
 __all__ = [
     "RAUQ",
@@ -32,6 +33,8 @@ __all__ = [
     "eigen_score_from_embeddings",
     "filter_logits",
     "generation_entropy",
+    "make_nli_batch_labels",
+    "make_nli_equivalence",
     "normalized_entropy",
     "perplexity",
     "rauq_uncertainty",

@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from runia_core_tpu_torch.models.transformer import init_cache
-from runia_core_tpu_torch.utils.graphs import CudaGraph, ProgramCache, drawing_from, host_sync
+from runia_core_tpu_torch.utils.graphs import CudaGraph, ProgramCache, copy_to_host, drawing_from, upload
 
 __all__ = [
     "TorchGenerator",
@@ -151,23 +151,6 @@ def _bucket(prompt_len: int) -> int:
     """A program's prompt slots: ``prompt_len`` rounded up to a multiple of
     ``_PROMPT_BUCKET``."""
     return -(-prompt_len // _PROMPT_BUCKET) * _PROMPT_BUCKET
-
-
-def _upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device``; to a GPU through pinned memory, without
-    waiting for the copy."""
-    tensor = torch.from_numpy(np.ascontiguousarray(array))
-    if device.type == "cuda":
-        return tensor.pin_memory().to(device, non_blocking=True)
-    return tensor.to(device)
-
-
-def _host(*tensors: Optional[torch.Tensor]):
-    """Numpy copies of device tensors (None stays None): the one wait for
-    the device."""
-    device = next(t.device for t in tensors if t is not None)
-    with host_sync(device):
-        return tuple(None if t is None else t.to("cpu", copy=True).numpy() for t in tensors)
 
 
 class _DecodeProgram:
@@ -414,20 +397,20 @@ class TorchGenerator:
         )
         kv_valid = np.zeros((b, slots + max_new), bool)
         kv_valid[:, :p] = valid
-        prog.kv_valid.copy_(_upload(kv_valid, dev))
-        prog.lengths.copy_(_upload(lengths, dev))
+        prog.kv_valid.copy_(upload(kv_valid, dev))
+        prog.lengths.copy_(upload(lengths, dev))
         prog.prompt_len.fill_(p)
         prefill_kwargs = {}
         if not uniform:
             positions = torch.clamp_min(torch.cumsum(prog.kv_valid[:, :p].to(torch.int64), dim=1) - 1, 0)
             prefill_kwargs = {"token_valid": prog.kv_valid, "positions": positions}
         logits, _, _, _ = model(
-            _upload(tokens, dev), prog.cache, 0, **prefill_kwargs, need_attentions=False, need_hiddens=False,
+            upload(tokens, dev), prog.cache, 0, **prefill_kwargs, need_attentions=False, need_hiddens=False,
             last_logits_only=True,
         )
         prog.logits.copy_(logits[:, -1])
         prog.run(gen)
-        return _batch_result(tokens, lengths, *_host(prog.tokens, prog.log_probs, prog.scores, prog.prev))
+        return _batch_result(tokens, lengths, *copy_to_host(prog.tokens, prog.log_probs, prog.scores, prog.prev))
 
     def _eager_batch(self, tokens, valid, lengths, max_new, do_sample, temperature, gen, output_attentions,
                      output_scores, top_k, top_p) -> Dict[str, Any]:
@@ -518,7 +501,7 @@ class TorchGenerator:
         )
         cache = init_cache(model, 1, p + max_new, dev)
         logits, attn0, hid0, cache = model(
-            _upload(prompt_np, dev), cache, 0, need_attentions=output_attentions,
+            upload(prompt_np, dev), cache, 0, need_attentions=output_attentions,
             need_hiddens=output_hidden_states, last_logits_only=True,
         )
         for dst, src in zip(prog.cache["layers"], cache["layers"]):
@@ -527,7 +510,7 @@ class TorchGenerator:
         prog.logits.copy_(logits[:, -1].expand(s, -1))
         prog.prompt_len.fill_(p)
         prog.run(gen)
-        return _generate_result(prompt_np, s, *_host(
+        return _generate_result(prompt_np, s, *copy_to_host(
             prog.tokens, prog.log_probs, prog.scores, attn0[:, 0, :, :, :p] if output_attentions else None,
             hid0[:, 0] if output_hidden_states else None, prog.attn, prog.hid,
         ))

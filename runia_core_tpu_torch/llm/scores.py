@@ -1,11 +1,12 @@
 """LLM hallucination / uncertainty scores (numpy, on the host).
 
 Counterpart of ``runia_core_tpu/llm/scores.py``: eigen score, normalized
-entropy, perplexity, generation entropy, the three RAUQ head aggregations,
-their batched form, and :func:`compute_uncertainties`, which runs a
-:class:`~runia_core_tpu_torch.llm.generate.TorchGenerator` and scores its
-output. The scores read HF-shaped outputs (tuples of arrays), as the JAX
-package's do. Semantic entropy needs an NLI model, which is not ported yet.
+entropy, semantic entropy, perplexity, generation entropy, the three RAUQ
+head aggregations, their batched form, and :func:`compute_uncertainties`,
+which runs a :class:`~runia_core_tpu_torch.llm.generate.TorchGenerator` and
+scores its output. The scores read HF-shaped outputs (tuples of arrays), as
+the JAX package's do. Semantic entropy clusters the sampled texts with an
+NLI judge, on the card through ``models.deberta.wrap_torch_nli``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,13 @@ from runia_core_tpu_torch.llm.attention import (
     _get_average_attention_all,
     _get_recurent_attention,
 )
-from runia_core_tpu_torch.llm.utils import _construct_embedding_matrix, _get_probability_distribution, _host
+from runia_core_tpu_torch.llm.utils import (
+    _construct_embedding_matrix,
+    _get_probability_distribution,
+    _host,
+    _semantic_clustering,
+    _semantic_clustering_batched,
+)
 
 __all__ = [
     "RAUQ",
@@ -72,12 +79,28 @@ def normalized_entropy(log_probs) -> float:
     return float(-np.sum(per_sequence) / len(lp))
 
 
-def semantic_entropy(model, tokenizer, texts: List[str]):
-    """Semantic entropy over NLI-equivalence clusters (Kuhn et al. 2023)."""
-    raise NotImplementedError(
-        "semantic_entropy needs the NLI model (models/deberta.py), which is not ported yet; "
-        "see ROADMAP.md Queue 1, LLM core"
-    )
+def semantic_entropy(model, tokenizer, texts: List[str]) -> Tuple[float, Dict[int, List[int]]]:
+    """Discrete semantic entropy over NLI-equivalence clusters (Kuhn et al.
+    2023): -sum p log p over the clusters' shares of the texts.
+
+    ``model`` is an HF NLI model with ``tokenizer``, a batched label
+    callable carrying ``is_batch_labels`` (``models.deberta.wrap_torch_nli``)
+    with ``tokenizer`` None, or an equivalence callable with ``tokenizer``
+    None. The first two ask every pair in one batched call
+    (``_semantic_clustering_batched``); the equivalence callable is asked
+    pair by pair (``_semantic_clustering``). Returns (entropy, {cluster:
+    text indices})."""
+    if tokenizer is not None or getattr(model, "is_batch_labels", False):
+        clusters = _semantic_clustering_batched(model, tokenizer, texts)
+    else:
+        clusters = _semantic_clustering(model, tokenizer, texts)
+    total = sum(len(indices) for indices in clusters.values())
+    entropy = 0.0
+    for indices in clusters.values():
+        p = len(indices) / total
+        if p > 0:
+            entropy -= p * np.log(p)
+    return float(entropy), clusters
 
 
 def perplexity(log_probs) -> float:
@@ -191,8 +214,10 @@ def _score_key(request: Dict[str, Any]) -> str:
     return f"RAUQ_{request.get('token_aggregation', 'mean_all_tokens')}_{request.get('head_aggregation', 'rollout')}"
 
 
-def _score(request: Dict[str, Any], greedy: Dict[str, Any], sampled: Dict[str, Any]):
+def _score(request: Dict[str, Any], greedy: Dict[str, Any], sampled: Dict[str, Any], entailment):
     method = request["method_name"]
+    if method == "semantic_entropy":
+        return semantic_entropy(*entailment, sampled["texts"])
     if method == "eigen_score":
         return eigen_score(sampled["hidden_states"], layer_index=request.get("layer_index", 15))
     if method == "normalized_entropy":
@@ -222,29 +247,54 @@ def compute_uncertainties(
     requested score.
 
     ``uncertainty_requests`` are dicts with a ``method_name`` among
-    eigen_score, normalized_entropy, perplexity, generation_entropy and RAUQ
-    (with ``token_aggregation``, ``head_aggregation``, ``alphas``,
-    ``ablation``), and eigen_score's ``layer_index``. ``tokenizer`` may be
-    None, and then ``prompt`` is a list of token ids and texts are id lists.
-    Every request is checked before any decode work. The greedy pass runs
-    always; the sampled pass (``num_samples`` continuations, sampling
-    settings from ``gen_config``) only for the methods that read it.
+    eigen_score, normalized_entropy, semantic_entropy, perplexity,
+    generation_entropy and RAUQ (with ``token_aggregation``,
+    ``head_aggregation``, ``alphas``, ``ablation``), and eigen_score's
+    ``layer_index``. ``tokenizer`` may be None, and then ``prompt`` is a list
+    of token ids and texts are id lists. semantic_entropy's judge is
+    ``entailment_model`` (with ``entailment_tokenizer``), as
+    :func:`semantic_entropy` takes it; without one, the reference's
+    ``microsoft/deberta-v2-xxlarge-mnli`` is loaded from the HF hub, as the
+    JAX package does. Every request is checked before any decode work. The
+    greedy pass runs always; the sampled pass (``num_samples``
+    continuations, sampling settings from ``gen_config``) only for the
+    methods that read it.
 
     Returns (greedy text as a one-element list, {score name: value}); a
     RAUQ score is named ``RAUQ_<token_aggregation>_<head_aggregation>``.
+    With semantic_entropy, ``scores["clusters"]`` maps each sampled text
+    (an id list as a tuple) to its cluster.
     """
-    del entailment_model, entailment_tokenizer  # semantic entropy is not ported yet
-    from runia_core_tpu_torch.llm.generate import run_generation
+    from runia_core_tpu_torch.llm.generate import run_generation, validate_generation_request
 
     methods = [request["method_name"] for request in uncertainty_requests]
     unknown = sorted(set(methods) - set(_SAMPLED) - set(_GREEDY))
     if unknown:
         raise KeyError(f"unknown uncertainty method(s) {unknown}; valid: {sorted(_SAMPLED + _GREEDY)}")
-    if "semantic_entropy" in methods:
-        semantic_entropy(None, None, [])
     needs_sampling = any(method in _SAMPLED for method in methods)
-    greedy, sampled, text = run_generation(  # validates the backend before any decode
+    validate_generation_request(model, needs_sampling, needs_hiddens="eigen_score" in methods)
+    if "semantic_entropy" in methods and entailment_model is None:  # pragma: no cover (a hub download)
+        from transformers import AutoModelForSequenceClassification, AutoTokenizer
+
+        entailment_model = AutoModelForSequenceClassification.from_pretrained(
+            "microsoft/deberta-v2-xxlarge-mnli", device_map="auto"
+        )
+        entailment_tokenizer = AutoTokenizer.from_pretrained("microsoft/deberta-v2-xxlarge-mnli")
+    greedy, sampled, text = run_generation(
         model, tokenizer, prompt, gen_config, num_samples, needs_sampling,
         needs_attentions="RAUQ" in methods, needs_hiddens="eigen_score" in methods,
     )
-    return text, {_score_key(request): _score(request, greedy, sampled) for request in uncertainty_requests}
+    scores: Dict[str, Any] = {}
+    for request in uncertainty_requests:
+        key, value = _score_key(request), _score(request, greedy, sampled, (entailment_model, entailment_tokenizer))
+        if request["method_name"] != "semantic_entropy":
+            scores[key] = value
+            continue
+        # Without a tokenizer the texts are id lists: tuples, to be keys.
+        scores[key], clusters = value
+        scores["clusters"] = {
+            (tuple(t) if isinstance(t, list) else t): cluster
+            for cluster, members in clusters.items()
+            for t in (sampled["texts"][i] for i in members)
+        }
+    return text, scores

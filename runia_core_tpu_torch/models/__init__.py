@@ -1,15 +1,21 @@
-"""Models of the PyTorch port: ResNets returning (logits, taps), and the
-Llama-family decoder LM with its KV cache."""
+"""Models of the PyTorch port: ResNets returning (logits, taps), the
+Llama-family decoder LM (dense or sparse-MoE) with its KV cache and HF
+converters, and the DeBERTa-v2 NLI classifier."""
 
 from runia_core_tpu_torch.models.convert import (
+    deberta_from_flax,
     detector_state_from_arrays,
     llama_from_flax,
     pca_state_from_arrays,
     resnet_from_flax,
 )
+from runia_core_tpu_torch.models.deberta import DebertaV2Classifier, convert_hf_deberta, wrap_torch_nli
 from runia_core_tpu_torch.models.llama import (
     LlamaLM,
     QDense,
+    convert_hf_gemma,
+    convert_hf_llama,
+    convert_hf_mixtral,
     fuse_quantized_llama_params,
     quantize_llama_params,
 )
@@ -23,6 +29,7 @@ from runia_core_tpu_torch.models.resnet import (
 from runia_core_tpu_torch.models.transformer import init_cache
 
 __all__ = [
+    "DebertaV2Classifier",
     "LlamaLM",
     "QDense",
     "ResNet",
@@ -30,6 +37,11 @@ __all__ = [
     "ResNet34",
     "ResNet50",
     "build_tapped_forward",
+    "convert_hf_deberta",
+    "convert_hf_gemma",
+    "convert_hf_llama",
+    "convert_hf_mixtral",
+    "deberta_from_flax",
     "detector_state_from_arrays",
     "fuse_quantized_llama_params",
     "init_cache",
@@ -37,4 +49,5 @@ __all__ = [
     "pca_state_from_arrays",
     "quantize_llama_params",
     "resnet_from_flax",
+    "wrap_torch_nli",
 ]

@@ -4,9 +4,10 @@
 ``runia_core_tpu/models/torch_convert.py::convert_torch_resnet``: it maps a
 flax ResNet ``{"params", "batch_stats"}`` tree onto the ``state_dict`` of
 ``models/resnet.py::ResNet``, whose module names follow the flax tree;
-``llama_from_flax`` does the same for a JAX ``LlamaLM`` and
-``models/llama.py::LlamaLM``. The other two helpers turn a JAX ``PCAState``
-and an MD/KDE detector state into the port's. Nothing here imports JAX:
+``llama_from_flax`` and ``deberta_from_flax`` do the same for a JAX
+``LlamaLM`` and ``DebertaV2Classifier`` and their counterparts in
+``models/llama.py`` and ``models/deberta.py``. The other two helpers turn a
+JAX ``PCAState`` and an MD/KDE detector state into the port's. Nothing here imports JAX:
 leaves only need ``np.asarray``. Every helper makes its tensors on
 ``device``; None is ``runia_core_tpu_torch.default_device()``, the GPU.
 """
@@ -21,7 +22,9 @@ import torch
 from runia_core_tpu_torch import default_device
 from runia_core_tpu_torch.reduction import PCAState
 
-__all__ = ["detector_state_from_arrays", "llama_from_flax", "pca_state_from_arrays", "resnet_from_flax"]
+__all__ = [
+    "deberta_from_flax", "detector_state_from_arrays", "llama_from_flax", "pca_state_from_arrays", "resnet_from_flax",
+]
 
 
 def _on(device) -> torch.device:
@@ -64,13 +67,19 @@ def resnet_from_flax(variables: Mapping[str, Any], device=None) -> Dict[str, tor
 
 
 def llama_from_flax(params: Mapping[str, Any], device=None) -> Dict[str, torch.Tensor]:
-    """A JAX ``LlamaLM`` parameter tree ``{"params": ...}`` (numpy leaves) ->
-    the port's LlamaLM state_dict.
+    """A JAX ``LlamaLM`` or ``DebertaV2Classifier`` parameter tree
+    ``{"params": ...}`` (numpy leaves) -> the port's state_dict for the same
+    model: each leaf under its dotted path, in its dtype (f32, bf16 or int8).
 
-    The port keeps the flax names and layouts (kernels stay (in, out)), so
-    each path joins with dots and each leaf keeps its dtype: float32 and
-    bfloat16 kernels, embeddings and norms; int8 ``kernel_q`` with f32
-    ``scale``; the fused ``qkv``/``gateup`` entries; q/k/v biases.
+    The port's models keep the flax names and layouts (kernels stay (in,
+    out)), so nothing is renamed or transposed. LlamaLM: float32 and bfloat16
+    kernels, embeddings and norms; int8 ``kernel_q`` with f32 ``scale``; the
+    fused ``qkv``/``gateup`` entries; q/k/v biases; an MoE block's ``router``
+    kernel and its (E, in, out) ``w_gate`` / ``w_up`` / ``w_down`` stacks, or
+    their int8 ``*_q`` with (E, out) ``*_scale``. DebertaV2Classifier: the
+    conv kernel (K, in/groups, out), LayerNorm ``scale``/``bias``,
+    ``rel_embeddings``; ``load_state_dict`` casts each leaf to the model's
+    dtype.
     """
     state: Dict[str, torch.Tensor] = {}
     for path, leaf in _walk(params["params"]):
@@ -82,6 +91,10 @@ def llama_from_flax(params: Mapping[str, Any], device=None) -> Dict[str, torch.T
         else:
             raise ValueError(f"{path}: unexpected dtype {array.dtype}")
     return state
+
+
+# The DeBERTa tree carries across by the same rule.
+deberta_from_flax = llama_from_flax
 
 
 def pca_state_from_arrays(state, device=None) -> PCAState:

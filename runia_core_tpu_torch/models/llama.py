@@ -31,9 +31,19 @@ its CUDA kernel for a CUDA tensor and runs its plain twin for a CPU one):
   cache_index``; a KV8 cache is attended in int8 with its scales (the JAX
   dense path's numbers; the JAX TPU branch attends the call's unquantized
   k/v instead). Everything else, decode steps included, takes the dense
-  path with the -1e30 mask and an f32 softmax.
+  path with the -1e30 mask and an f32 softmax;
+* a sparse-MoE block (``num_experts > 0``, Mixtral) computes what the JAX
+  ``_moe_ffn`` computes (router in the compute dtype, softmax in f32 over
+  all experts, top-k renormalised, no token dropped) as a loop over the
+  experts: each expert's SwiGLU on every token, weighted by its gate (zero
+  where the token did not pick it), summed. The shapes are static, so the
+  decode step stays capturable (a routed form gathers each expert's tokens,
+  whose counts live on the host), the work is that of JAX's dense einsum,
+  and the working memory is (tokens, hidden), not (tokens, experts,
+  hidden). Quantized expert slices follow ``QDense``'s rule.
 
-MoE (``num_experts > 0``) is not ported yet and raises.
+``convert_hf_llama``, ``convert_hf_gemma`` and ``convert_hf_mixtral`` map a
+``transformers`` checkpoint onto (LlamaLM, state_dict) without JAX.
 """
 
 from __future__ import annotations
@@ -45,17 +55,22 @@ import torch
 from torch import nn
 
 from runia_core_tpu_torch import default_device
+from runia_core_tpu_torch.models.layers import Dense, hf_kernel, hf_vector, param
 from runia_core_tpu_torch.ops.flash_prefill import flash_prefix_attention
 from runia_core_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_supported
 
-__all__ = ["LlamaLM", "QDense", "fuse_quantized_llama_params", "quantize_llama_params"]
+__all__ = [
+    "LlamaLM",
+    "QDense",
+    "convert_hf_gemma",
+    "convert_hf_llama",
+    "convert_hf_mixtral",
+    "fuse_quantized_llama_params",
+    "quantize_llama_params",
+]
 
 _FLASH_MIN_TOKENS = 128
 _NEG_INF = -1e30
-
-
-def _param(shape, dtype, fill: float = 0.0) -> nn.Parameter:
-    return nn.Parameter(torch.full(shape, fill, dtype=dtype), requires_grad=False)
 
 
 class RMSNorm(nn.Module):
@@ -64,24 +79,10 @@ class RMSNorm(nn.Module):
     def __init__(self, dim: int, eps: float):
         super().__init__()
         self.eps = eps
-        self.scale = _param((dim,), torch.float32, 1.0)
+        self.scale = param((dim,), torch.float32, 1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + self.eps) * self.scale
-
-
-class Dense(nn.Module):
-    """flax ``nn.Dense`` with a compute dtype: kernel (in, out), f32 bias."""
-
-    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, use_bias: bool = False):
-        super().__init__()
-        self.dtype = dtype
-        self.kernel = _param((d_in, d_out), dtype)
-        self.bias = _param((d_out,), torch.float32) if use_bias else None
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = x.to(self.dtype) @ self.kernel.to(self.dtype)
-        return out if self.bias is None else out + self.bias.to(self.dtype)
 
 
 class QDense(nn.Module):
@@ -97,18 +98,21 @@ class QDense(nn.Module):
     def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, use_bias: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.kernel_q = _param((d_in, d_out), torch.int8)
-        self.scale = _param((d_out,), torch.float32, 1.0)
-        self.bias = _param((d_out,), torch.float32) if use_bias else None
+        self.kernel_q = param((d_in, d_out), torch.int8)
+        self.scale = param((d_out,), torch.float32, 1.0)
+        self.bias = param((d_out,), torch.float32) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xd = x.to(self.dtype)
-        rows = xd.numel() // xd.shape[-1]
-        if quant_matmul_supported(rows):
-            out = quant_matmul(xd.contiguous(), self.kernel_q, self.scale)
-        else:
-            out = xd @ (self.kernel_q.to(self.dtype) * self.scale.to(self.dtype)[None, :])
+        out = _int8_matmul(x.to(self.dtype), self.kernel_q, self.scale)
         return out if self.bias is None else out + self.bias.to(self.dtype)
+
+
+def _int8_matmul(x: torch.Tensor, kernel_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x @ (kernel_q * scale) in x's dtype: kernel 3 up to 1024 rows, else
+    the weight dequantized into x's dtype for one ``torch.matmul``."""
+    if quant_matmul_supported(x.numel() // x.shape[-1]):
+        return quant_matmul(x.contiguous(), kernel_q, scale)
+    return x @ (kernel_q.to(x.dtype) * scale.to(x.dtype)[None, :])
 
 
 def _rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
@@ -158,6 +162,8 @@ class _LlamaBlock(nn.Module):
         self.use_flash = cfg.use_flash
         self.mlp_act = cfg.mlp_act
         self.fused = cfg.quantized and cfg.fused_qkv
+        self.quantized = cfg.quantized
+        self.num_experts, self.top_k = cfg.num_experts, cfg.num_experts_per_tok
         d, hidden = cfg.d_model, cfg.hidden_dim
         nq, nkv = self.num_heads * self.head_dim, self.num_kv_heads * self.head_dim
         dense = QDense if cfg.quantized else Dense
@@ -165,15 +171,29 @@ class _LlamaBlock(nn.Module):
         self.post_attn_norm = RMSNorm(d, cfg.rms_eps)
         if self.fused:
             self.qkv = QDense(d, nq + 2 * nkv, self.dtype, cfg.attn_bias)
-            self.gateup = QDense(d, 2 * hidden, self.dtype)
         else:
             self.q = dense(d, nq, self.dtype, cfg.attn_bias)
             self.k = dense(d, nkv, self.dtype, cfg.attn_bias)
             self.v = dense(d, nkv, self.dtype, cfg.attn_bias)
+        self.o = dense(nq, d, self.dtype)
+        if self.num_experts:
+            # Expert stacks (E, in, out), named as the JAX parameters; the
+            # router stays in the compute dtype when the experts are int8.
+            self.router = Dense(d, self.num_experts, self.dtype)
+            e = self.num_experts
+            for name, shape in (("w_gate", (e, d, hidden)), ("w_up", (e, d, hidden)), ("w_down", (e, hidden, d))):
+                if cfg.quantized:
+                    setattr(self, f"{name}_q", param(shape, torch.int8))
+                    setattr(self, f"{name}_scale", param((shape[0], shape[2]), torch.float32, 1.0))
+                else:
+                    setattr(self, name, param(shape, self.dtype))
+        elif self.fused:
+            self.gateup = QDense(d, 2 * hidden, self.dtype)
+            self.down = QDense(hidden, d, self.dtype)
+        else:
             self.gate = dense(d, hidden, self.dtype)
             self.up = dense(d, hidden, self.dtype)
-        self.o = dense(nq, d, self.dtype)
-        self.down = dense(hidden, d, self.dtype)
+            self.down = dense(hidden, d, self.dtype)
 
     def forward(self, x, mask, cos, sin, cache=None, cache_index=None, flash_ok=False, need_attn=True):
         b, t, _ = x.shape
@@ -222,15 +242,43 @@ class _LlamaBlock(nn.Module):
         x = x + self.o(out)
 
         h2 = self.post_attn_norm(x.to(torch.float32)).to(self.dtype)
+        if self.num_experts:
+            return x + self._moe_ffn(h2), (attn if need_attn else None)
         if self.fused:
             gate, up = torch.chunk(self.gateup(h2), 2, dim=-1)
         else:
             gate, up = self.gate(h2), self.up(h2)
+        return x + self.down(self._act(gate) * up), (attn if need_attn else None)
+
+    def _act(self, gate: torch.Tensor) -> torch.Tensor:
         if self.mlp_act == "silu":
-            act = nn.functional.silu(gate)
-        else:  # "gelu_tanh", the Gemma family's GeGLU
-            act = nn.functional.gelu(gate, approximate="tanh")
-        return x + self.down(act * up), (attn if need_attn else None)
+            return nn.functional.silu(gate)
+        return nn.functional.gelu(gate, approximate="tanh")  # "gelu_tanh", the Gemma family's GeGLU
+
+    def _expert(self, name: str, e: int, x: torch.Tensor) -> torch.Tensor:
+        """x @ expert ``e``'s slice of the ``name`` stack, in the compute dtype."""
+        if self.quantized:
+            return _int8_matmul(x, getattr(self, f"{name}_q")[e], getattr(self, f"{name}_scale")[e])
+        return x @ getattr(self, name)[e]
+
+    def _moe_ffn(self, h: torch.Tensor) -> torch.Tensor:
+        """Mixtral's sparse-MoE SwiGLU (``MixtralSparseMoeBlock``): the
+        router softmax in f32 over all experts, the top-k weights
+        renormalised and cast to the compute dtype, every token through
+        every expert with the gates of the experts it did not pick zero
+        (the JAX einsum's arithmetic, expert by expert). The gated expert
+        outputs are summed in f32."""
+        b, t, d = h.shape
+        flat = h.reshape(b * t, d)
+        probs = torch.softmax(self.router(flat).to(torch.float32), dim=-1)
+        top_v, top_i = torch.topk(probs, self.top_k, dim=-1)
+        top_v = top_v / top_v.sum(dim=-1, keepdim=True)
+        gates = torch.zeros_like(probs).scatter_(1, top_i, top_v).to(self.dtype)
+        out = torch.zeros((b * t, d), dtype=torch.float32, device=h.device)
+        for e in range(self.num_experts):
+            y = self._expert("w_down", e, self._act(self._expert("w_gate", e, flat)) * self._expert("w_up", e, flat))
+            out += y.to(torch.float32) * gates[:, e, None].to(torch.float32)
+        return out.to(self.dtype).reshape(b, t, d)
 
     def _dense_attention(self, q, k_src, v_src, kv_scales, mask):
         """Masked softmax attention of q (B, t, H, d) over k/v (B, K, G, d);
@@ -284,13 +332,10 @@ class LlamaLM(nn.Module):
         embed_scale: bool = False,
         mlp_act: str = "silu",
         num_experts: int = 0,
+        num_experts_per_tok: int = 2,
         device=None,
     ):
         super().__init__()
-        if num_experts:
-            raise NotImplementedError(
-                "the MoE FFN (num_experts > 0) is not ported yet; see ROADMAP.md Queue 1, LLM core"
-            )
         if fused_qkv and not quantized:
             raise ValueError("fused_qkv needs quantized=True")
         if mlp_act not in ("silu", "gelu_tanh"):
@@ -303,11 +348,12 @@ class LlamaLM(nn.Module):
         self.quantized, self.quantized_kv, self.fused_qkv = quantized, quantized_kv, fused_qkv
         self.attn_bias, self.sliding_window = attn_bias, sliding_window
         self.embed_scale, self.mlp_act = embed_scale, mlp_act
+        self.num_experts, self.num_experts_per_tok = num_experts, num_experts_per_tok
 
         # Every parameter is made on ``device`` (None: the GPU).
         with torch.device(default_device() if device is None else device):
             self.embed = nn.Module()
-            self.embed.embedding = _param((vocab_size, d_model), dtype)
+            self.embed.embedding = param((vocab_size, d_model), dtype)
             for i in range(num_layers):
                 self.add_module(f"block_{i}", _LlamaBlock(self))
             self.norm_f = RMSNorm(d_model, rms_eps)
@@ -322,12 +368,13 @@ class LlamaLM(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "LlamaLM":
-        """Seeded random weights for a float model: kernels N(0, 1/fan_in)
-        (flax's lecun-normal scale), the embedding N(0, 1), norm scales 1 and
-        biases 0. ``generator`` lives on the parameters' device."""
+        """Seeded random weights for a float model: kernels and expert
+        stacks N(0, 1/fan_in) (flax's lecun-normal scale over the input
+        axis), the embedding N(0, 1), norm scales 1 and biases 0.
+        ``generator`` lives on the parameters' device."""
         for name, p in self.named_parameters():
-            if name.endswith("kernel"):
-                p.copy_(torch.randn(p.shape, generator=generator, device=p.device) / math.sqrt(p.shape[0]))
+            if name.endswith("kernel") or name.rpartition(".")[2] in _EXPERT_STACKS:
+                p.copy_(torch.randn(p.shape, generator=generator, device=p.device) / math.sqrt(p.shape[-2]))
             elif name.endswith("embedding"):
                 p.copy_(torch.randn(p.shape, generator=generator, device=p.device))
             elif name.endswith("scale"):
@@ -427,23 +474,33 @@ class LlamaLM(nn.Module):
 
 
 _QUANT_KERNELS = ("q", "k", "v", "o", "gate", "up", "down", "lm_head")
+_EXPERT_STACKS = ("w_gate", "w_up", "w_down")
+
+
+def _quantize(w: torch.Tensor, axis: int):
+    """int8 values and scale = max|w| / 127 (at least 1e-12 / 127) over
+    ``axis``, in f32; ``torch.round`` rounds half to even, as ``np.round``."""
+    w = w.to(torch.float32)
+    scale = w.abs().amax(dim=axis).clamp_min(1e-12) / 127.0
+    return torch.clamp(torch.round(w / scale.unsqueeze(axis)), -127, 127).to(torch.int8), scale
 
 
 def quantize_llama_params(state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Symmetric per-output-channel int8 quantization of a float LlamaLM
     ``state_dict``: for each projection kernel (in, out), scale = max|w| / 127
     per column (at least 1e-12 / 127) and kernel_q = round(w / scale),
-    clipped to +-127, in f32 on the tensors' device. Embeddings, norms and
-    biases pass through. The result loads into ``LlamaLM(quantized=True)``
-    of the same configuration."""
+    clipped to +-127, in f32 on the tensors' device; each (E, in, out)
+    expert stack likewise with one scale per (expert, out-channel), stored
+    as ``<stack>_q`` and ``<stack>_scale``. Embeddings, norms, biases and
+    the MoE router pass through. The result loads into
+    ``LlamaLM(quantized=True)`` of the same configuration."""
     out: Dict[str, torch.Tensor] = {}
     for name, value in state.items():
         module, _, leaf = name.rpartition(".")
         if leaf == "kernel" and module.rpartition(".")[2] in _QUANT_KERNELS:
-            w = value.to(torch.float32)
-            scale = w.abs().amax(dim=0).clamp_min(1e-12) / 127.0
-            out[f"{module}.kernel_q"] = torch.clamp(torch.round(w / scale[None, :]), -127, 127).to(torch.int8)
-            out[f"{module}.scale"] = scale
+            out[f"{module}.kernel_q"], out[f"{module}.scale"] = _quantize(value, 0)
+        elif leaf in _EXPERT_STACKS:
+            out[f"{name}_q"], out[f"{name}_scale"] = _quantize(value, 1)
         else:
             out[name] = value
     return out
@@ -453,7 +510,8 @@ def fuse_quantized_llama_params(state: Mapping[str, torch.Tensor]) -> Dict[str, 
     """Fuse a quantized state_dict's q|k|v and gate|up projections into
     ``qkv`` and ``gateup`` entries, for ``LlamaLM(quantized=True,
     fused_qkv=True)``: concatenation along the output columns, no
-    requantization. o, down and lm_head stay single."""
+    requantization. o, down and lm_head stay single; an MoE block has no
+    gate|up, so only its q|k|v fuse."""
     out: Dict[str, torch.Tensor] = {}
     groups = {("q", "k", "v"): "qkv", ("gate", "up"): "gateup"}
     members = {part: (parts, fused) for parts, fused in groups.items() for part in parts}
@@ -469,3 +527,191 @@ def fuse_quantized_llama_params(state: Mapping[str, torch.Tensor]) -> Dict[str, 
         pieces = [state[f"{prefix}.{part}.{leaf}"] for part in parts]
         out[f"{prefix}.{fused}.{leaf}"] = torch.cat(pieces, dim=pieces[0].ndim - 1)
     return out
+
+
+def _head_dim(cfg) -> int:
+    return getattr(cfg, "head_dim", None) or cfg.hidden_size // cfg.num_attention_heads
+
+
+def _attention_state(layer, dtype, device, attn_bias: bool = False) -> Dict[str, torch.Tensor]:
+    att = layer.self_attn
+    state = {f"{p}.kernel": hf_kernel(getattr(att, f"{p}_proj").weight, dtype, device) for p in ("q", "k", "v", "o")}
+    if attn_bias:
+        state.update({f"{p}.bias": hf_vector(getattr(att, f"{p}_proj").bias, device) for p in ("q", "k", "v")})
+    return state
+
+
+def _finish(model: LlamaLM, state: Dict[str, torch.Tensor], quantize: bool):
+    """Quantize if asked, and load the state into the model as its
+    parameters (the same tensors)."""
+    if quantize:
+        state = quantize_llama_params(state)
+    model.load_state_dict(state, assign=True)
+    return model.eval(), state
+
+
+def convert_hf_llama(hf_model, max_len: Optional[int] = None, dtype: torch.dtype = torch.float32,
+                     use_flash: bool = False, quantize: bool = False, quantize_kv: bool = False, device=None):
+    """A ``transformers`` Llama-family causal LM (``LlamaForCausalLM``, and
+    the Mistral and Qwen2 layouts) -> (LlamaLM, state_dict), the model
+    holding the state.
+
+    The JAX ``convert_hf_llama``'s mapping and refusals: rope scaling other
+    than plain ``rope_theta`` raises; a sliding window is taken when it is
+    uniform (Mistral: always; Qwen2: when ``use_sliding_window`` and no
+    ``max_window_layers`` split the stack, which raises) and refuses
+    ``use_flash``; q/k/v biases (Qwen2) are found in the checkpoint.
+    Kernels and the embedding are stored in ``dtype``, norm scales and
+    biases in f32; ``quantize`` makes the int8 form of
+    :func:`quantize_llama_params`. ``device`` None is the GPU."""
+    cfg = hf_model.config
+    scaling = getattr(cfg, "rope_scaling", None)
+    if scaling not in (None, {}) and scaling.get("rope_type", scaling.get("type")) not in (None, "default"):
+        raise NotImplementedError(f"rope_scaling {scaling!r} not supported")
+    window = None
+    sw = getattr(cfg, "sliding_window", None)
+    if sw:
+        if hasattr(cfg, "use_sliding_window"):  # Qwen2's switch
+            if cfg.use_sliding_window:
+                mwl = getattr(cfg, "max_window_layers", 0) or 0
+                if 0 < mwl < cfg.num_hidden_layers:
+                    raise NotImplementedError(
+                        f"mixed per-layer sliding windows (max_window_layers={mwl} of {cfg.num_hidden_layers})"
+                    )
+                if mwl < cfg.num_hidden_layers:
+                    window = int(sw)
+        else:  # Mistral: the window is always on
+            window = int(sw)
+    if window is not None and use_flash:
+        raise NotImplementedError(
+            "use_flash with sliding-window attention (the flash kernel is plain-causal); convert with use_flash=False"
+        )
+    hf = hf_model.model
+    attn_bias = hf.layers[0].self_attn.q_proj.bias is not None
+    model = LlamaLM(
+        vocab_size=cfg.vocab_size, num_layers=cfg.num_hidden_layers, num_heads=cfg.num_attention_heads,
+        num_kv_heads=cfg.num_key_value_heads, d_model=cfg.hidden_size, hidden_dim=cfg.intermediate_size,
+        max_len=max_len or cfg.max_position_embeddings, head_dim=_head_dim(cfg),
+        rope_theta=float(getattr(cfg, "rope_theta", 10000.0)), rms_eps=float(cfg.rms_norm_eps),
+        tie_embeddings=bool(cfg.tie_word_embeddings), dtype=dtype, use_flash=use_flash, quantized=quantize,
+        quantized_kv=quantize_kv, attn_bias=attn_bias, sliding_window=window, device=device,
+    )
+    dev = model.embed.embedding.device
+    state = {"embed.embedding": hf_vector(hf.embed_tokens.weight, dev, dtype),
+             "norm_f.scale": hf_vector(hf.norm.weight, dev)}
+    for i, layer in enumerate(hf.layers):
+        block = {
+            "input_norm.scale": hf_vector(layer.input_layernorm.weight, dev),
+            "post_attn_norm.scale": hf_vector(layer.post_attention_layernorm.weight, dev),
+            **_attention_state(layer, dtype, dev, attn_bias),
+            **{f"{p}.kernel": hf_kernel(getattr(layer.mlp, f"{p}_proj").weight, dtype, dev)
+               for p in ("gate", "up", "down")},
+        }
+        state.update({f"block_{i}.{name}": value for name, value in block.items()})
+    if not model.tie_embeddings:
+        state["lm_head.kernel"] = hf_kernel(hf_model.lm_head.weight, dtype, dev)
+    return _finish(model, state, quantize)
+
+
+def convert_hf_gemma(hf_model, max_len: Optional[int] = None, dtype: torch.dtype = torch.float32,
+                     use_flash: bool = False, quantize: bool = False, quantize_kv: bool = False, device=None):
+    """A ``transformers.GemmaForCausalLM`` -> (LlamaLM, state_dict), the
+    model holding the state.
+
+    Gemma is the Llama layout with the embedding scaled by sqrt(d_model)
+    (``embed_scale``), GeGLU (gelu-tanh) and an RMSNorm that multiplies by
+    1 + weight, folded into the scales here; it always ties the embedding.
+    As the JAX converter: Gemma-2's soft-capping and sliding windows raise,
+    and so does a config whose legacy ``hidden_activation`` disagrees with
+    the ``hidden_act`` the torch forward runs."""
+    cfg = hf_model.config
+    if getattr(cfg, "attn_logit_softcapping", None) or getattr(cfg, "final_logit_softcapping", None) or (
+        getattr(cfg, "sliding_window", None) and getattr(cfg, "use_sliding_window", True)
+    ):
+        raise NotImplementedError(
+            "Gemma-2-style soft-capping / sliding-window attention is not implemented; "
+            "Gemma-1-style full-attention checkpoints only"
+        )
+    act = getattr(cfg, "hidden_act", None) or "gelu_pytorch_tanh"
+    legacy = getattr(cfg, "hidden_activation", None)
+    if legacy is not None and legacy != act:
+        raise ValueError(
+            f"Gemma config disagrees with itself: hidden_act={act!r} (what the torch forward runs) vs "
+            f"hidden_activation={legacy!r}; fix the checkpoint config before converting"
+        )
+    if act not in ("gelu_pytorch_tanh", "gelu_new"):
+        raise NotImplementedError(f"Gemma hidden activation {act!r}")
+    model = LlamaLM(
+        vocab_size=cfg.vocab_size, num_layers=cfg.num_hidden_layers, num_heads=cfg.num_attention_heads,
+        num_kv_heads=cfg.num_key_value_heads, d_model=cfg.hidden_size, hidden_dim=cfg.intermediate_size,
+        max_len=max_len or cfg.max_position_embeddings, head_dim=_head_dim(cfg),
+        rope_theta=float(getattr(cfg, "rope_theta", 10000.0)), rms_eps=float(cfg.rms_norm_eps),
+        tie_embeddings=True, dtype=dtype, use_flash=use_flash, quantized=quantize, quantized_kv=quantize_kv,
+        embed_scale=True, mlp_act="gelu_tanh", device=device,
+    )
+    hf = hf_model.model
+    dev = model.embed.embedding.device
+
+    def norm(w):  # Gemma's x_hat * (1 + w): the scale is 1 + w
+        return hf_vector(w, dev) + 1.0
+
+    state = {"embed.embedding": hf_vector(hf.embed_tokens.weight, dev, dtype), "norm_f.scale": norm(hf.norm.weight)}
+    for i, layer in enumerate(hf.layers):
+        block = {
+            "input_norm.scale": norm(layer.input_layernorm.weight),
+            "post_attn_norm.scale": norm(layer.post_attention_layernorm.weight),
+            **_attention_state(layer, dtype, dev),
+            **{f"{p}.kernel": hf_kernel(getattr(layer.mlp, f"{p}_proj").weight, dtype, dev)
+               for p in ("gate", "up", "down")},
+        }
+        state.update({f"block_{i}.{name}": value for name, value in block.items()})
+    return _finish(model, state, quantize)
+
+
+def convert_hf_mixtral(hf_model, max_len: Optional[int] = None, dtype: torch.dtype = torch.float32,
+                       use_flash: bool = False, quantize: bool = False, quantize_kv: bool = False, device=None):
+    """A ``transformers.MixtralForCausalLM`` -> (LlamaLM, state_dict), the
+    model holding the state.
+
+    Mistral attention with every MLP a sparse-MoE block: the bias-free
+    router (``block_sparse_moe.gate``) and the experts' w1 / w3 / w2 stacked
+    into (E, d, h) / (E, d, h) / (E, h, d) ``w_gate`` / ``w_up`` /
+    ``w_down``. ``quantize`` stores the attention projections, lm_head and
+    the expert stacks int8 (one scale per expert and out-channel); the
+    router stays in ``dtype``. A non-SiLU activation raises, and so does
+    ``use_flash`` with a sliding window."""
+    cfg = hf_model.config
+    if getattr(cfg, "hidden_act", "silu") != "silu":
+        raise NotImplementedError(f"Mixtral hidden_act {cfg.hidden_act!r}")
+    window = int(cfg.sliding_window) if getattr(cfg, "sliding_window", None) else None
+    if window is not None and use_flash:
+        raise NotImplementedError(
+            "use_flash with sliding-window attention (the flash kernel is plain-causal); convert with use_flash=False"
+        )
+    model = LlamaLM(
+        vocab_size=cfg.vocab_size, num_layers=cfg.num_hidden_layers, num_heads=cfg.num_attention_heads,
+        num_kv_heads=cfg.num_key_value_heads, d_model=cfg.hidden_size, hidden_dim=cfg.intermediate_size,
+        max_len=max_len or cfg.max_position_embeddings, head_dim=_head_dim(cfg),
+        rope_theta=float(getattr(cfg, "rope_theta", 1e6)), rms_eps=float(cfg.rms_norm_eps),
+        tie_embeddings=bool(cfg.tie_word_embeddings), dtype=dtype, use_flash=use_flash, quantized=quantize,
+        quantized_kv=quantize_kv, sliding_window=window, num_experts=int(cfg.num_local_experts),
+        num_experts_per_tok=int(cfg.num_experts_per_tok), device=device,
+    )
+    hf = hf_model.model
+    dev = model.embed.embedding.device
+    state = {"embed.embedding": hf_vector(hf.embed_tokens.weight, dev, dtype),
+             "norm_f.scale": hf_vector(hf.norm.weight, dev)}
+    for i, layer in enumerate(hf.layers):
+        moe = layer.block_sparse_moe
+        block = {
+            "input_norm.scale": hf_vector(layer.input_layernorm.weight, dev),
+            "post_attn_norm.scale": hf_vector(layer.post_attention_layernorm.weight, dev),
+            **_attention_state(layer, dtype, dev),
+            "router.kernel": hf_kernel(moe.gate.weight, dtype, dev),
+            **{stack: torch.stack([hf_kernel(getattr(ex, w).weight, dtype, dev) for ex in moe.experts])
+               for stack, w in (("w_gate", "w1"), ("w_up", "w3"), ("w_down", "w2"))},
+        }
+        state.update({f"block_{i}.{name}": value for name, value in block.items()})
+    if not model.tie_embeddings:
+        state["lm_head.kernel"] = hf_kernel(hf_model.lm_head.weight, dtype, dev)
+    return _finish(model, state, quantize)

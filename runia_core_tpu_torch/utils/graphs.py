@@ -46,9 +46,12 @@ import weakref
 from collections import OrderedDict
 from typing import Callable, Hashable, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 
-__all__ = ["CudaGraph", "ProgramCache", "count_launch", "current_graph", "drawing_from", "host_sync"]
+__all__ = [
+    "CudaGraph", "ProgramCache", "copy_to_host", "count_launch", "current_graph", "drawing_from", "host_sync", "upload",
+]
 
 _shared = {}  # device index -> _SharedPool
 _retired = []  # pools, streams and graphs of failed captures: the allocators may still refer to them
@@ -275,3 +278,20 @@ def host_sync(device):
         yield
     finally:
         torch.cuda.set_sync_debug_mode(mode)
+
+
+def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``; to a GPU through pinned memory, without
+    waiting for the copy."""
+    tensor = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        return tensor.pin_memory().to(device, non_blocking=True)
+    return tensor.to(device)
+
+
+def copy_to_host(*tensors: Optional[torch.Tensor]):
+    """Numpy copies of device tensors (None stays None): the one wait for
+    the device."""
+    device = next(t.device for t in tensors if t is not None)
+    with host_sync(device):
+        return tuple(None if t is None else t.to("cpu", copy=True).numpy() for t in tensors)

@@ -8,6 +8,7 @@ so on a machine without it they run with the repository's conftest left out:
 
 import contextlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -157,8 +158,11 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(gen):
 QMM_BOUND = {torch.bfloat16: 8e-3, torch.float32: 1e-5}
 
 
-# The production Llama's int8 projections (K, N): qkv, gate|up, o, down, lm_head.
-_PROD_SHAPES = [(2048, 4096), (2048, 11264), (2048, 2048), (5632, 2048), (2048, 32000)]
+# The int8 projections (K, N), qkv, gate|up, o, down, lm_head, of the
+# production Llama and of the Mixtral width (fused qkv, o, an expert's w_gate
+# / w_up and w_down, lm_head).
+_PROD_SHAPES = [(2048, 4096), (2048, 11264), (2048, 2048), (5632, 2048), (2048, 32000),
+                (4096, 6144), (4096, 4096), (4096, 14336), (14336, 4096), (4096, 32000)]
 
 
 def _qmm_inputs(gen, rows, k, n, dtype, misaligned=False):
@@ -194,7 +198,8 @@ def test_quant_matmul_kernel_matches_plain(gen, rows, k, n, dtype):
     _check_qmm(*_qmm_inputs(gen, rows, k, n, dtype))
 
 
-@pytest.mark.parametrize("rows", [1, 13, 16, 17, 100, 512, 1024])
+# 4: a 4-row prefill's last positions; 16: a decode step; 1,024: a 16 x 64 prompt prefill.
+@pytest.mark.parametrize("rows", [1, 4, 13, 16, 17, 100, 512, 1024])
 @pytest.mark.parametrize("k,n", _PROD_SHAPES)
 def test_quant_matmul_kernel_at_the_production_shapes(gen, rows, k, n):
     _check_qmm(*_qmm_inputs(gen, rows, k, n, torch.bfloat16))
@@ -322,26 +327,38 @@ def test_flash_prefix_attention_kernel_matches_plain(gen, name, b, hq, g, tq, kk
             assert bool((got[row, :, :empty] == 0).all())
 
 
-@pytest.mark.parametrize("kv8", [False, True])
-@pytest.mark.parametrize("d", [64, 128])
-def test_flash_reads_a_transposed_cache_and_skips_garbage(gen, d, kv8):
-    """The model's (B, K, G, D) cache as a transposed view, with garbage past
-    the written prefix (NaN values; in KV8, NaN scales): the kernel never
-    reads it into a product."""
-    q, k, v, ks, vs = _flash_case(gen, 2, 8, 4, 64, 512, d, torch.bfloat16, kv8)
+def _check_transposed_cache(gen, b, hq, g, tq, kk, d, q_start, written, kv8):
+    """Kernel 4 on the model's (B, K, G, D) cache as a transposed view, with
+    garbage past the ``written`` slots (NaN values; in KV8, NaN scales): the
+    kernel never reads it into a product."""
+    q, k, v, ks, vs = _flash_case(gen, b, hq, g, tq, kk, d, torch.bfloat16, kv8)
     cache_k, cache_v = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
     if kv8:
-        cache_k[:, 300:], cache_v[:, 300:] = 127, -127
-        ks[:, 300:], vs[:, 300:] = float("nan"), float("nan")
+        cache_k[:, written:], cache_v[:, written:] = 127, -127
+        ks[:, written:], vs[:, written:] = float("nan"), float("nan")
     else:
-        cache_k[:, 300:], cache_v[:, 300:] = float("nan"), float("nan")
-    qs = torch.tensor([0, 200], dtype=torch.int32, device="cuda")  # last key 263
+        cache_k[:, written:], cache_v[:, written:] = float("nan"), float("nan")
+    qs = torch.tensor(q_start, dtype=torch.int32, device="cuda")
     got = flash_prefix_attention(q, cache_k.transpose(1, 2), cache_v.transpose(1, 2), qs, None, ks, vs)
     want = reference_prefix_attention(q, k, v, qs, None, None, ks, vs)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got).all())
     clean = (None, None) if not kv8 else (ks.nan_to_num(0.0), vs.nan_to_num(0.0))
-    assert flash_bf16_within(got, want, q, k, v, [0, 200], None, *clean)
+    assert flash_bf16_within(got, want, q, k, v, q_start, None, *clean), float((got.float() - want.float()).abs().max())
+
+
+@pytest.mark.parametrize("kv8", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_reads_a_transposed_cache_and_skips_garbage(gen, d, kv8):
+    _check_transposed_cache(gen, 2, 8, 4, 64, 512, d, [0, 200], 300, kv8)  # last key read 263
+
+
+@pytest.mark.parametrize("kv8", [False, True])
+def test_flash_at_the_mixtral_prefill(gen, kv8):
+    """The Mixtral-width 4 x 512 prefill as the model gives it: 32 query and
+    8 KV heads of 128 over its 520-slot cache, the 8 slots past the prompt
+    unwritten."""
+    _check_transposed_cache(gen, 4, 32, 8, 512, 520, 128, [0] * 4, 512, kv8)
 
 
 # ---- the compiled-program layer: CUDA graphs of the decode step and the scorer ----
@@ -528,3 +545,67 @@ def test_a_capture_that_fails_raises(gen):
         CudaGraph(lambda x: x * float(x.sum()), {"x": x})  # a host read inside the capture
     torch.cuda.synchronize()
     assert torch.equal(CudaGraph(lambda x: x * 2, {"x": x}).replay()[0], x * 2)  # the device is still usable
+
+
+# ---- the MoE LlamaLM and the NLI judge as CUDA-graph replays ----
+
+
+def test_moe_decode_replays_match_the_eager_loop(gen):
+    """An int8 + KV8 MoE model: 2 x (qkv + o + 4 experts x 3) + lm_head =
+    29 launches of kernel 3 a forward, so a replaying call launches 29 a
+    token (its prefill, then one a replay)."""
+    from runia_core_tpu_torch.llm import TorchGenerator
+    from runia_core_tpu_torch.models import LlamaLM, fuse_quantized_llama_params, quantize_llama_params
+
+    new = 10
+    cfg = dict(vocab_size=512, num_layers=2, num_heads=4, num_kv_heads=2, d_model=128, hidden_dim=256, max_len=512,
+               num_experts=4, num_experts_per_tok=2, use_flash=True)
+    dense = LlamaLM(**cfg, device="cuda").eval()
+    dense.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    int8 = LlamaLM(**cfg, quantized=True, quantized_kv=True, fused_qkv=True, device="cuda").eval()
+    int8.load_state_dict(fuse_quantized_llama_params(quantize_llama_params(dense.state_dict())))
+    prompts = torch.randint(1, 512, (3, 140), generator=torch.Generator().manual_seed(1)).tolist()
+    prompts[2] = prompts[2][:100]  # left-padded
+    for model in (dense, int8):
+        graph = TorchGenerator(model, max_new_tokens=new)
+        want = TorchGenerator(model, max_new_tokens=new, use_scan=False).generate_batch(prompts)
+        with no_host_sync():
+            graph.generate_batch(prompts)  # captures
+            before = quant_matmul.launches
+            got = graph.generate_batch(prompts)  # replays
+        assert quant_matmul.launches - before == (29 * new if model is int8 else 0)
+        assert (got["sequences"] == want["sequences"]).all()
+        torch.testing.assert_close(torch.from_numpy(got["log_probs"]), torch.from_numpy(want["log_probs"]),
+                                   atol=1e-5, rtol=0)
+
+
+def test_nli_replays_match_eager(gen):
+    """A small DeBERTa judge: the replayed bucket gives the eager logits bit
+    for bit and the same labels; a second call of the bucket replays."""
+    from runia_core_tpu_torch.models import DebertaV2Classifier, wrap_torch_nli
+
+    model = DebertaV2Classifier(vocab_size=1000, num_layers=3, num_heads=4, d_model=128, intermediate_size=256,
+                                position_buckets=32, conv_kernel_size=3, dtype=torch.bfloat16, device="cuda").eval()
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+
+    def tok(premises, hypotheses, padding=True, truncation=True, max_length=64, return_tensors="np"):
+        rows = [([1] + p + [2] + h + [2])[:max_length] for p, h in zip(premises, hypotheses)]
+        ids = np.zeros((len(rows), max(map(len, rows))), np.int64)
+        for i, r in enumerate(rows):
+            ids[i, : len(r)] = r
+        return {"input_ids": ids, "attention_mask": (ids > 0).astype(np.int64)}
+
+    rng = np.random.RandomState(0)
+    premises = [list(rng.randint(3, 1000, n)) for n in (5, 40, 20)]
+    hypotheses = [list(rng.randint(3, 1000, n)) for n in (30, 7, 20)]
+    graph = wrap_torch_nli(model, tok, max_len=64, len_buckets=(32, 64), batch_bucket=4)
+    eager = wrap_torch_nli(model, tok, max_len=64, len_buckets=(32, 64), batch_bucket=4, use_graph=False)
+    want, want_labels = eager.logits(premises, hypotheses), eager(premises, hypotheses)
+    with no_host_sync():
+        got = graph.logits(premises, hypotheses)  # captures the (4, 64) bucket
+        captures = CudaGraph.captures
+        labels = graph(premises, hypotheses)
+    assert CudaGraph.captures == captures
+    assert got.shape == (3, 3) and np.isfinite(got).all()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(labels, want_labels)

@@ -5,7 +5,9 @@ f64 to 1e-6. compute_uncertainties runs end to end on one small f32 LlamaLM
 (TorchGenerator vs JaxGenerator, weights carried by llama_from_flax): the
 greedy-pass scores agree within 1e-4 relative (f32 log-probabilities and
 attention rows that agree to about 1e-6); the sampled ones are only checked
-to be finite, since the two random streams differ by design.
+to be finite, since the two random streams differ by design, but for
+semantic entropy, which each package's function recomputes on the other's
+sampled texts: the same clusters, the entropy to 1e-12.
 """
 
 import numpy as np
@@ -18,11 +20,12 @@ import jax.numpy as jnp
 from runia_core_tpu.llm import JaxGenerator
 from runia_core_tpu.llm import attention as jax_attention
 from runia_core_tpu.llm import compute_uncertainties as jax_compute_uncertainties
+from runia_core_tpu.llm import generate as jax_generate
 from runia_core_tpu.llm import scores as jax_scores
 from runia_core_tpu.llm import utils as jax_utils
 from runia_core_tpu.models.llama import LlamaLM as JaxLlamaLM
 from runia_core_tpu_torch.llm import TorchGenerator, compute_uncertainties
-from runia_core_tpu_torch.llm import attention, scores, utils
+from runia_core_tpu_torch.llm import attention, generate, scores, utils
 from runia_core_tpu_torch.models import LlamaLM, llama_from_flax
 
 torch.set_num_threads(1)
@@ -128,27 +131,63 @@ GREEDY = ["perplexity", "generation_entropy", "RAUQ_mean_all_tokens_rollout", "R
           "RAUQ_original_mean_heads"]
 
 
-def test_compute_uncertainties_end_to_end():
+def _parity_judge(premises, hypotheses):
+    """A batched NLI stand-in over token-id texts: entailment when the first
+    tokens share their parity, else contradiction."""
+    return np.array([2 if p[:1] and h[:1] and p[0] % 2 == h[0] % 2 else 0 for p, h in zip(premises, hypotheses)])
+
+
+_parity_judge.is_batch_labels = True
+
+
+def _recording_texts(module, monkeypatch):
+    """Record the sampled texts each compute_uncertainties call scores."""
+    seen, real = [], module.run_generation
+
+    def run_generation(*args, **kwargs):
+        out = real(*args, **kwargs)
+        seen.append(out[1]["texts"])
+        return out
+
+    monkeypatch.setattr(module, "run_generation", run_generation)
+    return seen
+
+
+def _keyed(clusters, texts):
+    return {tuple(t): c for c, members in clusters.items() for t in (texts[i] for i in members)}
+
+
+def test_compute_uncertainties_end_to_end(monkeypatch):
     cfg = dict(vocab_size=128, num_layers=2, num_heads=4, num_kv_heads=2, d_model=64, hidden_dim=128, max_len=256)
     jm = JaxLlamaLM(**cfg)
     params = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.key(1), jnp.zeros((1, 8), jnp.int32)))
     port = LlamaLM(**cfg, device="cpu")
     port.load_state_dict(llama_from_flax(params, device="cpu"))
     prompt = list(np.random.RandomState(3).randint(1, 128, 24))
-    jtext, want = jax_compute_uncertainties(JaxGenerator(jm, params, max_new_tokens=6), None, prompt, REQUESTS,
-                                            num_samples=3)
-    text, got = compute_uncertainties(TorchGenerator(port, max_new_tokens=6), None, prompt, REQUESTS, num_samples=3)
+    requests = REQUESTS + [{"method_name": "semantic_entropy"}]
+    jax_texts, port_texts = _recording_texts(jax_generate, monkeypatch), _recording_texts(generate, monkeypatch)
+    jtext, want = jax_compute_uncertainties(JaxGenerator(jm, params, max_new_tokens=6), None, prompt, requests,
+                                            num_samples=3, entailment_model=_parity_judge)
+    text, got = compute_uncertainties(TorchGenerator(port, max_new_tokens=6), None, prompt, requests, num_samples=3,
+                                      entailment_model=_parity_judge)
     assert text == jtext
-    assert sorted(got) == sorted(want)
+    assert sorted(got) == sorted(want) and "clusters" in got
     for name in GREEDY:
         np.testing.assert_allclose(got[name], want[name], rtol=1e-4, atol=0, err_msg=name)
     assert all(np.isfinite(got[name]) for name in ("normalized_entropy", "eigen_score"))
+    # semantic entropy: each package's function on the other's sampled texts
+    (port_texts,), (jax_texts,) = port_texts, jax_texts
+    for result, texts, other in ((got, port_texts, jax_scores), (want, jax_texts, scores)):
+        entropy, clusters = other.semantic_entropy(_parity_judge, None, texts)
+        assert abs(result["semantic_entropy"] - entropy) <= 1e-12
+        assert result["clusters"] == _keyed(clusters, texts)
 
 
 def test_requests_fail_before_any_decode():
     with pytest.raises(KeyError, match="unknown"):
         compute_uncertainties(None, None, [1], [{"method_name": "nope"}])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compute_uncertainties(None, None, [1], [{"method_name": "semantic_entropy"}])
+    # a semantic_entropy request with a judge passes the request check; the backend check follows
+    with pytest.raises(TypeError, match="TorchGenerator"):
+        compute_uncertainties(None, None, [1], [{"method_name": "semantic_entropy"}], entailment_model=_parity_judge)
     with pytest.raises(TypeError, match="TorchGenerator"):
         compute_uncertainties(object(), None, [1], [{"method_name": "perplexity"}])
