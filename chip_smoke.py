@@ -165,6 +165,37 @@ MOE_CFG = dict(vocab_size=32000, num_layers=2, num_heads=32, num_kv_heads=8, d_m
 MOE_PREFILL_BATCH, MOE_PREFILL_LEN, MOE_PREFILL_NEW = 4, 512, 8
 MOE_DECODE_BATCH, MOE_DECODE_PROMPT, MOE_DECODE_NEW = 16, 64, 64
 MOE_XCHECK_LAYERS, MOE_XCHECK_PROMPT, MOE_XCHECK_STEPS = 1, 128, 4
+# Speculative decoding on the production Llama (bench.py:767-871): gamma 4,
+# 32 new tokens after a 32-token prompt from RandomState(2), then a 256-token
+# prompt (kernel 4 in the target's prefill), 5 sampled continuations, and
+# compute_uncertainties through the speculative backend. Drafts: the int8
+# self-draft (bench.py:747-764) and the distilled pair (bench.py:810-871: the
+# target's o / down of blocks 4-21 scaled by 0.03, the draft its first 4
+# blocks, norm_f and lm_head, the same tensors).
+SPEC_GAMMA, SPEC_NEW, SPEC_PROMPT, SPEC_LONG_PROMPT, SPEC_SAMPLES = 4, 32, 32, 256, 5
+SPEC_DRAFT_LAYERS, SPEC_EPS = 4, 0.03
+SPEC_WINDOWS, SPEC_CALLS = 4, 3  # timed windows per route (in turns) of SPEC_CALLS calls each
+SPEC_XCHECK_LAYERS = 2
+SPEC_REQUESTS = [  # every method but eigen_score, which the fused loop cannot serve
+    {"method_name": "perplexity"}, {"method_name": "generation_entropy"}, {"method_name": "normalized_entropy"},
+    {"method_name": "RAUQ", "token_aggregation": "mean_all_tokens", "head_aggregation": "rollout"},
+    {"method_name": "RAUQ", "token_aggregation": "original", "head_aggregation": "original"},
+    {"method_name": "semantic_entropy"},
+]
+# openai-community/gpt2 (transformers.GPT2Config() defaults) and
+# EleutherAI/pythia-1.4b (its config.json), random weights from a seed, f32
+# (the JAX CausalLM and NeoXLM compute in f32 only).
+GPT2_HF = dict(vocab_size=50257, n_positions=1024, n_embd=768, n_layer=12, n_head=12, layer_norm_epsilon=1e-5,
+               activation_function="gelu_new")
+PYTHIA_HF = dict(vocab_size=50304, hidden_size=2048, num_hidden_layers=24, num_attention_heads=16,
+                 intermediate_size=8192, rotary_pct=0.25, rotary_emb_base=10000, max_position_embeddings=2048,
+                 layer_norm_eps=1e-5, use_parallel_residual=True, hidden_act="gelu")
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_NEW = 16, 64, 64
+FAMILY_HF_SHAPE = (2, 64)  # tokens of the HF-against-port logits check
+FAMILY_XCHECK_LAYERS, FAMILY_XCHECK_STEPS = 2, 4
+# HF against the port on the card, f32, TF32 off: the JAX tests' bounds
+# (tests/test_torch_convert.py's GPT-2 and tests/test_neox.py).
+FAMILY_HF_TOL = {"gpt2": (2e-4, 2e-5), "neox": (1e-3, 1e-4)}  # (rtol, atol)
 H100_HBM_BYTES_PER_S = 3.35e12
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor cores,
 # and f32 outside them, where an FMA counts as two operations. Single
@@ -706,6 +737,15 @@ def quant_matmul_phase(device, gen) -> dict:
            for name, (k, n) in ((f"{tag}qkv", (md, md + 2 * mg * mhd)), (f"{tag}o", (md, md)),
                                 (f"{tag}gate_up", (md, mh)), (f"{tag}down", (mh, md)))},
         "moe_lm_head": (16, md, MOE_CFG["vocab_size"]), "moe_rows4_lm_head": (4, md, MOE_CFG["vocab_size"]),
+        # the int8 self-draft of the speculative path (unfused q, k / v, o,
+        # gate / up, down, lm_head) at its decode rows: 1 (generate) and 5
+        # (generate_samples); and its prefill of one prompt row at 32 and 256
+        # tokens (the 256-token prompt and the uncertainty prompt), whose
+        # lm_head takes the last row only
+        **{f"spec_rows{rows}_{name}": (rows, k, n) for rows in (1, SPEC_SAMPLES, SPEC_PROMPT, SPEC_LONG_PROMPT)
+           for name, (k, n) in (("q", (d, d)), ("kv", (d, g * hd)), ("o", (d, d)), ("gate_up", (d, h)),
+                                ("down", (h, d)), ("lm_head", (d, LLM_CFG["vocab_size"])))
+           if rows < SPEC_PROMPT or name != "lm_head"},
     }
     errors, abs_errors, timings = {}, {}, {}
     for name, (rows, k, n) in shapes.items():
@@ -728,7 +768,7 @@ def quant_matmul_phase(device, gen) -> dict:
         abs_errors[name] = float((got.float() - want).abs().max())
         errors[name] = abs_errors[name] / float(want.abs().max())
         require(errors[name] <= QMM_BOUND[dtype], f"quant_matmul {name}: rel err {errors[name]} > {QMM_BOUND[dtype]}")
-        if name in decode_names or name == "lm_head" or name.startswith(("rows", "moe")):
+        if name in decode_names or name == "lm_head" or name.startswith(("rows", "moe", "spec")):
             # Copies that together exceed the 50 MB L2, used in turns: every
             # call reads its weights from device memory, as a decode step does.
             copies = [(x, wq, scale)] + [(x, wq.clone(), scale) for _ in range(max(0, -(-64 * 2**20 // (k * n)) - 1))]
@@ -739,7 +779,7 @@ def quant_matmul_phase(device, gen) -> dict:
                              "grid": [plan.n_tiles, plan.splits, plan.row_blocks],
                              **with_share(quant_matmul_bound(rows, k, n, dtype), ms)}
             require(ms <= plain_ms, f"quant_matmul {name}: the kernel ({ms} ms) is no slower than plain ({plain_ms} ms)")
-            if name in decode_names or name == "lm_head" or name.startswith("moe"):
+            if name in decode_names or name == "lm_head" or name.startswith(("moe", "spec")):
                 # A different function, as a reference point only: cuBLAS on
                 # the dequantized bf16 weight, twice the bytes.
                 dense = [(x, copies[i % len(copies)][1].to(torch.bfloat16))
@@ -870,10 +910,20 @@ def flash_phase(device, gen) -> dict:
         "tq65": (2, hq, g, 65, 129, hd, [0, 64], None, bf16, False),
         "misaligned": (2, hq, g, 130, 300, hd, [0, 150], [0, 3], bf16, False, "misaligned"),
         "misaligned_kv8": (2, hq, g, 130, 300, hd, [0, 150], [0, 3], bf16, True, "misaligned"),
+        # heads of 32 and 256, the other instances of the kernel's D (the
+        # port's models: Gemma's heads are 256), in bf16, KV8 and f32; and a
+        # Gemma-2b prefill (8 query heads, 1 KV head of 256, 4 x 512)
+        **{f"d{dd}{tag}": (2, 8, 4, 300, 500, dd, [0, 150], [0, 20], dt, kv8)
+           for dd in (32, 256) for tag, dt, kv8 in (("", bf16, False), ("_kv8", bf16, True), ("_f32", f32, False))},
+        "d256_prefill": (4, 8, 1, 512, 512, 256, [0] * 4, None, bf16, False),
         # the Mixtral-width 4 x 512 prefill of the MoE main path: 32 / 8 heads
         # of 128 over its 520-slot (B, K, G, D) cache, bf16 and KV8
         **{name: (mb, mhq, mg, mt, mt + MOE_PREFILL_NEW, mhd, [0] * mb, None, bf16, kv8, "transposed")
            for name, kv8 in (("moe_prefill", False), ("moe_kv8_prefill", True))},
+        # the speculative target's 256-token prompt, one row, over its cache
+        # of p + max_new + 2 (gamma + 1) slots
+        "spec_prefill": (1, hq, g, SPEC_LONG_PROMPT, SPEC_LONG_PROMPT + SPEC_NEW + 2 * (SPEC_GAMMA + 1), hd, [0],
+                         None, bf16, False, "transposed"),
     }
     errors, err_over_bound, timings = {}, {}, {}
     for name, (b, nh, ng, tq, kk, d, q_start, kv_start, dtype, kv8, *layout) in cases.items():
@@ -928,7 +978,8 @@ def flash_phase(device, gen) -> dict:
             for row, (qs_r, kvs_r) in enumerate(zip(q_start, kv_start)):
                 empty = max(0, kvs_r - qs_r)
                 require(bool((got[row, :, :empty] == 0).all()), f"flash {name}: empty-window rows are exact zeros")
-        if name in ("prefill", "kv8_prefill", "chunked", "moe_prefill", "moe_kv8_prefill"):
+        if name in ("prefill", "kv8_prefill", "chunked", "moe_prefill", "moe_kv8_prefill", "spec_prefill",
+                    "d256_prefill"):
             # The kernel by CUDA-graph replays (the chunk case is shorter than
             # its enqueue), the plain version, milliseconds long, by events.
             plain, kernel = [], []
@@ -946,7 +997,7 @@ def flash_phase(device, gen) -> dict:
             if kv8:
                 timings[name]["library_ms"] = None  # no PyTorch call attends an int8 cache with per-key scales
                 continue
-            if name in ("prefill", "moe_prefill"):  # causal from key 0: the first tq keys
+            if name in ("prefill", "moe_prefill", "spec_prefill", "d256_prefill"):  # causal from key 0
                 library = sdpa_library(q, k, v, q_start, tq)
             else:
                 rows = qs.long()[:, None, None] + torch.arange(tq, device=device)[:, None]
@@ -1525,6 +1576,375 @@ def llm_semantic_phase(device, model) -> dict:
     return launches
 
 
+def spec_models(dense):
+    """The two drafts of the production Llama's speculative cells, from its
+    bf16 state on the card: the int8 self-draft (``quantize_llama_params``;
+    bench.py:747-764) with the target itself, and the distilled pair
+    (bench.py:810-871): a target whose o / down kernels of blocks 4-21 are
+    scaled by 0.03 (every other tensor is ``dense``'s) and a draft of its
+    first 4 blocks, ``norm_f`` and ``lm_head`` holding the same tensors."""
+    from runia_core_tpu_torch.models import LlamaLM, quantize_llama_params
+
+    cfg = {k: getattr(dense, k) for k in LLM_CFG}
+    self_draft = LlamaLM(**cfg, dtype=dense.dtype, quantized=True).eval()
+    self_draft.load_state_dict(quantize_llama_params(dense.state_dict()))
+    state = dict(dense.state_dict())
+    for i in range(SPEC_DRAFT_LAYERS, cfg["num_layers"]):
+        for proj in ("o", "down"):
+            state[f"block_{i}.{proj}.kernel"] = state[f"block_{i}.{proj}.kernel"] * SPEC_EPS
+    target = LlamaLM(**cfg, dtype=dense.dtype, use_flash=True).eval()
+    target.load_state_dict(state, assign=True)
+    draft = LlamaLM(**dict(cfg, num_layers=SPEC_DRAFT_LAYERS), dtype=dense.dtype).eval()
+    draft.load_state_dict({k: v for k, v in state.items() if k.split(".")[0] in ("embed", "norm_f", "lm_head")
+                           or (k.startswith("block_") and int(k.split(".")[0][6:]) < SPEC_DRAFT_LAYERS)},
+                          assign=True)
+    return {"int8_self": (dense, self_draft), "distilled": (target, draft)}
+
+
+def _read_bytes(model) -> int:
+    """Bytes a decode step reads: every parameter but the embedding (a
+    gather of one row), as bench.py's cost ratio counts them."""
+    return sum(p.numel() * p.element_size() for name, p in model.named_parameters() if not name.startswith("embed"))
+
+
+def _first_divergence(a, b) -> int:
+    """The first index where two token rows differ; their length if none."""
+    n = min(len(a), len(b))
+    differ = np.flatnonzero(np.asarray(a[:n]) != np.asarray(b[:n]))
+    return int(differ[0]) if len(differ) else n
+
+
+def _timed_turns(calls: dict, windows: int, per_window: int, eager=()) -> dict:
+    """Host seconds of ``per_window`` calls of each function, in windows in
+    turns (a, b, b, a, ...), each call under ``no_host_sync`` but those
+    named in ``eager`` (eager loops, which wait for the card by design)."""
+    names = list(calls)
+    order = [names[(w // 2 + w) % 2] if len(names) == 2 else names[w % len(names)] for w in range(2 * windows)]
+    seconds = {name: [] for name in names}
+    for name in order:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with contextlib.nullcontext() if name in eager else no_host_sync():
+            for _ in range(per_window):
+                calls[name]()
+        torch.cuda.synchronize()
+        seconds[name].append((time.perf_counter() - start) / per_window)
+    return seconds
+
+
+def _greedy_rounds_reading_every(spec, prompt, every: int):
+    """A greedy call on ``spec``'s captured program for ``prompt`` whose
+    host reads the all-done flag every ``every`` rounds, where the
+    generator reads it after each: the measurement behind that choice.
+    Returns the tokens and the flag reads."""
+    from runia_core_tpu_torch.utils.graphs import copy_to_host, host_sync, upload
+
+    prog, syncs = spec._run_cache.get((1, len(prompt))), 0
+    with torch.no_grad():
+        prog.prefill(upload(np.asarray(prompt, np.int64)[None, :], prog.device))
+        for i in range(prog.max_new - 1):
+            prog.graph.replay()
+            if (i + 1) % every == 0 and i + 1 < prog.max_new - 1:
+                syncs += 1
+                with host_sync(prog.device):
+                    if bool(prog.done):
+                        break
+        buf, n_gen = copy_to_host(prog.buf, prog.n_gen)
+    return buf[0, : int(n_gen[0])], syncs
+
+
+def spec_slice_phase(device, dense) -> dict:
+    """Speculative decoding on the production Llama (bf16, ``use_flash``),
+    the main path counted from zero: for the int8 self-draft and the
+    distilled pair, ``generate`` on the 32-token prompt and on a 256-token
+    one (kernel 4 in the target's prefill), ``generate_samples`` of 5 x 32,
+    and ``compute_uncertainties`` through the speculative backend (every
+    method but eigen_score). Then, per draft: tok/s against plain greedy
+    ``TorchGenerator`` (graph) in interleaved windows, speedup, acceptance,
+    rounds, the round replay's ms (events), host syncs a generation, the
+    kernel share of a call, greedy agreement with plain greedy at bf16; the
+    round replay against the eager round (tokens identical, log-probs
+    1e-5); and a 2-layer f32 copy whose speculative tokens must equal plain
+    greedy's and the eager round's."""
+    from runia_core_tpu_torch.llm import SpeculativeGenerator, TorchGenerator, compute_uncertainties
+    from runia_core_tpu_torch.ops.flash_prefill import flash_prefix_attention
+    from runia_core_tpu_torch.ops.quant_matmul import quant_matmul
+    from runia_core_tpu_torch.utils import cuda_time_ms, device_profile
+
+    pairs = spec_models(dense)
+    vocab = LLM_CFG["vocab_size"]
+    prompt = [int(t) for t in np.random.RandomState(2).randint(1, vocab, SPEC_PROMPT)]  # bench.py:791
+    long_prompt = [int(t) for t in np.random.RandomState(3).randint(1, vocab, SPEC_LONG_PROMPT)]
+    uq_prompt = [int(t) for t in np.random.RandomState(4).randint(1, vocab, UQ_PROMPT)]
+    kw = dict(gamma=SPEC_GAMMA, max_new_tokens=SPEC_NEW)
+    specs = {name: SpeculativeGenerator(t, d, **kw) for name, (t, d) in pairs.items()}
+    sampled = {name: SpeculativeGenerator(t, d, do_sample=True, **kw) for name, (t, d) in pairs.items()}
+    plain = {name: TorchGenerator(t, max_new_tokens=SPEC_NEW) for name, (t, _) in pairs.items()}
+
+    def greedy(name, p):
+        return plain[name].generate(p, output_attentions=False, output_hidden_states=False)
+
+    def equivalence(a, b):
+        return a == b
+
+    # ---- the main path, counted ----
+    quant_matmul.launches = 0
+    flash_prefix_attention.launches = flash_prefix_attention.kv8_launches = 0
+    out, long_out, samples = {}, {}, {}
+    with no_host_sync():
+        for name in pairs:
+            out[name] = specs[name].generate(prompt)
+            long_out[name] = specs[name].generate(long_prompt)
+            samples[name] = sampled[name].generate_samples(prompt, SPEC_SAMPLES)
+        uq_text, uq_scores = compute_uncertainties(sampled["int8_self"], None, uq_prompt, SPEC_REQUESTS,
+                                                   num_samples=SPEC_SAMPLES, entailment_model=equivalence)
+    torch.cuda.synchronize()
+    launches = {"quant_matmul": quant_matmul.launches, "flash_prefix_attention": flash_prefix_attention.launches,
+                "flash_prefix_attention_kv8": flash_prefix_attention.kv8_launches}
+    require(launches["quant_matmul"] > 0, f"spec: kernel 3 launched by the int8 self-draft: {launches}")
+    require(launches["flash_prefix_attention"] - launches["flash_prefix_attention_kv8"] > 0,
+            f"spec: kernel 4 launched by the target's 256-token prefill: {launches}")
+    for name in pairs:
+        for label, o, p in (("prompt", out[name], SPEC_PROMPT), ("long_prompt", long_out[name], SPEC_LONG_PROMPT)):
+            require(o["sequences"].shape == (1, p + SPEC_NEW) and bool(np.isfinite(o["log_probs"]).all())
+                    and o["rounds"] >= 1, f"spec {name} {label}: {SPEC_NEW} tokens, finite log-probs")
+        s_ = samples[name]
+        require(s_["tokens"].shape == (SPEC_SAMPLES, SPEC_NEW) and (s_["lengths"] == SPEC_NEW).all()
+                and bool(np.isfinite(s_["log_probs"]).all()), f"spec {name}: generate_samples shapes, finite")
+    require(all(np.isfinite(v) for k, v in uq_scores.items() if k != "clusters") and "eigen_score" not in uq_scores,
+            f"spec: every uncertainty score finite: {uq_scores}")
+
+    # ---- per draft: rates, round replay, syncs, kernel share, agreement ----
+    record = {}
+    for name, (target, draft) in pairs.items():
+        cell = {"draft_layers": draft.num_layers, "draft_quantized": draft.quantized,
+                "cost_ratio_read_bytes": _read_bytes(draft) / _read_bytes(target)}
+        for label, p in (("prompt_32", prompt), ("prompt_256", long_prompt)):
+            want = greedy(name, p)  # captures the plain program of this length
+            got = specs[name].generate(p)
+            syncs = specs[name].last_syncs + 1  # flag reads and the results' copy
+            seconds = _timed_turns({"speculative": lambda: specs[name].generate(p),
+                                    "greedy": lambda: greedy(name, p)}, SPEC_WINDOWS, SPEC_CALLS)
+            spec_s, greedy_s = sum(seconds["speculative"]), sum(seconds["greedy"])
+            program = specs[name]._run_cache.get((1, len(p)))
+            replay_ms = cuda_time_ms(program.graph.replay, iters=10, warmup=2)  # rounds after the last: the same kernels
+            launch_ms = []  # the host's time to enqueue one replay from an idle card: the gap after a flag read
+            for _ in range(10):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                program.graph.replay()
+                launch_ms.append((time.perf_counter() - start) * 1e3)
+            torch.cuda.synchronize()
+            prof = device_profile(lambda: specs[name].generate(p), 1)
+            cell[label] = {
+                "tokens_per_s": {"speculative": SPEC_NEW / (spec_s / len(seconds["speculative"])),
+                                 "greedy": SPEC_NEW / (greedy_s / len(seconds["greedy"]))},
+                "seconds_per_call": seconds,
+                "speedup_vs_greedy": greedy_s / spec_s,
+                "acceptance_rate": got["acceptance_rate"], "rounds": got["rounds"],
+                "round_replay_ms": replay_ms, "host_syncs_per_generation": syncs,
+                "replay_enqueue_ms_host": statistics.median(launch_ms),
+                "kernel3_launches_per_replay": program.graph.launches.get((quant_matmul, "launches"), 0),
+                "kernel_share_of_call": prof["device_busy_share"], "kernels_per_call": prof["kernels_per_unit"],
+                "device_time_seen": prof["device_time_seen"],
+                "greedy_first_divergence": _first_divergence(got["tokens"], want["sequences"][0, len(p):]),
+                "greedy_token_agreement": float((got["tokens"] == want["sequences"][0, len(p):]).mean()),
+            }
+        # the host's flag reads: after every round (the generator's loop),
+        # every 2 and every 4 rounds (the same program, driven here)
+        calls, syncs = {"every_1": lambda: specs[name].generate(prompt)}, {"every_1": specs[name].last_syncs}
+        with no_host_sync():
+            want = specs[name].generate(prompt)["tokens"]
+            for r in (2, 4):
+                tokens, syncs[f"every_{r}"] = _greedy_rounds_reading_every(specs[name], prompt, r)
+                require(np.array_equal(tokens, want), f"spec {name}: flag read every {r} rounds, same tokens")
+                calls[f"every_{r}"] = lambda r=r: _greedy_rounds_reading_every(specs[name], prompt, r)
+        seconds = _timed_turns(calls, SPEC_WINDOWS, SPEC_CALLS)
+        cell["flag_reads"] = {k: {"ms_per_call": 1e3 * sum(v) / len(v), "host_syncs": syncs[k] + 1}
+                              for k, v in seconds.items()}
+        # generate_samples (5 x 32) against plain sampling of 5 sequences
+        seconds = _timed_turns({
+            "speculative": lambda: sampled[name].generate_samples(prompt, SPEC_SAMPLES),
+            "plain": lambda: plain[name].generate(prompt, num_return_sequences=SPEC_SAMPLES, do_sample=True,
+                                                  output_attentions=False, output_hidden_states=False),
+        }, SPEC_WINDOWS // 2, SPEC_CALLS)
+        spec_s, plain_s = (sum(seconds[k]) / len(seconds[k]) for k in ("speculative", "plain"))
+        cell["samples_5x32"] = {"tokens_per_s": {"speculative": SPEC_SAMPLES * SPEC_NEW / spec_s,
+                                                 "plain": SPEC_SAMPLES * SPEC_NEW / plain_s},
+                                "speedup_vs_plain": plain_s / spec_s, "seconds_per_call": seconds,
+                                "acceptance_rate": samples[name]["acceptance_rate"],
+                                "rounds": samples[name]["rounds"]}
+        # the round replay against the eager round, bf16
+        eager = SpeculativeGenerator(target, draft, use_graph=False, **kw).generate(prompt)
+        same = bool((eager["sequences"] == out[name]["sequences"]).all())
+        lp_err = float(np.abs(eager["log_probs"] - out[name]["log_probs"]).max())
+        require(same and lp_err <= GRAPH_LOGPROB_ATOL and eager["rounds"] == out[name]["rounds"],
+                f"spec {name}: replay vs eager round, tokens identical {same}, log-prob err {lp_err}")
+        cell["replay_vs_eager"] = {"tokens_identical": same, "max_abs_err_log_probs": lp_err}
+        record[name] = cell
+
+    # ---- compute_uncertainties: the speculative backend against TorchGenerator's ----
+    backends = {"speculative": sampled["int8_self"], "torch_generator": TorchGenerator(dense, max_new_tokens=SPEC_NEW)}
+    uq_seconds = _timed_turns({k: (lambda g=g: compute_uncertainties(g, None, uq_prompt, SPEC_REQUESTS,
+                                                                      num_samples=SPEC_SAMPLES,
+                                                                      entailment_model=equivalence))
+                               for k, g in backends.items()}, 2, 1)
+    xcheck = spec_xcheck(device, prompt)
+    emit({"phase": "spec_slice", "config": LLM_CFG, "gamma": SPEC_GAMMA, "new_tokens": SPEC_NEW,
+          "prompts": [SPEC_PROMPT, SPEC_LONG_PROMPT], "flag_read": "after every round",
+          "distilled": {"draft_layers": SPEC_DRAFT_LAYERS, "eps": SPEC_EPS}, "launches": launches,
+          "drafts": record, "uncertainty": {"methods": [r["method_name"] for r in SPEC_REQUESTS],
+                                            "prompt": UQ_PROMPT, "samples": SPEC_SAMPLES,
+                                            "scores": {k: v for k, v in uq_scores.items() if k != "clusters"},
+                                            "s_per_prompt": uq_seconds, "text_tokens": len(uq_text[0])},
+          "xcheck_f32": xcheck, "bound_log_probs": GRAPH_LOGPROB_ATOL})
+    del pairs, specs, sampled, plain, backends
+    _drop_programs()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def spec_xcheck(device, prompt) -> dict:
+    """The production width at 2 layers in f32 (TF32 off) with its int8
+    self-draft: speculative greedy tokens equal plain greedy's (exact only
+    in f32: the batched verify and the one-token forwards break bf16 ties
+    differently) and the eager round's, on the 32- and 256-token prompts."""
+    from runia_core_tpu_torch.llm import SpeculativeGenerator, TorchGenerator
+    from runia_core_tpu_torch.models import LlamaLM, quantize_llama_params
+
+    cfg = dict(LLM_CFG, num_layers=SPEC_XCHECK_LAYERS)
+    target = LlamaLM(**cfg, use_flash=True).eval()
+    target.init_weights(torch.Generator(device=device).manual_seed(SEED + 20))
+    draft = LlamaLM(**cfg, quantized=True).eval()
+    draft.load_state_dict(quantize_llama_params(target.state_dict()))
+    long_prompt = [int(t) for t in np.random.RandomState(5).randint(1, LLM_CFG["vocab_size"], SPEC_LONG_PROMPT)]
+    result = {}
+    for label, p in (("prompt_32", prompt), ("prompt_256", long_prompt)):
+        kw = dict(gamma=SPEC_GAMMA, max_new_tokens=SPEC_NEW)
+        with no_host_sync():
+            got = SpeculativeGenerator(target, draft, **kw).generate(p)
+            want = TorchGenerator(target, max_new_tokens=SPEC_NEW).generate(
+                p, output_attentions=False, output_hidden_states=False)
+        eager = SpeculativeGenerator(target, draft, use_graph=False, **kw).generate(p)
+        same_plain = bool((got["sequences"] == want["sequences"]).all())
+        same_eager = bool((got["sequences"] == eager["sequences"]).all())
+        lp_err = float(np.abs(got["log_probs"] - eager["log_probs"]).max())
+        require(same_plain and same_eager and lp_err <= GRAPH_LOGPROB_ATOL,
+                f"spec f32 {label}: tokens = plain greedy {same_plain}, = eager round {same_eager}, "
+                f"log-prob err {lp_err}")
+        result[label] = {"tokens_equal_plain_greedy": same_plain, "tokens_equal_eager_round": same_eager,
+                         "max_abs_err_log_probs_vs_eager": lp_err, "acceptance_rate": got["acceptance_rate"],
+                         "rounds": got["rounds"]}
+    del target, draft
+    _drop_programs()
+    return {"layers": SPEC_XCHECK_LAYERS, **result}
+
+
+def _hf_family(family: str, device, layers=None):
+    """A ``transformers`` model at the published width with random weights
+    from the seed, f32, on the card: GPT-2 or Pythia-1.4b (``layers`` cuts
+    the depth)."""
+    import transformers
+
+    torch.manual_seed(SEED + 30)
+    if family == "gpt2":
+        cfg = transformers.GPT2Config(**GPT2_HF if layers is None else dict(GPT2_HF, n_layer=layers))
+        model = transformers.GPT2LMHeadModel(cfg)
+    else:
+        cfg = transformers.GPTNeoXConfig(**PYTHIA_HF if layers is None else dict(PYTHIA_HF, num_hidden_layers=layers))
+        model = transformers.GPTNeoXForCausalLM(cfg)
+    return model.to(device=device, dtype=torch.float32).eval()
+
+
+def family_slice_phase(device, family: str) -> dict:
+    """GPT-2 (``CausalLM``, openai-community/gpt2 width) or GPT-NeoX
+    (``NeoXLM``, EleutherAI/pythia-1.4b width), f32, random weights from a
+    seeded HF model through the port's converter: ``generate_batch`` 16 x 64
+    + 64 greedy, graph against eager (tokens identical, log-probs 1e-5) and
+    tok/s of both routes in turns; the HF model's logits against the port's
+    on the card (the JAX tests' bounds); then 2 layers, card against CPU."""
+    from runia_core_tpu_torch.llm import TorchGenerator
+    from runia_core_tpu_torch.models import convert_hf_gpt2, convert_hf_gpt_neox, init_cache
+    from runia_core_tpu_torch.models.neox import _rope_setting
+
+    convert = convert_hf_gpt2 if family == "gpt2" else convert_hf_gpt_neox
+    start = time.perf_counter()
+    hf = _hf_family(family, device)
+    build_s = time.perf_counter() - start
+    if family == "neox":
+        rope = (_rope_setting(hf.config, "partial_rotary_factor", "rotary_pct", -1.0),
+                _rope_setting(hf.config, "rope_theta", "rotary_emb_base", -1.0))
+        require(rope == (PYTHIA_HF["rotary_pct"], float(PYTHIA_HF["rotary_emb_base"])),
+                f"neox: the HF config holds Pythia's rotary settings: {rope}")
+    model, _ = convert(hf)  # no device given: the card
+    require(model.embed.embedding.device == device, f"{family}: the converter's default device is the card")
+    vocab = model.vocab_size
+    rng = torch.Generator().manual_seed(SEED + 31)
+    ids = torch.randint(0, vocab, FAMILY_HF_SHAPE, generator=rng)
+    with torch.no_grad():
+        want = hf(ids.to(device)).logits.float()
+    got = model(ids.to(device), need_attentions=False, need_hiddens=False)[0]
+    rtol, atol = FAMILY_HF_TOL[family]
+    excess = float(((got - want).abs() - (atol + rtol * want.abs())).max())
+    require(excess <= 0, f"{family}: HF logits against the port's beyond rtol {rtol} / atol {atol} ({excess})")
+    hf_err = float((got - want).abs().max())
+    del hf, want, got
+    torch.cuda.empty_cache()
+
+    prompts = torch.randint(1, vocab, (FAMILY_BATCH, FAMILY_PROMPT), generator=rng).tolist()
+    gens = {route: TorchGenerator(model, max_new_tokens=FAMILY_NEW, use_scan=route == "graph")
+            for route in ("eager", "graph")}
+    out = {}
+    for route, gen in gens.items():
+        with no_host_sync() if route == "graph" else contextlib.nullcontext():
+            out[route] = gen.generate_batch(prompts, output_scores=False)  # the graph route captures here
+    same = bool((out["graph"]["sequences"] == out["eager"]["sequences"]).all())
+    lp_err = float(np.abs(out["graph"]["log_probs"] - out["eager"]["log_probs"]).max())
+    require(same and lp_err <= GRAPH_LOGPROB_ATOL and bool(np.isfinite(out["graph"]["log_probs"]).all()),
+            f"{family}: graph vs eager, tokens identical {same}, log-prob err {lp_err}")
+    seconds = _timed_turns({route: (lambda g=g: g.generate_batch(prompts, output_scores=False))
+                            for route, g in gens.items()}, 2, 1, eager=("eager",))
+    rates = {route: FAMILY_BATCH * FAMILY_NEW / (sum(s) / len(s)) for route, s in seconds.items()}
+    weights = _weight_bytes(model)
+
+    # 2 layers at the same width: the card route against the CPU route
+    small, _ = convert(_hf_family(family, device, FAMILY_XCHECK_LAYERS))
+    cpu = type(small)(**_family_config(small), device="cpu").eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in small.state_dict().items()})
+    tokens = torch.randint(1, vocab, (2, FAMILY_PROMPT + FAMILY_XCHECK_STEPS), generator=rng)
+    n = FAMILY_PROMPT + FAMILY_XCHECK_STEPS
+    card_cache, cpu_cache = init_cache(small, 2, n), init_cache(cpu, 2, n, "cpu")
+    worst = 0.0
+    calls = [(tokens[:, :FAMILY_PROMPT], 0)] + [(tokens[:, FAMILY_PROMPT + i: FAMILY_PROMPT + i + 1],
+                                                 torch.full((2,), FAMILY_PROMPT + i)) for i in range(FAMILY_XCHECK_STEPS)]
+    for chunk, index in calls:
+        card_index = index.to(device) if isinstance(index, torch.Tensor) else index
+        g = small(chunk.to(device), card_cache, card_index, need_attentions=False, need_hiddens=False)[0].cpu()
+        w = cpu(chunk, cpu_cache, index, need_attentions=False, need_hiddens=False)[0]
+        worst = max(worst, float((g - w).abs().max() / w.abs().max()))
+    require(worst <= LLM_XCHECK_REL["f32"], f"{family}: card vs CPU rel err {worst} > {LLM_XCHECK_REL['f32']}")
+    emit({"phase": f"{family}_slice", "config": _family_config(model), "hf_config": GPT2_HF if family == "gpt2"
+          else PYTHIA_HF, "dtype": "float32", "hf_build_s": build_s,
+          "hf_logits": {"shape": list(FAMILY_HF_SHAPE), "max_abs_err": hf_err, "rtol": rtol, "atol": atol},
+          "decode_shape": [FAMILY_BATCH, FAMILY_PROMPT, FAMILY_NEW],
+          "graph_vs_eager": {"tokens_identical": same, "max_abs_err_log_probs": lp_err},
+          "tokens_per_s": rates, "seconds": seconds, "weight_bytes": weights,
+          "decode_weight_GBps_graph": weights * FAMILY_NEW / (sum(seconds["graph"]) / len(seconds["graph"])) / 1e9,
+          "xcheck_f32_cpu": {"layers": FAMILY_XCHECK_LAYERS, "max_rel_err": worst, "bound": LLM_XCHECK_REL["f32"]}})
+    del model, small, cpu, gens
+    _drop_programs()
+    torch.cuda.empty_cache()
+    return rates
+
+
+def _family_config(model) -> dict:
+    """The constructor arguments of a converted CausalLM or NeoXLM."""
+    names = ("vocab_size", "num_layers", "num_heads", "d_model", "max_len")
+    extra = (("ln_eps", "tie_embeddings") if model.__class__.__name__ == "CausalLM"
+             else ("hidden_dim", "ln_eps", "rotary_pct", "rope_theta", "parallel_residual"))
+    return {k: getattr(model, k) for k in names + extra}
+
+
 def build_moe(device, num_layers: int, dtype):
     """The Mixtral-width LlamaLM (depth ``num_layers``) with seeded random
     weights, and its int8 + KV8 + fused qkv form made from it on the device."""
@@ -1709,12 +2129,15 @@ def main() -> None:
     llm_xcheck_phase(device)
     llm_throughput_phase(device, models)
     semantic = llm_semantic_phase(device, models["bf16"])
+    speculative = spec_slice_phase(device, models["bf16"])
     del models, dense, int8
     _drop_programs()
     torch.cuda.empty_cache()
     nli_phase(device)
     moe = moe_slice_phase(device)
-    for counts in (semantic, moe):
+    family_slice_phase(device, "gpt2")
+    family_slice_phase(device, "neox")
+    for counts in (semantic, speculative, moe):
         for name, n in counts.items():
             if name in launches:
                 launches[name] += n

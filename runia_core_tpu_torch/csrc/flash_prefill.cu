@@ -55,7 +55,9 @@
 // Tq, K and the windows are masked inside the kernels, so any Tq and K are
 // taken. k, v, q and out are read through strides, so the model passes its
 // (B, K, G, D) cache as a transposed view with no copy. D is a template
-// parameter (64 or 128).
+// parameter: 32, 64, 128 or 256, the head sizes of the port's models (at 256
+// the tensor-core kernel's accumulators and Q fragments take most of its
+// registers).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -594,10 +596,15 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Params p) {
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         float vrow[DC];
+        if constexpr (DC % 4 == 0) {
 #pragma unroll
-        for (int c = 0; c < DC; c += 4) {
-          const float4 v4 = *reinterpret_cast<const float4*>(vs + (kk + u) * D + tx * DC + c);
-          vrow[c] = v4.x; vrow[c + 1] = v4.y; vrow[c + 2] = v4.z; vrow[c + 3] = v4.w;
+          for (int c = 0; c < DC; c += 4) {
+            const float4 v4 = *reinterpret_cast<const float4*>(vs + (kk + u) * D + tx * DC + c);
+            vrow[c] = v4.x; vrow[c + 1] = v4.y; vrow[c + 2] = v4.z; vrow[c + 3] = v4.w;
+          }
+        } else {  // D = 32: two columns a thread, 8-byte aligned
+#pragma unroll
+          for (int c = 0; c < DC; ++c) vrow[c] = vs[(kk + u) * D + tx * DC + c];
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -671,7 +678,9 @@ extern "C" int runia_flash_prefix_attention(const void* q, const void* k, const 
   p.q_vec = p.kv_vec = p.o_vec = 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p.G <= 0 || p.Hq % p.G != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (d == 32) return runia::flash::dispatch<32>(p, dtype, kv8, s);
   if (d == 64) return runia::flash::dispatch<64>(p, dtype, kv8, s);
   if (d == 128) return runia::flash::dispatch<128>(p, dtype, kv8, s);
+  if (d == 256) return runia::flash::dispatch<256>(p, dtype, kv8, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,5 +1,9 @@
-"""LLM uncertainty of the PyTorch port: the TorchGenerator decode backend,
-the scores that read its output, and the NLI judges of semantic entropy."""
+"""LLM uncertainty of the PyTorch port: the TorchGenerator decode backend and
+speculative decoding (SpeculativeGenerator), the scores that read their
+output, the NLI judges of semantic entropy, and the streaming attention
+aggregator."""
+
+from runia_core_tpu_torch.llm.attention import StreamingAttentionAggregator
 
 from runia_core_tpu_torch.llm.generate import (
     TorchGenerator,
@@ -22,10 +26,13 @@ from runia_core_tpu_torch.llm.scores import (
     rauq_uncertainty_rollout,
     semantic_entropy,
 )
+from runia_core_tpu_torch.llm.speculative import SpeculativeGenerator, speculative_sample_round
 from runia_core_tpu_torch.llm.utils import make_nli_batch_labels, make_nli_equivalence
 
 __all__ = [
     "RAUQ",
+    "SpeculativeGenerator",
+    "StreamingAttentionAggregator",
     "TorchGenerator",
     "batched_rauq",
     "compute_uncertainties",
@@ -43,5 +50,6 @@ __all__ = [
     "run_generation",
     "sample_logits",
     "semantic_entropy",
+    "speculative_sample_round",
     "validate_generation_request",
 ]

@@ -1,8 +1,12 @@
-"""The generation backend of the port's LLM uncertainty scores.
+"""The generation backends of the port's LLM uncertainty scores.
 
-Counterpart of ``runia_core_tpu/llm/generate.py``. :class:`TorchGenerator`
-is the port's ``JaxGenerator``: a KV-cached decode loop over
-``models/llama.py::LlamaLM`` that returns HF-shaped numpy structures
+Counterpart of ``runia_core_tpu/llm/generate.py``. :func:`run_generation`
+dispatches as the JAX package does: to a :class:`TorchGenerator`, to a
+``llm/speculative.py::SpeculativeGenerator`` (greedy pass on its target,
+samples from the fused speculative loop) or to an HF model's ``generate``.
+:class:`TorchGenerator` is the port's ``JaxGenerator``: a KV-cached decode
+loop over any of the port's decoder LMs (``LlamaLM``, ``CausalLM``,
+``NeoXLM``) that returns HF-shaped numpy structures
 (``scores`` a tuple of (S, V), ``attentions`` a tuple over steps of
 per-layer (S, H, tgt, src), ``hidden_states`` a tuple over steps of
 per-layer (S, tgt, D)), so every score in ``llm/scores.py`` reads it as it
@@ -47,6 +51,7 @@ routes of the port draw the same numbers from the same generator state.
 from __future__ import annotations
 
 import contextlib
+import math
 import warnings
 import weakref
 from typing import Any, Dict, Optional, Sequence
@@ -586,34 +591,45 @@ def _sampling_kwargs(gen_config) -> Dict[str, Any]:
 
 
 def validate_generation_request(model, needs_sampling: bool, needs_hiddens: bool) -> None:
-    """Raise before any decode work if the backend cannot serve the request.
-    The port serves one backend, :class:`TorchGenerator`, which emits every
-    tap the scores read."""
-    del needs_sampling, needs_hiddens
-    if not isinstance(model, TorchGenerator):
-        raise TypeError(f"unsupported generation backend {type(model).__name__}; pass a TorchGenerator")
+    """Raise before any decode work if the backend cannot serve the request:
+    ``compute_uncertainties`` calls this on the whole request list. A
+    :class:`TorchGenerator` emits every tap the scores read; a
+    ``SpeculativeGenerator``'s fused loop emits no hidden states (so no
+    ``eigen_score``) and samples only when built with ``do_sample=True``;
+    an HF model (anything else with ``generate``) is taken as it is."""
+    from runia_core_tpu_torch.llm.speculative import SpeculativeGenerator
+
+    if isinstance(model, SpeculativeGenerator):
+        if needs_sampling and needs_hiddens:
+            raise ValueError(
+                "eigen_score needs sampled hidden states, which the fused speculative loop does not emit; "
+                "pass a TorchGenerator instead"
+            )
+        if needs_sampling and not model.do_sample:
+            raise ValueError("sampled uncertainty scores need SpeculativeGenerator(do_sample=True)")
+    elif not isinstance(model, TorchGenerator) and not hasattr(model, "generate"):
+        raise TypeError(
+            f"unsupported generation backend {type(model).__name__}; pass a TorchGenerator, a "
+            "SpeculativeGenerator or a transformers model with generate"
+        )
 
 
-def run_generation(model, tokenizer, prompt, gen_config, num_samples, needs_sampling,
-                   needs_attentions=True, needs_hiddens=True):
-    """The two phases of ``compute_uncertainties`` on a TorchGenerator: a
-    greedy pass (attention taps only if ``needs_attentions``, for RAUQ) and,
-    if ``needs_sampling``, ``num_samples`` sampled continuations honouring
-    ``gen_config``'s temperature/top_k/top_p (hidden states only if
-    ``needs_hiddens``, for eigen_score).
-
-    Returns (deterministic, sampled, deterministic_text) as the JAX
-    backends do."""
-    validate_generation_request(model, needs_sampling, needs_hiddens)
+def _torch_generation(generator, tokenizer, prompt, gen_config, num_samples, needs_sampling,
+                      needs_attentions=True, needs_hiddens=True):
+    """The two phases on a TorchGenerator: a greedy pass (attention taps
+    only if ``needs_attentions``, for RAUQ) and, if ``needs_sampling``,
+    ``num_samples`` sampled continuations honouring ``gen_config``'s
+    temperature/top_k/top_p (hidden states only if ``needs_hiddens``, for
+    eigen_score)."""
     encode = getattr(tokenizer, "encode", None)
     decode = getattr(tokenizer, "decode", None)
     prompt_tokens = encode(prompt) if encode else prompt
     input_length = len(prompt_tokens)
-    det = model.generate(
+    det = generator.generate(
         prompt_tokens, num_return_sequences=1, do_sample=False,
         output_attentions=needs_attentions, output_hidden_states=False,
     )
-    det_ids = _strip_eos(det["sequences"][0, input_length:].tolist(), model.eos_id)
+    det_ids = _strip_eos(det["sequences"][0, input_length:].tolist(), generator.eos_id)
     deterministic_text = [decode(det_ids) if decode else det_ids]
     deterministic = {
         "log_probs": det["log_probs"],
@@ -624,14 +640,109 @@ def run_generation(model, tokenizer, prompt, gen_config, num_samples, needs_samp
     }
     sampled = {"log_probs": None, "hidden_states": None, "texts": None}
     if needs_sampling:
-        samp = model.generate(
+        samp = generator.generate(
             prompt_tokens, num_return_sequences=num_samples, do_sample=True,
             output_attentions=False, output_hidden_states=needs_hiddens, **_sampling_kwargs(gen_config),
         )
-        ids = [_strip_eos(row[input_length:].tolist(), model.eos_id) for row in samp["sequences"]]
+        ids = [_strip_eos(row[input_length:].tolist(), generator.eos_id) for row in samp["sequences"]]
         sampled = {
             "log_probs": samp["log_probs"],
             "hidden_states": samp["hidden_states"],
             "texts": [decode(t) for t in ids] if decode else ids,
         }
     return deterministic, sampled, deterministic_text
+
+
+def _speculative_generation(spec, tokenizer, prompt, gen_config, num_samples, needs_sampling,
+                            needs_attentions=True):
+    """The SpeculativeGenerator backend: the greedy pass through a
+    TorchGenerator on the TARGET (``spec.greedy_generator``; it gives RAUQ
+    its attention taps), the sampled pass through the fused speculative loop
+    (``generate_samples``; log-probs -inf past each sample's end, no hidden
+    states). As in JAX, ``gen_config`` does not steer the sampling, which
+    the generator's construction fixes; a ``gen_config`` whose settings
+    conflict with it warns."""
+    requested = _sampling_kwargs(gen_config)
+    if needs_sampling and requested:
+        conflicts = []
+        if "temperature" in requested and not math.isclose(requested["temperature"], spec.temperature, rel_tol=1e-6):
+            conflicts.append(f"temperature={requested['temperature']} (generator uses {spec.temperature})")
+        conflicts += [f"{k}={requested[k]} (unsupported on the speculative backend)"
+                      for k in ("top_k", "top_p") if k in requested]
+        if conflicts:
+            warnings.warn(
+                "gen_config is ignored on the speculative backend; conflicting settings: " + ", ".join(conflicts),
+                stacklevel=3,
+            )
+    deterministic, _, deterministic_text = _torch_generation(
+        spec.greedy_generator, tokenizer, prompt, gen_config, 1, needs_sampling=False,
+        needs_attentions=needs_attentions, needs_hiddens=False,
+    )
+    sampled = {"log_probs": None, "hidden_states": None, "texts": None}
+    if needs_sampling:
+        encode = getattr(tokenizer, "encode", None)
+        decode = getattr(tokenizer, "decode", None)
+        samp = spec.generate_samples(encode(prompt) if encode else prompt, num_samples)
+        ids = [_strip_eos(samp["tokens"][i, : int(samp["lengths"][i])].tolist(), spec.eos_id)
+               for i in range(num_samples)]
+        sampled = {"log_probs": samp["log_probs"], "hidden_states": None,
+                   "texts": [decode(t) for t in ids] if decode else ids}
+    return deterministic, sampled, deterministic_text
+
+
+def _hf_generation(model, tokenizer, prompt, gen_config, num_samples, needs_sampling):
+    """The reference's HF flow (``transformers`` ``generate`` with every
+    output), log-probs as numpy; the JAX package's ``_hf_generation``."""
+    inputs = tokenizer(prompt, return_tensors="pt")
+    if hasattr(model, "device"):
+        inputs = inputs.to(model.device)
+    input_length = inputs["input_ids"].shape[1]
+    det_out = model.generate(
+        **inputs, generation_config=gen_config, output_attentions=True, output_hidden_states=True,
+        output_scores=True, return_dict_in_generate=True,
+    )
+    deterministic_text = tokenizer.batch_decode(det_out.sequences[:, input_length:], skip_special_tokens=True)
+    det_log_probs = model.compute_transition_scores(det_out.sequences, det_out.scores, normalize_logits=True)
+    deterministic = {
+        "log_probs": np.asarray(det_log_probs.cpu()),
+        "logits": det_out.scores,
+        "attentions": det_out.attentions,
+        "input_length": input_length,
+        "text": deterministic_text,
+    }
+    sampled = {"log_probs": None, "hidden_states": None, "texts": None}
+    if needs_sampling:
+        samp_out = model.generate(
+            **inputs, do_sample=True, temperature=1.0, num_return_sequences=num_samples,
+            generation_config=gen_config, output_attentions=True, output_hidden_states=True, output_scores=True,
+            return_dict_in_generate=True,
+        )
+        sampled = {
+            "log_probs": np.asarray(model.compute_transition_scores(
+                samp_out.sequences, samp_out.scores, normalize_logits=True).cpu()),
+            "hidden_states": samp_out.hidden_states,
+            "texts": tokenizer.batch_decode(samp_out.sequences[:, input_length:], skip_special_tokens=True),
+        }
+    return deterministic, sampled, deterministic_text
+
+
+def run_generation(model, tokenizer, prompt, gen_config, num_samples, needs_sampling,
+                   needs_attentions=True, needs_hiddens=True):
+    """The two phases of ``compute_uncertainties`` (a greedy pass and, if
+    ``needs_sampling``, ``num_samples`` sampled continuations) on the
+    backend's type, as the JAX package dispatches: a :class:`TorchGenerator`,
+    a ``SpeculativeGenerator``, or an HF model with ``generate`` (the
+    reference's flow, which always asks for every output). The ``needs_*``
+    hints prune taps on the port's backends.
+
+    Returns (deterministic, sampled, deterministic_text)."""
+    from runia_core_tpu_torch.llm.speculative import SpeculativeGenerator
+
+    validate_generation_request(model, needs_sampling, needs_hiddens)
+    if isinstance(model, TorchGenerator):
+        return _torch_generation(model, tokenizer, prompt, gen_config, num_samples, needs_sampling,
+                                 needs_attentions=needs_attentions, needs_hiddens=needs_hiddens)
+    if isinstance(model, SpeculativeGenerator):
+        return _speculative_generation(model, tokenizer, prompt, gen_config, num_samples, needs_sampling,
+                                       needs_attentions=needs_attentions)
+    return _hf_generation(model, tokenizer, prompt, gen_config, num_samples, needs_sampling)

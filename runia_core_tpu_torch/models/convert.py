@@ -4,9 +4,11 @@
 ``runia_core_tpu/models/torch_convert.py::convert_torch_resnet``: it maps a
 flax ResNet ``{"params", "batch_stats"}`` tree onto the ``state_dict`` of
 ``models/resnet.py::ResNet``, whose module names follow the flax tree;
-``llama_from_flax`` and ``deberta_from_flax`` do the same for a JAX
-``LlamaLM`` and ``DebertaV2Classifier`` and their counterparts in
-``models/llama.py`` and ``models/deberta.py``. The other two helpers turn a
+``llama_from_flax``, ``deberta_from_flax``, ``causal_lm_from_flax`` and
+``neox_from_flax`` do the same for a JAX ``LlamaLM``,
+``DebertaV2Classifier``, ``CausalLM`` (GPT-2) and ``NeoXLM`` and their
+counterparts in ``models/llama.py``, ``models/deberta.py``,
+``models/transformer.py`` and ``models/neox.py``. The other two helpers turn a
 JAX ``PCAState`` and an MD/KDE detector state into the port's. Nothing here imports JAX:
 leaves only need ``np.asarray``. Every helper makes its tensors on
 ``device``; None is ``runia_core_tpu_torch.default_device()``, the GPU.
@@ -23,7 +25,8 @@ from runia_core_tpu_torch import default_device
 from runia_core_tpu_torch.reduction import PCAState
 
 __all__ = [
-    "deberta_from_flax", "detector_state_from_arrays", "llama_from_flax", "pca_state_from_arrays", "resnet_from_flax",
+    "causal_lm_from_flax", "deberta_from_flax", "detector_state_from_arrays", "llama_from_flax", "neox_from_flax",
+    "pca_state_from_arrays", "resnet_from_flax",
 ]
 
 
@@ -93,8 +96,13 @@ def llama_from_flax(params: Mapping[str, Any], device=None) -> Dict[str, torch.T
     return state
 
 
-# The DeBERTa tree carries across by the same rule.
+# The DeBERTa, CausalLM (GPT-2: ``LayerNorm_0``, ``Dense_0``, ``pos_embed``,
+# the MoE ``moe_gate`` kernel and ``moe_w_in`` / ``moe_w_out`` stacks) and
+# NeoXLM trees carry across by the same rule: the port's models keep the flax
+# names and (in, out) layouts.
 deberta_from_flax = llama_from_flax
+causal_lm_from_flax = llama_from_flax
+neox_from_flax = llama_from_flax
 
 
 def pca_state_from_arrays(state, device=None) -> PCAState:

@@ -25,7 +25,9 @@ its CUDA kernel for a CUDA tensor and runs its plain twin for a CPU one):
 * attention of a ``use_flash`` model goes through
   ``ops/flash_prefill.py`` when the call has at least 128 tokens, the plain
   causal case (no padding mask, no custom positions, no sliding window) and
-  no attention probabilities are asked for. Prefill into an empty cache and
+  no attention probabilities are asked for. The kernel is built for heads of
+  32, 64, 128 and 256 (the port's models); a ``use_flash`` model made on a
+  GPU with another head size raises when it is built. Prefill into an empty cache and
   chunked prefill over a live one are one route: the chunk's K/V are written
   into the cache first and the kernel attends the cache with ``q_start =
   cache_index``; a KV8 cache is attended in int8 with its scales (the JAX
@@ -56,6 +58,7 @@ from torch import nn
 
 from runia_core_tpu_torch import default_device
 from runia_core_tpu_torch.models.layers import Dense, hf_kernel, hf_vector, param
+from runia_core_tpu_torch.ops.flash_prefill import _HEAD_DIMS as _FLASH_HEAD_DIMS
 from runia_core_tpu_torch.ops.flash_prefill import flash_prefix_attention
 from runia_core_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_supported
 
@@ -349,9 +352,13 @@ class LlamaLM(nn.Module):
         self.attn_bias, self.sliding_window = attn_bias, sliding_window
         self.embed_scale, self.mlp_act = embed_scale, mlp_act
         self.num_experts, self.num_experts_per_tok = num_experts, num_experts_per_tok
+        device = default_device() if device is None else torch.device(device)
+        if use_flash and device.type == "cuda" and self.head_dim not in _FLASH_HEAD_DIMS:
+            raise ValueError(f"use_flash on {device}: the flash kernel takes heads of {_FLASH_HEAD_DIMS}, "
+                             f"got {self.head_dim}")
 
         # Every parameter is made on ``device`` (None: the GPU).
-        with torch.device(default_device() if device is None else device):
+        with device:
             self.embed = nn.Module()
             self.embed.embedding = param((vocab_size, d_model), dtype)
             for i in range(num_layers):

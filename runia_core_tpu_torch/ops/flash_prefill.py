@@ -38,7 +38,7 @@ __all__ = ["flash_prefix_attention", "reference_prefix_attention"]
 
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)  # the kernel's D template instances
+_HEAD_DIMS = (32, 64, 128, 256)  # the kernel's D template instances: the head sizes of the port's models
 
 
 def reference_prefix_attention(

@@ -205,6 +205,17 @@ def test_quant_matmul_kernel_at_the_production_shapes(gen, rows, k, n):
     _check_qmm(*_qmm_inputs(gen, rows, k, n, torch.bfloat16))
 
 
+# The int8 self-draft of the production Llama (unfused q, k / v, o, gate / up,
+# down, lm_head) at its decode rows, 1 (generate) and 5 (generate_samples),
+# and at its prefill of a 32- and a 256-token prompt (the lm_head takes the
+# last row only).
+@pytest.mark.parametrize("rows,k,n", [(rows, k, n) for rows in (1, 5, 32, 256)
+                                      for k, n in ((2048, 2048), (2048, 1024), (2048, 5632), (5632, 2048))]
+                         + [(rows, 2048, 32000) for rows in (1, 5)])
+def test_quant_matmul_kernel_at_the_draft_shapes(gen, rows, k, n):
+    _check_qmm(*_qmm_inputs(gen, rows, k, n, torch.bfloat16))
+
+
 @pytest.mark.parametrize("rows,k,n,dtype,misaligned", [
     (16, 1000, 1000, torch.bfloat16, False),   # ragged against every tile and split
     (17, 1000, 1000, torch.float32, False),
@@ -292,6 +303,10 @@ _FLASH_CASES = [  # (name, B, Hq, G, Tq, K, D, q_start, kv_start, dtype, kv8)
     ("short_cache_kv8", 2, 4, 2, 100, 120, 64, [0, 60], [3, 0], torch.bfloat16, True),
     ("all_empty", 1, 4, 2, 70, 200, 128, [0], [150], torch.bfloat16, False),
     ("mha", 1, 4, 4, 129, 129, 64, [0], None, torch.bfloat16, False),
+    # heads of 32 and 256, the kernel's other D instances, in bf16, KV8 and f32
+    *((f"d{d}{tag}", 2, 8, 4, 300, 500, d, [0, 150], [0, 20], dtype, kv8) for d in (32, 256)
+      for tag, dtype, kv8 in (("", torch.bfloat16, False), ("_kv8", torch.bfloat16, True),
+                              ("_f32", torch.float32, False))),
 ]
 # Every small case of the tensor-core kernel again through views that start
 # one element into their buffers (no 16-byte alignment).
@@ -348,7 +363,7 @@ def _check_transposed_cache(gen, b, hq, g, tq, kk, d, q_start, written, kv8):
 
 
 @pytest.mark.parametrize("kv8", [False, True])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_flash_reads_a_transposed_cache_and_skips_garbage(gen, d, kv8):
     _check_transposed_cache(gen, 2, 8, 4, 64, 512, d, [0, 200], 300, kv8)  # last key read 263
 
@@ -609,3 +624,75 @@ def test_nli_replays_match_eager(gen):
     assert got.shape == (3, 3) and np.isfinite(got).all()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(labels, want_labels)
+
+
+# ---- speculative rounds, GPT-2 and GPT-NeoX decode as CUDA-graph replays ----
+
+
+@pytest.mark.parametrize("do_sample", [False, True])
+def test_speculative_round_replays_match_the_eager_round(gen, do_sample):
+    """An f32 Llama target with its int8 self-draft (kernel 3 in every draft
+    step): the replayed rounds give the eager rounds' tokens, log-probs
+    (1e-5), rounds and acceptance, from one seed when sampling; a second
+    call replays; kernel 3 launches (7 x layers + 1) x (gamma + 1) times a
+    round; the target's 140-token prefill runs kernel 4 (heads of 32)."""
+    from runia_core_tpu_torch.llm import SpeculativeGenerator
+    from runia_core_tpu_torch.models import LlamaLM, quantize_llama_params
+
+    target = _tiny_llama("f32")
+    draft = LlamaLM(**{k: getattr(target, k) for k in ("vocab_size", "num_layers", "num_heads", "num_kv_heads",
+                                                       "d_model", "hidden_dim", "max_len")},
+                    quantized=True, device="cuda").eval()
+    draft.load_state_dict(quantize_llama_params(target.state_dict()))
+    prompt = torch.randint(1, 512, (140,), generator=torch.Generator().manual_seed(2)).tolist()
+    kw = dict(gamma=4, max_new_tokens=20, do_sample=do_sample)
+    graph, eager = SpeculativeGenerator(target, draft, **kw), SpeculativeGenerator(target, draft, use_graph=False, **kw)
+    calls = [((1, 140), lambda g: g.generate(prompt, generator=torch.Generator(device="cuda").manual_seed(5)))]
+    if do_sample:
+        calls.append(((5, 30), lambda g: g.generate_samples(prompt[:30], 5,
+                                                             generator=torch.Generator(device="cuda").manual_seed(6))))
+    for key, call in calls:
+        flash_before = flash_prefix_attention.launches
+        want = call(eager)
+        assert flash_prefix_attention.launches - flash_before == (2 if key[1] >= 128 else 0)  # one a target layer
+        with no_host_sync():
+            call(graph)  # captures
+            program = graph._run_cache.get(key)
+            captures, before, replays = CudaGraph.captures, quant_matmul.launches, program.graph.replays
+            got = call(graph)  # replays
+        assert CudaGraph.captures == captures
+        per_replay = program.graph.launches[(quant_matmul, "launches")]
+        assert per_replay == (7 * 2 + 1) * 5  # gamma + 1 draft steps a round
+        assert quant_matmul.launches - before == 15 + per_replay * (program.graph.replays - replays)  # + the prefill
+        np.testing.assert_array_equal(got["sequences"], want["sequences"])
+        np.testing.assert_allclose(got["log_probs"], want["log_probs"], atol=1e-5, rtol=0)
+        assert got["rounds"] == want["rounds"] and got["acceptance_rate"] == want["acceptance_rate"]
+        assert graph.last_syncs <= kw["max_new_tokens"] - 2  # the flag after each round but the last
+
+
+@pytest.mark.parametrize("family", ["gpt2", "neox"])
+def test_causal_lm_and_neox_decode_replays_match_eager(gen, family):
+    from runia_core_tpu_torch.llm import TorchGenerator
+    from runia_core_tpu_torch.models import CausalLM, NeoXLM
+
+    cls = CausalLM if family == "gpt2" else NeoXLM
+    model = cls(vocab_size=512, num_layers=2, num_heads=4, d_model=128, max_len=256, device="cuda").eval()
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    prompts = torch.randint(1, 512, (3, 70), generator=torch.Generator().manual_seed(1)).tolist()
+    prompts[2] = prompts[2][:40]  # left-padded
+    graph, eager = TorchGenerator(model, max_new_tokens=12), TorchGenerator(model, max_new_tokens=12, use_scan=False)
+    want = eager.generate_batch(prompts, output_attentions=True)
+    with no_host_sync():
+        graph.generate_batch(prompts, output_attentions=True)  # captures
+        got = graph.generate_batch(prompts, output_attentions=True)
+    np.testing.assert_array_equal(got["sequences"], want["sequences"])
+    np.testing.assert_allclose(got["log_probs"], want["log_probs"], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got["prev_token_attention"], want["prev_token_attention"], atol=1e-5, rtol=0)
+    want = eager.generate(prompts[0], num_return_sequences=3)
+    with no_host_sync():
+        got = graph.generate(prompts[0], num_return_sequences=3)
+    np.testing.assert_array_equal(got["sequences"], want["sequences"])
+    for key in ("attentions", "hidden_states"):
+        for step_got, step_want in zip(got[key], want[key]):
+            for a, b in zip(step_got, step_want):
+                np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)

@@ -161,6 +161,41 @@ def test_kv8_cache_contents(base, tokens):
         np.testing.assert_allclose(pl["k_scale"].numpy(), _np(jl["k_scale"]), rtol=1e-5, atol=0)
 
 
+@pytest.mark.parametrize("head_dim", [16, 64])
+def test_kv8_codes_differ_from_jax_only_at_rounding_boundaries(tokens, monkeypatch, head_dim):
+    """Where a cached KV8 code differs from JAX's, the port's unrounded
+    x / scale lies within 2.5e-4 of a half-integer and the two codes are its
+    neighbours. The frameworks' k and v agree to about 1e-6 relative (f32
+    sums in other orders), which moves a quotient of at most 127 by about
+    2.5e-4, so only a value at a rounding boundary can flip; a fault would
+    flip codes anywhere. At heads of 64 a few codes of the second layer
+    flip, at 16 none."""
+    import runia_core_tpu_torch.models.llama as llama
+
+    seen, real = [], llama._quantize_kv
+    monkeypatch.setattr(llama, "_quantize_kv", lambda x: seen.append(x.clone()) or real(x))
+    cfg = dict(CFG, head_dim=head_dim)
+    jm = JaxLlamaLM(**cfg, quantized_kv=True)
+    params = jax.tree_util.tree_map(np.asarray, JaxLlamaLM(**cfg).init(jax.random.key(0), jnp.zeros((1, 8), jnp.int32)))
+    port = LlamaLM(**cfg, quantized_kv=True, device="cpu")
+    port.load_state_dict(llama_from_flax(params, device="cpu"))
+    jcache = jm.apply(params, jnp.asarray(tokens), jax_init_cache(jm, 2, CACHE), jnp.int32(0))[3]
+    with torch.no_grad():
+        pcache = port(torch.from_numpy(tokens).long(), init_cache(port, 2, CACHE, device="cpu"), 0)[3]
+    flipped = 0
+    for layer, (jl, pl) in enumerate(zip(jcache["layers"], pcache["layers"])):
+        for j, name in enumerate(("k", "v")):  # the port quantizes k, then v
+            quotient = (seen[2 * layer + j].float() / pl[f"{name}_scale"][:, :T, :, None]).numpy()
+            jc, pc = np.asarray(jl[name])[:, :T], pl[name][:, :T].numpy()
+            flips = jc != pc
+            flipped += int(flips.sum())
+            q = quotient[flips]
+            assert np.all(np.abs(np.abs(q - np.trunc(q)) - 0.5) <= 2.5e-4), q
+            assert np.array_equal(np.minimum(jc[flips], pc[flips]), np.floor(q))
+            assert np.array_equal(np.maximum(jc[flips], pc[flips]), np.ceil(q))
+    assert flipped <= 1e-3 * 4 * 2 * T * CFG["num_kv_heads"] * head_dim
+
+
 def test_quantization_matches_jax_exactly(base):
     _, port = _pair(base)
     ours = fuse_quantized_llama_params(quantize_llama_params(port.state_dict()))
@@ -302,3 +337,12 @@ def test_checked_combinations(tokens, kw, chunks, left_padded):
         lp = port(torch.from_numpy(chunk).long(), pcache, index, **extra_p, need_attentions=False)
         jcache = lj[3]
         np.testing.assert_allclose(lp[0].numpy(), _np(lj[0]), atol=atol, rtol=0)
+
+
+def test_use_flash_on_a_gpu_takes_only_the_kernels_head_sizes():
+    """A use_flash model made on a GPU with heads the flash kernel is not
+    built for raises before any allocation; on the CPU (the kernel's plain
+    version) any size is taken."""
+    with pytest.raises(ValueError, match="heads of"):
+        LlamaLM(**CFG, head_dim=80, use_flash=True, device="cuda")
+    LlamaLM(**CFG, head_dim=80, use_flash=True, device="cpu")

@@ -14,14 +14,20 @@ import torch
 import runia_core_tpu_torch
 from runia_core_tpu_torch import _kernels, default_device
 from runia_core_tpu_torch.models import (
+    CausalLM,
     LlamaLM,
+    NeoXLM,
     ResNet,
     ResNet18,
     ResNet34,
     ResNet50,
+    causal_lm_from_flax,
+    convert_hf_gpt2,
+    convert_hf_gpt_neox,
     detector_state_from_arrays,
     init_cache,
     llama_from_flax,
+    neox_from_flax,
     pca_state_from_arrays,
     resnet_from_flax,
 )
@@ -105,6 +111,22 @@ def _llama(device="cpu", **kw):
     return LlamaLM(**_TINY_LLAMA, device=device, **kw)
 
 
+_TINY_GPT = dict(vocab_size=17, num_layers=1, num_heads=2, d_model=8, max_len=8)
+
+
+def _hf_gpt2():
+    transformers = pytest.importorskip("transformers")
+    return transformers.GPT2LMHeadModel(transformers.GPT2Config(vocab_size=17, n_positions=8, n_embd=8, n_layer=1,
+                                                                n_head=2))
+
+
+def _hf_neox():
+    transformers = pytest.importorskip("transformers")
+    return transformers.GPTNeoXForCausalLM(transformers.GPTNeoXConfig(
+        vocab_size=17, hidden_size=8, intermediate_size=16, num_hidden_layers=1, num_attention_heads=2,
+        max_position_embeddings=8))
+
+
 class _PCA:
     mean, components, explained_variance, whiten = np.zeros(3), np.eye(3)[:2], np.ones(2), True
 
@@ -134,6 +156,19 @@ _ON_CPU = {
     "llama_from_flax": lambda: list(llama_from_flax(
         {"params": {"embed": {"embedding": np.zeros((17, 8), np.float32)},
                     "block_0": {"q": {"kernel_q": np.zeros((8, 8), np.int8)}}}}, device="cpu").values()),
+    "CausalLM": lambda: list(CausalLM(**_TINY_GPT, device="cpu").parameters()),
+    "CausalLM_moe": lambda: list(CausalLM(**_TINY_GPT, num_experts=2, device="cpu").parameters()),
+    "NeoXLM": lambda: list(NeoXLM(**_TINY_GPT, device="cpu").parameters()),
+    "init_cache_causal_lm": lambda: [
+        t for layer in init_cache(CausalLM(**_TINY_GPT, device="cpu"), 2, 8, device="cpu")["layers"]
+        for t in layer.values()
+    ],
+    "convert_hf_gpt2": lambda: list(convert_hf_gpt2(_hf_gpt2(), device="cpu")[1].values()),
+    "convert_hf_gpt_neox": lambda: list(convert_hf_gpt_neox(_hf_neox(), device="cpu")[1].values()),
+    "causal_lm_from_flax": lambda: list(causal_lm_from_flax(
+        {"params": {"pos_embed": {"embedding": np.zeros((8, 8), np.float32)}}}, device="cpu").values()),
+    "neox_from_flax": lambda: list(neox_from_flax(
+        {"params": {"block_0": {"qkv": {"kernel": np.zeros((8, 24), np.float32)}}}}, device="cpu").values()),
 }
 
 
@@ -144,7 +179,8 @@ def test_constructors_and_converters_land_on_the_cpu_when_asked(name):
 
 
 @pytest.mark.parametrize("name", ["LlamaLM", "ResNet18", "init_cache", "pca_state_from_arrays",
-                                  "detector_state_from_arrays", "resnet_from_flax", "llama_from_flax"])
+                                  "detector_state_from_arrays", "resnet_from_flax", "llama_from_flax", "CausalLM",
+                                  "NeoXLM", "convert_hf_gpt2", "convert_hf_gpt_neox", "neox_from_flax"])
 def test_the_default_device_is_the_card_and_nothing_falls_back(name):
     """With no ``device`` the constructors and converters go to the GPU: on a
     host without one the first allocation raises; nothing carries on on the
@@ -159,6 +195,11 @@ def test_the_default_device_is_the_card_and_nothing_falls_back(name):
         "detector_state_from_arrays": lambda: detector_state_from_arrays({"feats_mean": np.zeros(3)}),
         "resnet_from_flax": lambda: resnet_from_flax({"params": {"bn_init": {"scale": np.ones(4)}}}),
         "llama_from_flax": lambda: llama_from_flax({"params": {"embed": {"embedding": np.zeros((2, 2), np.float32)}}}),
+        "CausalLM": lambda: CausalLM(**_TINY_GPT),
+        "NeoXLM": lambda: NeoXLM(**_TINY_GPT),
+        "convert_hf_gpt2": lambda: convert_hf_gpt2(_hf_gpt2()),
+        "convert_hf_gpt_neox": lambda: convert_hf_gpt_neox(_hf_neox()),
+        "neox_from_flax": lambda: neox_from_flax({"params": {"norm_f": {"scale": np.ones(2, np.float32)}}}),
     }
     with pytest.raises((RuntimeError, AssertionError)):
         calls[name]()
