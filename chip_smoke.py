@@ -45,6 +45,22 @@ kernel against its plain PyTorch version on the card. Then, through
   graph against eager, and a 1-layer f32 copy against the CPU. Kernel 3
   carries every expert projection of the int8 decode.
 
+* Serving (``serve_mixed_96``, ``serve_check``, ``serve_7b_int8``):
+  ``llm.ContinuousBatchingEngine`` on two ``bench.py`` legs at full width.
+  Cell 1, the 7B-class int8 leg (``bench.py`` ``_7B_CFG``: 32 layers, d
+  4,096, 32/8 heads of 128, SwiGLU 11,008, vocab 32,000; int8 weights + KV8
+  + fused qkv / gate|up, bf16, ``use_flash``): 24 requests (prompts 128-448,
+  budgets 24-56) over 8 slots with chunked prefill of 128 in lanes of 4,
+  through the open-loop drain (``defer_fetch``) and the lookahead drain in
+  turns; kernel 3 carries every projection, kernel 4's KV8 variant every
+  prefill lane, and the decode chunk and the lane programs replay as CUDA
+  graphs. Cell 2: the production Llama in bf16 serving 96 requests
+  (prompts 16-192, budgets 8-64) over 32 slots with bucketed prefill,
+  against static batching (``generate_batch``, 3 x 32, ``pad_to=192``).
+  ``serve_check`` holds the replays against the eager programs, the card
+  against the CPU (f32, 2 layers at cell 1's width, prefix cache and lanes)
+  and the engine against ``TorchGenerator.generate``.
+
 Both paths run as the port runs them by default: the LaREx scorer and the
 decode steps as replays of CUDA graphs (``utils/graphs.py``; the JAX
 package's compiled programs), every replay under
@@ -67,8 +83,9 @@ of one sort and one window per column, whatever the kernel does). Kernels
 past the L2, so neither the host nor the cache is in the number. Where one PyTorch call computes the
 same function (``scaled_dot_product_attention`` for kernel 4), that call's
 time, which the port itself never uses. A kernel's launch count is what the
-main paths launched (the Llama slice, semantic entropy and the MoE slice,
-each counted from zero just before it runs), the kernels inside each graph
+main paths launched (the Llama slice, semantic entropy, speculative
+decoding, the two serving cells and the MoE slice, each counted from zero
+just before it runs), the kernels inside each graph
 replay included.
 
 Every phase prints one JSON line. Any failed check raises, so the script
@@ -190,9 +207,35 @@ GPT2_HF = dict(vocab_size=50257, n_positions=1024, n_embd=768, n_layer=12, n_hea
 PYTHIA_HF = dict(vocab_size=50304, hidden_size=2048, num_hidden_layers=24, num_attention_heads=16,
                  intermediate_size=8192, rotary_pct=0.25, rotary_emb_base=10000, max_position_embeddings=2048,
                  layer_norm_eps=1e-5, use_parallel_residual=True, hidden_act="gelu")
+# Pythia's depth is cut from 24 layers to 12, so that the run keeps its time
+# with the serving phases; the width stays Pythia-1.4b's.
+PYTHIA_LAYERS = 12
 FAMILY_BATCH, FAMILY_PROMPT, FAMILY_NEW = 16, 64, 64
 FAMILY_HF_SHAPE = (2, 64)  # tokens of the HF-against-port logits check
 FAMILY_XCHECK_LAYERS, FAMILY_XCHECK_STEPS = 2, 4
+# Serving through ContinuousBatchingEngine. Cell 1, the 7B-class int8
+# serving leg (bench.py:377-378 _7B_CFG, :469-537): int8 weights + KV8 +
+# fused qkv / gate|up, bf16, use_flash; 24 requests from RandomState(11),
+# prompts 128-448, budgets 24-56; random int8 weights, the other tensors
+# 0.01 + 0.005 N(0, 1), as bench.py:384-418 fills them.
+SERVE7B_CFG = dict(vocab_size=32000, num_layers=32, num_heads=32, num_kv_heads=8, d_model=4096, hidden_dim=11008,
+                   max_len=2048)
+SERVE7B_ENGINE = dict(num_slots=8, max_ctx=512, max_new_tokens=64, chunk_tokens=8, prefill_chunk=128,
+                      prefill_lanes=4, admission="lpt")
+SERVE7B_TRAFFIC = dict(seed=11, requests=24, prompts=(128, 449), budgets=(24, 57))
+# Cell 2, 96 requests of mixed traffic against static batching (bench.py:
+# 627-744): the production Llama in bf16, dense attention; RandomState(5),
+# prompts 16-192, budgets 8-64; the baseline three generate_batch calls of
+# 32 rows with pad_to=192.
+MIXED_ENGINE = dict(num_slots=32, max_ctx=320, max_new_tokens=64, chunk_tokens=8, prompt_bucket=64, admission="lpt",
+                    defer_fetch=True)
+MIXED_TRAFFIC = dict(seed=5, requests=96, prompts=(16, 193), budgets=(8, 65))
+MIXED_STATIC_PAD = 192
+SERVE_PASSES = 3  # timed passes per drain, in turns
+SERVE_CHECK_LAYERS, SERVE_CHECK_REQUESTS = 2, 8
+# Card against CPU (serve_check): a 256-token system prompt shared by every
+# request (so the prefix cache hits), suffixes of 20-120 tokens, 4 new tokens.
+SERVE_XCHECK = dict(system=256, suffix=(20, 121), requests=4, new=4)
 # HF against the port on the card, f32, TF32 off: the JAX tests' bounds
 # (tests/test_torch_convert.py's GPT-2 and tests/test_neox.py).
 FAMILY_HF_TOL = {"gpt2": (2e-4, 2e-5), "neox": (1e-3, 1e-4)}  # (rtol, atol)
@@ -716,6 +759,8 @@ def quant_matmul_phase(device, gen) -> dict:
     d, h, g, hd = LLM_CFG["d_model"], LLM_CFG["hidden_dim"], LLM_CFG["num_kv_heads"], LLM_CFG["d_model"] // LLM_CFG["num_heads"]
     md, mh, mg = MOE_CFG["d_model"], MOE_CFG["hidden_dim"], MOE_CFG["num_kv_heads"]
     mhd = md // MOE_CFG["num_heads"]
+    s7d, s7h, s7g = SERVE7B_CFG["d_model"], SERVE7B_CFG["hidden_dim"], SERVE7B_CFG["num_kv_heads"]
+    s7hd = s7d // SERVE7B_CFG["num_heads"]
     decode_names = ("qkv", "gate_up", "o", "down")
     shapes = {  # the int8 model's projections at decode, rows = batch 16
         "qkv": (16, d, d + 2 * g * hd), "gate_up": (16, d, 2 * h), "o": (16, d, d),
@@ -746,6 +791,11 @@ def quant_matmul_phase(device, gen) -> dict:
            for name, (k, n) in (("q", (d, d)), ("kv", (d, g * hd)), ("o", (d, d)), ("gate_up", (d, h)),
                                 ("down", (h, d)), ("lm_head", (d, LLM_CFG["vocab_size"])))
            if rows < SPEC_PROMPT or name != "lm_head"},
+        # the 7B int8 serving cell: a decode chunk's steps at 8 rows (the
+        # slots) and a prefill lane group at 4 x 128 rows
+        **{f"serve7b_rows{rows}_{name}": (rows, k, n) for rows in (SERVE7B_ENGINE["num_slots"], 4 * 128)
+           for name, (k, n) in (("qkv", (s7d, s7d + 2 * s7g * s7hd)), ("o", (s7d, s7d)), ("gate_up", (s7d, 2 * s7h)),
+                                ("down", (s7h, s7d)), ("lm_head", (s7d, SERVE7B_CFG["vocab_size"])))},
     }
     errors, abs_errors, timings = {}, {}, {}
     for name, (rows, k, n) in shapes.items():
@@ -768,7 +818,7 @@ def quant_matmul_phase(device, gen) -> dict:
         abs_errors[name] = float((got.float() - want).abs().max())
         errors[name] = abs_errors[name] / float(want.abs().max())
         require(errors[name] <= QMM_BOUND[dtype], f"quant_matmul {name}: rel err {errors[name]} > {QMM_BOUND[dtype]}")
-        if name in decode_names or name == "lm_head" or name.startswith(("rows", "moe", "spec")):
+        if name in decode_names or name == "lm_head" or name.startswith(("rows", "moe", "spec", "serve7b")):
             # Copies that together exceed the 50 MB L2, used in turns: every
             # call reads its weights from device memory, as a decode step does.
             copies = [(x, wq, scale)] + [(x, wq.clone(), scale) for _ in range(max(0, -(-64 * 2**20 // (k * n)) - 1))]
@@ -779,14 +829,18 @@ def quant_matmul_phase(device, gen) -> dict:
                              "grid": [plan.n_tiles, plan.splits, plan.row_blocks],
                              **with_share(quant_matmul_bound(rows, k, n, dtype), ms)}
             require(ms <= plain_ms, f"quant_matmul {name}: the kernel ({ms} ms) is no slower than plain ({plain_ms} ms)")
-            if name in decode_names or name == "lm_head" or name.startswith(("moe", "spec")):
+            if name in decode_names or name == "lm_head" or name.startswith(("moe", "spec", "serve7b")):
                 # A different function, as a reference point only: cuBLAS on
                 # the dequantized bf16 weight, twice the bytes.
                 dense = [(x, copies[i % len(copies)][1].to(torch.bfloat16))
                          for i in range(-(-64 * 2**20 // (2 * k * n)))]
                 dense_turns = itertools.cycle(dense)
                 timings[name]["bf16_matmul_ms"] = cuda_graph_time_ms(lambda: torch.matmul(*next(dense_turns)), 30)
-                timings[name]["int8pack_mm_ms"] = int8pack_mm_ms(x, wq, scale)
+                # At the lanes' 512 rows torch._weight_int8pack_mm takes 28-146
+                # ms a call on an H100: about 70 s of the run for a reference
+                # point, so the serving shapes time it at the decode rows only.
+                if not name.startswith("serve7b_rows512"):
+                    timings[name]["int8pack_mm_ms"] = int8pack_mm_ms(x, wq, scale)
                 del dense
             del copies
     decode = [timings[n] for n in decode_names]
@@ -890,6 +944,8 @@ def flash_phase(device, gen) -> dict:
     pb, pl = PREFILL_BATCH, PREFILL_LEN
     mb, mt, mhq, mg = MOE_PREFILL_BATCH, MOE_PREFILL_LEN, MOE_CFG["num_heads"], MOE_CFG["num_kv_heads"]
     mhd = MOE_CFG["d_model"] // mhq
+    s7hq, s7g = SERVE7B_CFG["num_heads"], SERVE7B_CFG["num_kv_heads"]
+    s7hd = SERVE7B_CFG["d_model"] // s7hq
     cases = {  # (B, Hq, G, Tq, K, D, q_start, kv_start, dtype, kv8[, layout])
         "prefill": (pb, hq, g, pl, pl + 256, hd, [0] * pb, None, bf16, False),
         "chunked": (2, hq, g, 256, 2048, hd, [0, 700], None, bf16, False),
@@ -924,6 +980,11 @@ def flash_phase(device, gen) -> dict:
         # of p + max_new + 2 (gamma + 1) slots
         "spec_prefill": (1, hq, g, SPEC_LONG_PROMPT, SPEC_LONG_PROMPT + SPEC_NEW + 2 * (SPEC_GAMMA + 1), hd, [0],
                          None, bf16, False, "transposed"),
+        # the 7B serving cell's prefill lanes: 4 slots x 128 queries, each at
+        # its own q_start, over the gathered 512-slot rows, 32 / 8 heads of
+        # 128; KV8 (the cell's) and a bf16 counterpart
+        **{name: (4, s7hq, s7g, 128, SERVE7B_ENGINE["max_ctx"], s7hd, [0, 128, 256, 384], None, bf16, kv8, "transposed")
+           for name, kv8 in (("serve7b_lanes_kv8", True), ("serve7b_lanes", False))},
     }
     errors, err_over_bound, timings = {}, {}, {}
     for name, (b, nh, ng, tq, kk, d, q_start, kv_start, dtype, kv8, *layout) in cases.items():
@@ -979,7 +1040,7 @@ def flash_phase(device, gen) -> dict:
                 empty = max(0, kvs_r - qs_r)
                 require(bool((got[row, :, :empty] == 0).all()), f"flash {name}: empty-window rows are exact zeros")
         if name in ("prefill", "kv8_prefill", "chunked", "moe_prefill", "moe_kv8_prefill", "spec_prefill",
-                    "d256_prefill"):
+                    "d256_prefill", "serve7b_lanes_kv8", "serve7b_lanes"):
             # The kernel by CUDA-graph replays (the chunk case is shorter than
             # its enqueue), the plain version, milliseconds long, by events.
             plain, kernel = [], []
@@ -1869,7 +1930,7 @@ def family_slice_phase(device, family: str) -> dict:
 
     convert = convert_hf_gpt2 if family == "gpt2" else convert_hf_gpt_neox
     start = time.perf_counter()
-    hf = _hf_family(family, device)
+    hf = _hf_family(family, device, PYTHIA_LAYERS if family == "neox" else None)
     build_s = time.perf_counter() - start
     if family == "neox":
         rope = (_rope_setting(hf.config, "partial_rotary_factor", "rotary_pct", -1.0),
@@ -1924,7 +1985,8 @@ def family_slice_phase(device, family: str) -> dict:
         worst = max(worst, float((g - w).abs().max() / w.abs().max()))
     require(worst <= LLM_XCHECK_REL["f32"], f"{family}: card vs CPU rel err {worst} > {LLM_XCHECK_REL['f32']}")
     emit({"phase": f"{family}_slice", "config": _family_config(model), "hf_config": GPT2_HF if family == "gpt2"
-          else PYTHIA_HF, "dtype": "float32", "hf_build_s": build_s,
+          else PYTHIA_HF, "cut": "none" if family == "gpt2" else f"depth {PYTHIA_LAYERS} of 24 layers",
+          "dtype": "float32", "hf_build_s": build_s,
           "hf_logits": {"shape": list(FAMILY_HF_SHAPE), "max_abs_err": hf_err, "rtol": rtol, "atol": atol},
           "decode_shape": [FAMILY_BATCH, FAMILY_PROMPT, FAMILY_NEW],
           "graph_vs_eager": {"tokens_identical": same, "max_abs_err_log_probs": lp_err},
@@ -2102,6 +2164,431 @@ def moe_xcheck_phase(device) -> dict:
     return errors
 
 
+# ---------------------------------------------------------------------------------------------------------------------
+# Serving: ContinuousBatchingEngine (llm/continuous.py)
+def serve_traffic(traffic: dict, vocab: int):
+    """(prompts, budgets) as the bench.py leg draws them: lengths, then
+    budgets, then the prompts' tokens, from one RandomState."""
+    rng = np.random.RandomState(traffic["seed"])
+    lengths = rng.randint(*traffic["prompts"], traffic["requests"])
+    budgets = rng.randint(*traffic["budgets"], traffic["requests"])
+    prompts = [list(rng.randint(1, vocab, int(n))) for n in lengths]
+    return prompts, [int(b) for b in budgets]
+
+
+def build_serve7b(device, num_layers: int):
+    """Cell 1's model at depth ``num_layers``: int8 weights drawn uniformly
+    from [-127, 127], every other tensor 0.01 + 0.005 N(0, 1) (bench.py:
+    384-418), made on the card from a seed."""
+    from runia_core_tpu_torch.models import LlamaLM
+
+    model = LlamaLM(**dict(SERVE7B_CFG, num_layers=num_layers), dtype=torch.bfloat16, use_flash=True,
+                    quantized=True, quantized_kv=True, fused_qkv=True).eval()
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dtype == torch.int8:
+                p.copy_(torch.randint(-127, 128, p.shape, generator=gen, device=device, dtype=torch.int8))
+            else:
+                p.copy_(0.01 + 0.005 * torch.randn(p.shape, generator=gen, device=device))
+    return model
+
+
+def sharing(model, **overrides):
+    """Another LlamaLM of ``model``'s configuration with ``overrides``,
+    holding the same tensors."""
+    from runia_core_tpu_torch.models import LlamaLM
+
+    keys = ("vocab_size", "num_layers", "num_heads", "num_kv_heads", "d_model", "hidden_dim", "max_len", "dtype",
+            "use_flash", "quantized", "quantized_kv", "fused_qkv")
+    view = LlamaLM(**{**{k: getattr(model, k) for k in keys}, **overrides}).eval()
+    view.load_state_dict(model.state_dict(), assign=True)
+    return view
+
+
+def serve_pass(engine, prompts, budgets) -> list:
+    """Submit every request, drain, return the results in order."""
+    ids = [engine.submit(p, b) for p, b in zip(prompts, budgets)]
+    engine.run_until_drained()
+    results = [engine.result(i) for i in ids]
+    engine.clear_results()
+    return results
+
+
+def check_served(results, budgets, what: str) -> None:
+    require(all(len(r["tokens"]) == b for r, b in zip(results, budgets)), f"{what}: every request its budget")
+    require(all(bool(np.isfinite(r["log_probs"]).all()) for r in results), f"{what}: finite log-probs")
+
+
+class ProgramTimer:
+    """CUDA events around an engine's program calls, by kind: decode chunks,
+    prefill lanes, bucketed prefills. Read after a pass: the device time
+    between each call's events (gaps while the host enqueued an eager call
+    included) and the number of calls."""
+
+    def __init__(self, engine):
+        self.marks = {"decode": [], "lanes": [], "bucketed": []}
+        engine._chunk_prog = self._timed("decode", engine._chunk_prog)
+        engine._lane_progs = {w: self._timed("lanes", p) for w, p in engine._lane_progs.items()}
+        engine._prefill_group = self._timed("bucketed", engine._prefill_group)
+
+    def _timed(self, kind, fn):
+        def call(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.marks[kind].append((start, end))
+            return out
+
+        return call
+
+    def read(self) -> dict:
+        torch.cuda.synchronize()
+        out = {kind: {"calls": len(m), "device_ms": sum(a.elapsed_time(b) for a, b in m)}
+               for kind, m in self.marks.items()}
+        for m in self.marks.values():
+            m.clear()
+        return out
+
+
+_STAT_KEYS = ("decode_chunks", "prefill_chunks", "tokens_emitted", "prefix_hits", "t_fetch_s", "t_dispatch_s",
+              "t_prefill_s", "t_sched_s")
+
+
+def timed_serve_pass(engine, timer, prompts, budgets, what: str) -> dict:
+    """One pass under sync-debug "error" on the host clock, with its stats
+    and program times."""
+    from runia_core_tpu_torch.utils import CudaGraph
+
+    before, captures = engine.stats(), CudaGraph.captures
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with no_host_sync():
+        results = serve_pass(engine, prompts, budgets)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    check_served(results, budgets, what)
+    after = engine.stats()
+    return {"seconds": seconds, "captures": CudaGraph.captures - captures,
+            **{k: after[k] - before[k] for k in _STAT_KEYS}, "programs": timer.read() if timer else None}
+
+
+def _mean(records, key):
+    return statistics.mean(r[key] for r in records)
+
+
+def _graph_launches(program) -> dict:
+    from runia_core_tpu_torch.ops.flash_prefill import flash_prefix_attention
+    from runia_core_tpu_torch.ops.quant_matmul import quant_matmul
+
+    got = program.graph.launches if program.graph is not None else {}
+    return {"quant_matmul": got.get((quant_matmul, "launches"), 0),
+            "flash_prefix_attention_kv8": got.get((flash_prefix_attention, "kv8_launches"), 0)}
+
+
+def serve_7b_int8_phase(device) -> dict:
+    """Cell 1 (bench.py:469-537): the 7B-class int8 + KV8 model served to
+    24 requests by two engines, the open-loop drain (``defer_fetch``, the
+    bench's) and the lookahead drain, each built once (its programs
+    captured), a first pass each (the main path, counted), then timed passes
+    in turns. Useful tok/s, decode and prefill chunks a pass, emission
+    occupancy, the decode phase's HBM GB/s floor (bench.py:515-526's bytes),
+    a decode chunk's replay ms against its byte bound, the lanes' row
+    gather / scatter bytes, captures in a warm pass, kernel share."""
+    from runia_core_tpu_torch.llm import ContinuousBatchingEngine
+    from runia_core_tpu_torch.ops.flash_prefill import flash_prefix_attention
+    from runia_core_tpu_torch.ops.quant_matmul import quant_matmul
+    from runia_core_tpu_torch.utils import CudaGraph, device_profile
+
+    cfg, eng_cfg = SERVE7B_CFG, SERVE7B_ENGINE
+    start = time.perf_counter()
+    model = build_serve7b(device, cfg["num_layers"])
+    torch.cuda.synchronize()
+    model_s = time.perf_counter() - start
+    weight_bytes = _weight_bytes(model)
+    prompts, budgets = serve_traffic(SERVE7B_TRAFFIC, cfg["vocab_size"])
+    useful = sum(budgets)
+    engines, built = {}, {}
+    for drain, defer in (("open_loop", True), ("lookahead", False)):
+        captures, start = CudaGraph.captures, time.perf_counter()
+        engines[drain] = ContinuousBatchingEngine(model, **eng_cfg, defer_fetch=defer)
+        torch.cuda.synchronize()
+        built[drain] = {"seconds": time.perf_counter() - start, "captures": CudaGraph.captures - captures}
+    eng = engines["open_loop"]
+    per_program = {"decode_chunk": _graph_launches(eng._chunk_prog),
+                   **{f"lanes_{w}": _graph_launches(p) for w, p in eng._lane_progs.items()}}
+    programs = {"decode_chunk": eng._chunk_prog.graph,
+                f"lanes_{eng_cfg['prefill_lanes']}": eng._lane_progs[eng_cfg["prefill_lanes"]].graph}
+
+    # ---- the main path, counted: the first pass of each engine ----
+    quant_matmul.launches = 0
+    flash_prefix_attention.launches = flash_prefix_attention.kv8_launches = 0
+    first = {}
+    for drain, engine in engines.items():
+        first[drain] = timed_serve_pass(engine, None, prompts, budgets, f"serve_7b_int8 {drain}")
+    launches = {"quant_matmul": quant_matmul.launches, "flash_prefix_attention": flash_prefix_attention.launches,
+                "flash_prefix_attention_kv8": flash_prefix_attention.kv8_launches}
+    require(launches["quant_matmul"] > 0 and launches["flash_prefix_attention_kv8"] > 0,
+            f"serve_7b_int8: kernels 3 and 4 (KV8) launched on the main path: {launches}")
+
+    # ---- timed passes, the drains in turns ----
+    timers = {drain: ProgramTimer(engine) for drain, engine in engines.items()}
+    passes = {drain: [] for drain in engines}
+    k3, k4 = quant_matmul.launches, flash_prefix_attention.kv8_launches
+    for drain in ["open_loop", "lookahead", "lookahead", "open_loop"] * ((SERVE_PASSES + 1) // 2):
+        if len(passes[drain]) < SERVE_PASSES:
+            passes[drain].append(timed_serve_pass(engines[drain], timers[drain], prompts, budgets,
+                                                  f"serve_7b_int8 {drain}"))
+    pass_launches = {"quant_matmul": (quant_matmul.launches - k3) / (2 * SERVE_PASSES),
+                     "flash_prefix_attention_kv8": (flash_prefix_attention.kv8_launches - k4) / (2 * SERVE_PASSES)}
+    require(pass_launches["quant_matmul"] > 0 and pass_launches["flash_prefix_attention_kv8"] > 0,
+            f"serve_7b_int8: kernels 3 and 4 (KV8) in a warm pass: {pass_launches}")
+    warm_captures = sum(p["captures"] for ps in passes.values() for p in ps)
+    require(warm_captures == 0, f"serve_7b_int8: warm passes capture nothing, got {warm_captures}")
+
+    head_dim = cfg["d_model"] // cfg["num_heads"]
+    avg_ctx = float(np.mean([len(p) for p in prompts]) + np.mean(budgets) / 2)
+    kv_read = eng_cfg["num_slots"] * cfg["num_layers"] * 2 * avg_ctx * cfg["num_kv_heads"] * head_dim
+    step_bytes = weight_bytes + kv_read
+    K, S = eng_cfg["chunk_tokens"], eng_cfg["num_slots"]
+    row_bytes = cfg["num_layers"] * 2 * eng_cfg["max_ctx"] * cfg["num_kv_heads"] * (head_dim + 4)
+    drains = {}
+    for drain, ps in passes.items():
+        tps = useful / _mean(ps, "seconds")
+        d_chunks = _mean(ps, "decode_chunks")
+        decode = [p["programs"]["decode"] for p in ps]
+        lanes = [p["programs"]["lanes"] for p in ps]
+        chunk_ms = sum(d["device_ms"] for d in decode) / sum(d["calls"] for d in decode)
+        lane_ms = sum(d["device_ms"] for d in lanes) / max(1, sum(d["calls"] for d in lanes))
+        decode_bytes_per_s = tps / useful * d_chunks * K * step_bytes
+        drains[drain] = {
+            "useful_tok_s": tps, "seconds": [p["seconds"] for p in ps],
+            "decode_chunks_per_pass": d_chunks, "prefill_chunks_per_pass": _mean(ps, "prefill_chunks"),
+            "emit_occupancy": useful / (d_chunks * K * S),
+            "hbm_GBps_floor": decode_bytes_per_s / 1e9, "hbm_share_floor": decode_bytes_per_s / H100_HBM_BYTES_PER_S,
+            "decode_chunk_ms": chunk_ms, "decode_step_ms": chunk_ms / K,
+            "decode_step_bound_ms": step_bytes / H100_HBM_BYTES_PER_S * 1e3,
+            "decode_step_share_of_bound": step_bytes / H100_HBM_BYTES_PER_S * 1e3 / (chunk_ms / K),
+            "lane_call_ms": lane_ms,
+            "decode_device_share_of_pass": sum(d["device_ms"] for d in decode) / 1e3 / sum(p["seconds"] for p in ps),
+            "lanes_device_share_of_pass": sum(d["device_ms"] for d in lanes) / 1e3 / sum(p["seconds"] for p in ps),
+            **{k: _mean(ps, k) for k in ("t_fetch_s", "t_dispatch_s", "t_prefill_s", "t_sched_s")},
+            "first_pass_s": first[drain]["seconds"], "build": built[drain],
+        }
+    profile = device_profile(lambda: serve_pass(eng, prompts, budgets), category=kernel_category)
+    # One decode chunk and one 4-lane call replayed alone, by kernel category
+    # (the drain is over: the chunk runs with every slot idle, the lane call
+    # on its last arguments; the same kernels either way).
+    by_program = {}
+    for name, graph in programs.items() if programs["decode_chunk"] is not None else ():
+        got = device_profile(graph.replay, category=kernel_category)
+        by_program[name] = {"ms": got["device_busy_ms_per_unit"], "kernels": got["kernels_per_unit"],
+                            "ms_by_category": got["device_ms_per_unit_by_category"]}
+    emit({"phase": "serve_7b_int8", "config": cfg, "engine": eng_cfg, "traffic": SERVE7B_TRAFFIC,
+          "cut": "none (int8 weights, 6 GB)", "weight_bytes": weight_bytes, "model_build_s": model_s,
+          "useful_tokens": useful, "decode_bytes_per_step": step_bytes, "avg_ctx": avg_ctx,
+          "kv_bytes": "int8 codes only, as bench.py:519-521 (the f32 scales add 4 / 128)",
+          "lane_row_gather_scatter_MB": 4 * row_bytes / 1e6,
+          "lane_row_gather_scatter_bound_ms": 4 * row_bytes / H100_HBM_BYTES_PER_S * 1e3,
+          "launches": launches, "launches_per_warm_pass": pass_launches, "launches_per_replay": per_program,
+          "warm_pass_captures": warm_captures, "drains": drains,
+          "kernel_share": {k: v for k, v in profile.items() if k != "kernels_per_unit_by_category"},
+          "program_profiles": by_program})
+    del engines, timers, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_mixed_96_phase(device, dense) -> dict:
+    """Cell 2 (bench.py:627-744): the production Llama in bf16 with dense
+    attention serving 96 requests through the open-loop engine (bucketed
+    prefill, 32 slots), against static batching (three generate_batch calls
+    of 32 rows, pad_to=192, 64 new tokens), in turns; beside them the same
+    engine with its bucketed prefill run eagerly (``use_graph`` turned off
+    before its first prefill: decode chunks still replay), the route before
+    the prefill programs were captured. The engine's useful tok/s,
+    interactive_vs_static, the t_* breakdown and the bucketed prefill's
+    device share of a drain."""
+    from runia_core_tpu_torch.llm import ContinuousBatchingEngine, TorchGenerator
+    from runia_core_tpu_torch.ops.flash_prefill import flash_prefix_attention
+    from runia_core_tpu_torch.ops.quant_matmul import quant_matmul
+
+    model = sharing(dense, use_flash=False)
+    prompts, budgets = serve_traffic(MIXED_TRAFFIC, LLM_CFG["vocab_size"])
+    useful, rows, K = sum(budgets), MIXED_ENGINE["num_slots"], MIXED_ENGINE["chunk_tokens"]
+    start = time.perf_counter()
+    engine = ContinuousBatchingEngine(model, **MIXED_ENGINE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - start
+    quant_matmul.launches = 0
+    flash_prefix_attention.launches = flash_prefix_attention.kv8_launches = 0
+    first = timed_serve_pass(engine, None, prompts, budgets, "serve_mixed_96")  # the main path
+    launches = {"quant_matmul": quant_matmul.launches, "flash_prefix_attention": flash_prefix_attention.launches}
+    require(launches == {"quant_matmul": 0, "flash_prefix_attention": 0},
+            f"serve_mixed_96: a bf16 dense engine runs no hand kernel: {launches}")
+    eager_prefill = ContinuousBatchingEngine(model, **MIXED_ENGINE)
+    eager_prefill.use_graph = False  # its bucketed prefill programs are built uncaptured
+    timed_serve_pass(eager_prefill, None, prompts, budgets, "serve_mixed_96 eager prefill")
+    gen = TorchGenerator(model, max_new_tokens=MIXED_ENGINE["max_new_tokens"])
+
+    def static_pass():
+        out = []
+        for i in range(0, len(prompts), rows):
+            out.append(gen.generate_batch(prompts[i:i + rows], output_scores=False, pad_to=MIXED_STATIC_PAD))
+        return out
+
+    static_pass()  # captures its decode program
+    engines = {"engine": engine, "engine_eager_prefill": eager_prefill}
+    timers = {name: ProgramTimer(e) for name, e in engines.items()}
+    passes, static_seconds = {name: [] for name in engines}, []
+    for turn in range(SERVE_PASSES):
+        order = ["engine", "engine_eager_prefill", "static"]
+        for kind in order if turn % 2 == 0 else order[::-1]:
+            if kind == "static":
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                with no_host_sync():
+                    out = static_pass()
+                static_seconds.append(time.perf_counter() - start)
+                require(all(bool(np.isfinite(o["log_probs"]).all()) for o in out), "serve_mixed_96: static finite")
+            else:
+                passes[kind].append(timed_serve_pass(engines[kind], timers[kind], prompts, budgets,
+                                                     f"serve_mixed_96 {kind}"))
+    warm_captures = sum(p["captures"] for ps in passes.values() for p in ps)
+    require(warm_captures == 0, f"serve_mixed_96: warm passes capture nothing, got {warm_captures}")
+    static_tps = useful / statistics.mean(static_seconds)
+    record = {}
+    for name, ps in passes.items():
+        wall_ms = 1e3 * sum(p["seconds"] for p in ps)
+        bucketed = [p["programs"]["bucketed"] for p in ps]
+        decode = [p["programs"]["decode"] for p in ps]
+        chunk_ms = sum(d["device_ms"] for d in decode) / sum(d["calls"] for d in decode)
+        d_chunks = _mean(ps, "decode_chunks")
+        tps = useful / _mean(ps, "seconds")
+        record[name] = {
+            "useful_tok_s": tps, "seconds": [p["seconds"] for p in ps], "interactive_vs_static": tps / static_tps,
+            **{k: _mean(ps, k) for k in ("t_fetch_s", "t_dispatch_s", "t_prefill_s", "t_sched_s")},
+            "bucketed_prefill_calls_per_pass": sum(b["calls"] for b in bucketed) / len(bucketed),
+            "bucketed_prefill_ms_per_call": sum(b["device_ms"] for b in bucketed) / sum(b["calls"] for b in bucketed),
+            "bucketed_prefill_device_share_of_drain": sum(b["device_ms"] for b in bucketed) / wall_ms,
+            "decode_device_share_of_drain": sum(d["device_ms"] for d in decode) / wall_ms,
+            "decode_chunk_ms": chunk_ms, "decode_step_ms": chunk_ms / K, "decode_chunks_per_pass": d_chunks,
+            "emit_occupancy": useful / (d_chunks * K * rows),
+        }
+    emit({"phase": "serve_mixed_96", "config": LLM_CFG, "engine": MIXED_ENGINE, "traffic": MIXED_TRAFFIC,
+          "cut": "none", "useful_tokens": useful, "engine_build_s": build_s, "first_pass_s": first["seconds"],
+          "bucketed_programs": sorted(engine._bucket_progs), "launches": launches,
+          **record["engine"], "static_tok_s": static_tps, "static_seconds": static_seconds,
+          "static": f"TorchGenerator.generate_batch x {len(prompts) // rows} of {rows} rows, pad_to="
+                    f"{MIXED_STATIC_PAD}, {MIXED_ENGINE['max_new_tokens']} new tokens (graph route)",
+          "engine_eager_prefill": record["engine_eager_prefill"],
+          "fused_tok_s": None, "fused": "not measured: generate_all_fused is not ported yet (the next slice)",
+          "warm_pass_captures": warm_captures})
+    del engine, eager_prefill, engines, gen, timers
+    _drop_programs()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _same_served(got, want, atol: float, what: str, rel: bool = False) -> float:
+    """Tokens identical and the largest log-prob difference (relative to
+    max(1, max|log-prob|) with ``rel``) within ``atol``; returns it."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        require(g["tokens"] == w["tokens"], f"{what}: request {i} tokens {g['tokens']} != {w['tokens']}")
+        if len(g["tokens"]):
+            err = float(np.abs(g["log_probs"] - w["log_probs"]).max())
+            worst = max(worst, err / max(1.0, float(np.abs(w["log_probs"]).max())) if rel else err)
+    require(worst <= atol, f"{what}: log-prob err {worst} > {atol}")
+    return worst
+
+
+def serve_check_phase(device, dense) -> dict:
+    """Correctness of the served path on the card, under sync-debug "error".
+    (a) Replays against the eager programs (``use_graph=False``): cell 1's
+    engine at 2 layers (both drains) and cell 2's at full depth, 8 requests
+    each: tokens identical, log-probs within GRAPH_LOGPROB_ATOL; a second
+    pass captures nothing. (b) The card against the CPU: f32, 2 layers at
+    cell 1's width, float and int8 + KV8 + fused, chunked prefill of 128 in
+    lanes of 4 with the prefix cache on prompts sharing a 256-token prefix:
+    tokens identical, log-probs within LLM_XCHECK_REL of max(1, |lp|).
+    (c) The engine's greedy tokens are TorchGenerator.generate's."""
+    from runia_core_tpu_torch.llm import ContinuousBatchingEngine, TorchGenerator
+    from runia_core_tpu_torch.models import LlamaLM, fuse_quantized_llama_params, quantize_llama_params
+    from runia_core_tpu_torch.utils import CudaGraph
+
+    record = {"graph_vs_eager": {}, "card_vs_cpu": {}, "engine_vs_generator": {}}
+    n = SERVE_CHECK_REQUESTS
+    p7, b7 = serve_traffic(SERVE7B_TRAFFIC, SERVE7B_CFG["vocab_size"])
+    pm, bm = serve_traffic(MIXED_TRAFFIC, LLM_CFG["vocab_size"])
+    small7b = build_serve7b(device, SERVE_CHECK_LAYERS)
+    cases = [("serve_7b_int8_2_layers_open_loop", small7b, dict(SERVE7B_ENGINE, defer_fetch=True), p7[:n], b7[:n]),
+             ("serve_7b_int8_2_layers_lookahead", small7b, SERVE7B_ENGINE, p7[:n], b7[:n]),
+             ("serve_mixed_full_depth", sharing(dense, use_flash=False), MIXED_ENGINE, pm[:n], bm[:n])]
+    for name, model, kw, prompts, budgets in cases:
+        graph = ContinuousBatchingEngine(model, **kw)
+        eager = ContinuousBatchingEngine(model, **kw, use_graph=False)
+        with no_host_sync():
+            want = serve_pass(eager, prompts, budgets)
+            got = serve_pass(graph, prompts, budgets)
+            captures = CudaGraph.captures
+            again = serve_pass(graph, prompts, budgets)
+        require(CudaGraph.captures == captures, f"serve_check {name}: a warm pass captures nothing")
+        check_served(got, budgets, f"serve_check {name}")
+        err = _same_served(got, want, GRAPH_LOGPROB_ATOL, f"serve_check {name}: replay vs eager")
+        _same_served(again, got, 0.0, f"serve_check {name}: second pass")
+        record["graph_vs_eager"][name] = {"max_abs_err_log_probs": err, "requests": len(prompts)}
+        del graph, eager
+    del small7b, cases
+
+    # (b) and (c): f32, 2 layers at cell 1's width
+    cfg = dict(SERVE7B_CFG, num_layers=SERVE_CHECK_LAYERS)
+    f32 = LlamaLM(**cfg, dtype=torch.float32, use_flash=True).eval()
+    f32.init_weights(torch.Generator(device=device).manual_seed(SEED + 21))
+    int8 = LlamaLM(**cfg, dtype=torch.float32, use_flash=True, quantized=True, quantized_kv=True,
+                   fused_qkv=True).eval()
+    int8.load_state_dict(fuse_quantized_llama_params(quantize_llama_params(f32.state_dict())))
+    rng = np.random.RandomState(SEED + 22)
+    xc = SERVE_XCHECK
+    system = list(rng.randint(1, cfg["vocab_size"], xc["system"]))
+    prompts = [system + list(rng.randint(1, cfg["vocab_size"], rng.randint(*xc["suffix"])))
+               for _ in range(xc["requests"])]
+    budgets = [xc["new"]] * len(prompts)
+    kw = dict(num_slots=4, max_ctx=SERVE7B_ENGINE["max_ctx"], max_new_tokens=xc["new"], chunk_tokens=4,
+              prefill_chunk=128, prefill_lanes=4, prefix_cache=True)
+    for name, model in (("f32", f32), ("int8_kv8", int8)):
+        cpu = LlamaLM(**cfg, dtype=torch.float32, use_flash=True, quantized=model.quantized,
+                      quantized_kv=model.quantized_kv, fused_qkv=model.fused_qkv, device="cpu").eval()
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        card_engine = ContinuousBatchingEngine(model, **kw)
+        with no_host_sync():
+            got = serve_pass(card_engine, prompts, budgets)
+        cpu_engine = ContinuousBatchingEngine(cpu, **kw)
+        want = serve_pass(cpu_engine, prompts, budgets)
+        hits = card_engine.stats()["prefix_hits"]
+        require(hits > 0 and hits == cpu_engine.stats()["prefix_hits"], f"serve_check {name}: prefix hits {hits}")
+        err = _same_served(got, want, LLM_XCHECK_REL[name], f"serve_check {name}: card vs CPU", rel=True)
+        record["card_vs_cpu"][name] = {"max_rel_err_log_probs": err, "prefix_hits": hits}
+        del cpu, cpu_engine, card_engine
+    gen = TorchGenerator(f32, max_new_tokens=xc["new"])
+    for name, engine_kw in (("chunked_prefix", kw), ("bucketed", dict(num_slots=2, max_ctx=512, chunk_tokens=3))):
+        engine = ContinuousBatchingEngine(f32, **{**engine_kw, "max_new_tokens": xc["new"]})
+        with no_host_sync():
+            got = serve_pass(engine, prompts, budgets)
+            want = [gen.generate(p, output_attentions=False, output_hidden_states=False) for p in prompts]
+        for i, (g, w) in enumerate(zip(got, want)):
+            require(g["tokens"] == w["sequences"][0, len(prompts[i]):].tolist(),
+                    f"serve_check {name}: request {i} equals TorchGenerator.generate")
+        record["engine_vs_generator"][name] = {"requests": len(prompts), "tokens_identical": True}
+    emit({"phase": "serve_check", "layers": SERVE_CHECK_LAYERS, "bound_graph_log_probs": GRAPH_LOGPROB_ATOL,
+          "bound_card_vs_cpu": LLM_XCHECK_REL, **record})
+    del f32, int8, gen
+    _drop_programs()
+    torch.cuda.empty_cache()
+    return record
+
+
 def _drop_programs() -> None:
     """Forget every cached decode program (their buffers and graphs)."""
     from runia_core_tpu_torch.llm.generate import _PROGRAM_CACHE
@@ -2113,34 +2600,46 @@ def main() -> None:
     sys.path.insert(0, str(REPO))
     import runia_core_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    seconds = {}
+
+    def timed(name, fn, *args):
+        start = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - start
+        return out
+
     smi = device_phase()
     device = torch.device("cuda", 0)
     gen = torch.Generator(device=device).manual_seed(SEED)
-    build_phase()
-    k1 = entropy_phase(device, gen)
-    k2 = fused_phase(device, gen)
-    k3 = quant_matmul_phase(device, gen)
-    k4 = flash_phase(device, gen)
-    launches = slice_phase(device, gen)
+    timed("build", build_phase)
+    k1 = timed("kernel_marginal_entropy", entropy_phase, device, gen)
+    k2 = timed("kernel_fused_mc_entropy", fused_phase, device, gen)
+    k3 = timed("kernel_quant_matmul", quant_matmul_phase, device, gen)
+    k4 = timed("kernel_flash_prefix_attention", flash_phase, device, gen)
+    launches = timed("slice", slice_phase, device, gen)
     dense, int8 = build_llms(device, LLM_CFG["num_layers"], torch.bfloat16)
     models = {"bf16": dense, "int8_kv8": int8}
-    launches.update(llm_slice_phase(device, models))
-    llm_graph_phase(device, models)
-    llm_xcheck_phase(device)
-    llm_throughput_phase(device, models)
-    semantic = llm_semantic_phase(device, models["bf16"])
-    speculative = spec_slice_phase(device, models["bf16"])
+    launches.update(timed("llm_slice", llm_slice_phase, device, models))
+    timed("llm_graph", llm_graph_phase, device, models)
+    timed("llm_xcheck_f32_cpu", llm_xcheck_phase, device)
+    timed("llm_throughput", llm_throughput_phase, device, models)
+    semantic = timed("llm_semantic", llm_semantic_phase, device, models["bf16"])
+    speculative = timed("spec_slice", spec_slice_phase, device, models["bf16"])
+    mixed = timed("serve_mixed_96", serve_mixed_96_phase, device, models["bf16"])
+    timed("serve_check", serve_check_phase, device, models["bf16"])
     del models, dense, int8
     _drop_programs()
     torch.cuda.empty_cache()
-    nli_phase(device)
-    moe = moe_slice_phase(device)
-    family_slice_phase(device, "gpt2")
-    family_slice_phase(device, "neox")
-    for counts in (semantic, speculative, moe):
+    serve7b = timed("serve_7b_int8", serve_7b_int8_phase, device)
+    timed("nli", nli_phase, device)
+    moe = timed("moe_slice", moe_slice_phase, device)
+    timed("gpt2_slice", family_slice_phase, device, "gpt2")
+    timed("neox_slice", family_slice_phase, device, "neox")
+    for counts in (semantic, speculative, mixed, serve7b, moe):
         for name, n in counts.items():
             if name in launches:
                 launches[name] += n
+    emit({"phase": "seconds", **seconds})
     emit({"kernels": [
         {"name": "marginal_entropy", "route": "cuda",
          "source": "runia_core_tpu_torch/csrc/marginal_entropy.cu",

@@ -5,7 +5,7 @@ pass over one greedy decode window and one prefill of the production Llama
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
-    python3 profile_torch_llm.py [--steps 32] [--layers 22]
+    python3 profile_torch_llm.py [--steps 32] [--layers 22] [--engine]
 
 For each model form it prints one JSON line for each decode route (16
 prompts of 64 tokens, ``--steps`` greedy tokens, after a warm-up window): the
@@ -16,7 +16,11 @@ milliseconds (the sum of the kernels' durations: they run on one stream),
 the busy share, and device milliseconds by category with the port's own
 kernels named (``utils/timing.py::device_profile``). The profiler stretches
 the eager route's wall time, so the shares matter more than the
-milliseconds. It imports nothing of JAX.
+milliseconds. With ``--engine`` it profiles instead one replayed decode
+chunk of each serving cell's ``ContinuousBatchingEngine`` and cell 1's
+4-lane prefill call (``chip_smoke.py``'s ``serve_7b_int8`` and
+``serve_mixed_96`` at ``--layers`` layers), with the largest kernels by
+name. It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -56,10 +60,61 @@ def replay_floor(model, steps: int, kernels: int) -> dict:
             "us_per_tiny_kernel": tiny_ms * 1e3 / kernels}
 
 
+def top_kernels(fn, count: int = 15) -> list:
+    """The kernels of one ``fn()`` under the profiler, by summed device
+    time: [name, ms, launches] of the ``count`` largest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    totals, launches = {}, {}
+    for event in prof.events():
+        micros = float(getattr(event, "device_time", 0.0) or 0.0)
+        if str(event.device_type).endswith("CUDA") and micros > 0.0:
+            totals[event.name] = totals.get(event.name, 0.0) + micros
+            launches[event.name] = launches.get(event.name, 0) + 1
+    ranked = sorted(totals, key=totals.get, reverse=True)[:count]
+    return [[name[:160], totals[name] / 1e3, launches[name]] for name in ranked]
+
+
+def engine_programs(device, layers: int, smi: str) -> None:
+    """One replayed decode chunk of each serving cell's engine
+    (``chip_smoke.serve_7b_int8_phase``'s at ``layers`` layers, and
+    ``serve_mixed_96_phase``'s production Llama at ``--layers``), and cell
+    1's 4-lane prefill call, after one drain: device ms by category and
+    the largest kernels by name."""
+    from runia_core_tpu_torch.llm import ContinuousBatchingEngine
+    from runia_core_tpu_torch.utils import device_profile
+
+    dense, _ = chip_smoke.build_llms(device, layers, torch.bfloat16)
+    cells = {
+        "serve_7b_int8": (chip_smoke.build_serve7b(device, layers), dict(chip_smoke.SERVE7B_ENGINE, defer_fetch=True),
+                          chip_smoke.SERVE7B_TRAFFIC, chip_smoke.SERVE7B_CFG["vocab_size"]),
+        "serve_mixed_96": (chip_smoke.sharing(dense, use_flash=False), chip_smoke.MIXED_ENGINE,
+                           chip_smoke.MIXED_TRAFFIC, chip_smoke.LLM_CFG["vocab_size"]),
+    }
+    for cell, (model, kw, traffic, vocab) in cells.items():
+        engine = ContinuousBatchingEngine(model, **kw)
+        prompts, budgets = chip_smoke.serve_traffic(traffic, vocab)
+        chip_smoke.serve_pass(engine, prompts, budgets)
+        programs = {"decode_chunk": engine._chunk_prog.graph}
+        if engine._lane_progs:
+            programs["lanes_4"] = engine._lane_progs[4].graph
+        for name, graph in programs.items():
+            record = device_profile(graph.replay, 1, category)
+            print(json.dumps({"phase": "engine_program", "cell": cell, "program": name, "layers": layers,
+                              "nvidia_smi": smi, **record, "top_kernels": top_kernels(graph.replay)}), flush=True)
+        del engine
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--steps", type=int, default=32, help="greedy tokens in the profiled decode window")
     parser.add_argument("--layers", type=int, default=chip_smoke.LLM_CFG["num_layers"])
+    parser.add_argument("--engine", action="store_true",
+                        help="profile the serving engine's decode chunk and prefill lanes instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_llm: no CUDA device; nothing was run")
@@ -71,6 +126,9 @@ def main() -> None:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     device = torch.device("cuda", 0)
+    if args.engine:
+        engine_programs(device, args.layers, smi)
+        return
     dense, int8 = chip_smoke.build_llms(device, args.layers, torch.bfloat16)
     rng = torch.Generator().manual_seed(chip_smoke.SEED + 3)
     vocab = chip_smoke.LLM_CFG["vocab_size"]

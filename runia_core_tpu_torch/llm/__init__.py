@@ -1,9 +1,10 @@
-"""LLM uncertainty of the PyTorch port: the TorchGenerator decode backend and
-speculative decoding (SpeculativeGenerator), the scores that read their
-output, the NLI judges of semantic entropy, and the streaming attention
-aggregator."""
+"""LLM uncertainty of the PyTorch port: the TorchGenerator decode backend,
+speculative decoding (SpeculativeGenerator), the continuous-batching serving
+engine (ContinuousBatchingEngine), the scores that read their output, the NLI
+judges of semantic entropy, and the streaming attention aggregator."""
 
 from runia_core_tpu_torch.llm.attention import StreamingAttentionAggregator
+from runia_core_tpu_torch.llm.continuous import ContinuousBatchingEngine, speculative_breakeven
 
 from runia_core_tpu_torch.llm.generate import (
     TorchGenerator,
@@ -30,6 +31,7 @@ from runia_core_tpu_torch.llm.speculative import SpeculativeGenerator, speculati
 from runia_core_tpu_torch.llm.utils import make_nli_batch_labels, make_nli_equivalence
 
 __all__ = [
+    "ContinuousBatchingEngine",
     "RAUQ",
     "SpeculativeGenerator",
     "StreamingAttentionAggregator",
@@ -50,6 +52,7 @@ __all__ = [
     "run_generation",
     "sample_logits",
     "semantic_entropy",
+    "speculative_breakeven",
     "speculative_sample_round",
     "validate_generation_request",
 ]

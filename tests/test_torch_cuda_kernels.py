@@ -696,3 +696,122 @@ def test_causal_lm_and_neox_decode_replays_match_eager(gen, family):
         for step_got, step_want in zip(got[key], want[key]):
             for a, b in zip(step_got, step_want):
                 np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
+
+
+def _served(engine, prompts, budgets):
+    ids = [engine.submit(p, b) for p, b in zip(prompts, budgets)]
+    engine.run_until_drained()
+    return [engine.result(i) for i in ids]
+
+
+def _same_served(got, want, atol, rel=False):
+    for g, w in zip(got, want):
+        assert g["tokens"] == w["tokens"]
+        scale = max(1.0, float(np.abs(w["log_probs"]).max())) if rel and len(w["tokens"]) else 1.0
+        np.testing.assert_allclose(g["log_probs"], w["log_probs"], atol=atol * scale, rtol=0)
+
+
+def _serving_prompts(seed, n, lo, hi, shared=0):
+    rng = np.random.RandomState(seed)
+    system = list(rng.randint(1, 512, shared))
+    return [system + list(rng.randint(1, 512, rng.randint(lo, hi))) for _ in range(n)]
+
+
+@pytest.mark.parametrize("form", ["f32", "int8_kv8"])
+@pytest.mark.parametrize("defer_fetch", [False, True], ids=["lookahead", "open_loop"])
+def test_engine_replays_match_the_eager_engine(gen, form, defer_fetch):
+    """ContinuousBatchingEngine with its decode chunk and prefill lanes as
+    CUDA-graph replays against the same programs run eagerly
+    (use_graph=False), under sync-debug "error": chunked prefill of 128 in
+    lanes of 4 (kernel 4 with per-row q_start; its KV8 variant in int8) with
+    the prefix cache, RAUQ and hidden taps; tokens identical, scores within
+    1e-5; a warm pass captures nothing; kernel 3 runs in every int8
+    program."""
+    from runia_core_tpu_torch.llm import ContinuousBatchingEngine
+
+    model = _tiny_llama(form)
+    prompts = _serving_prompts(3, 8, 10, 200, shared=130)
+    budgets = [3, 9, 1, 6, 12, 2, 8, 5]
+    kw = dict(num_slots=4, max_ctx=384, max_new_tokens=12, chunk_tokens=4, prefill_chunk=128, prefill_lanes=4,
+              prefix_cache=True, collect_rauq=True, collect_hidden=-1, admission="lpt", defer_fetch=defer_fetch)
+    eager = ContinuousBatchingEngine(model, use_graph=False, **kw)
+    graph = ContinuousBatchingEngine(model, **kw)
+    assert graph._chunk_prog.graph is not None and all(p.graph is not None for p in graph._lane_progs.values())
+    k4, k4_kv8, k3 = flash_prefix_attention.launches, flash_prefix_attention.kv8_launches, quant_matmul.launches
+    with no_host_sync():
+        want = _served(eager, prompts, budgets)
+        got = _served(graph, prompts, budgets)
+        captures = CudaGraph.captures
+        again = _served(graph, prompts, budgets)
+    assert CudaGraph.captures == captures
+    assert flash_prefix_attention.launches > k4 and graph.stats()["prefix_hits"] > 0
+    if form == "int8_kv8":
+        assert flash_prefix_attention.kv8_launches > k4_kv8 and quant_matmul.launches > k3
+        assert graph._chunk_prog.graph.launches[(quant_matmul, "launches")] == 4 * (2 * 4 + 1)
+    _same_served(got, want, 1e-5)
+    # The second pass finds the first's prompts resident: more prefix hits,
+    # other lane groups, f32 sums over other row sets.
+    _same_served(again, got, 1e-5)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g["rauq"], w["rauq"], atol=1e-5, rtol=0)
+        np.testing.assert_allclose(g["hidden"], w["hidden"], atol=1e-5, rtol=0)
+
+
+def test_engine_bucketed_and_sampled_replays_match_eager(gen):
+    """Bucketed prefill (eager in both) with decode chunks replayed, in a
+    sampling engine serving greedy and sampled requests: from one seed the
+    replays draw what the eager chunks draw, and a new generator replays."""
+    from runia_core_tpu_torch.llm import ContinuousBatchingEngine
+
+    model = _tiny_llama("f32")
+    prompts = _serving_prompts(4, 10, 5, 90)
+    kw = dict(num_slots=3, max_ctx=192, max_new_tokens=10, chunk_tokens=5, prompt_bucket=32, do_sample=True,
+              temperature=0.9, top_k=50, top_p=0.95)
+    results = []
+    for use_graph in (False, True, True):
+        engine = ContinuousBatchingEngine(model, use_graph=use_graph,
+                                          generator=torch.Generator(device="cuda").manual_seed(11), **kw)
+        ids = [engine.submit(p, sample=i % 3 != 0) for i, p in enumerate(prompts)]
+        with no_host_sync():
+            engine.run_until_drained()
+        results.append([engine.result(i) for i in ids])
+    _same_served(results[1], results[0], 1e-5)
+    _same_served(results[2], results[1], 0.0)
+
+
+@pytest.mark.parametrize("form", ["f32", "int8_kv8"])
+def test_engine_on_the_card_matches_the_cpu(gen, form):
+    """The same engine on the card and on the CPU (plain kernel versions),
+    f32: tokens identical, log-probs within 1e-4 of max(1, |lp|) (5e-3 with
+    KV8: a cached code may round to the other neighbour of a half-integer)."""
+    from runia_core_tpu_torch.llm import ContinuousBatchingEngine
+
+    card = _tiny_llama(form)
+    cpu = type(card)(**{k: getattr(card, k) for k in ("vocab_size", "num_layers", "num_heads", "num_kv_heads",
+                                                       "d_model", "hidden_dim", "max_len", "use_flash", "quantized",
+                                                       "quantized_kv", "fused_qkv")}, device="cpu").eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    prompts = _serving_prompts(5, 6, 10, 120, shared=140)
+    budgets = [6] * len(prompts)
+    kw = dict(num_slots=4, max_ctx=384, max_new_tokens=6, chunk_tokens=4, prefill_chunk=128, prefill_lanes=4,
+              prefix_cache=True)
+    with no_host_sync():
+        got = _served(ContinuousBatchingEngine(card, **kw), prompts, budgets)
+    want = _served(ContinuousBatchingEngine(cpu, **kw), prompts, budgets)
+    _same_served(got, want, 1e-4 if form == "f32" else 5e-3, rel=True)
+
+
+def test_engine_greedy_equals_torch_generator_on_the_card(gen):
+    from runia_core_tpu_torch.llm import ContinuousBatchingEngine, TorchGenerator
+
+    model = _tiny_llama("f32")
+    prompts = _serving_prompts(6, 5, 10, 200)
+    generator = TorchGenerator(model, max_new_tokens=8)
+    for kw in (dict(prefill_chunk=128, prefill_lanes=2), dict(prompt_bucket=64)):
+        engine = ContinuousBatchingEngine(model, num_slots=2, max_ctx=384, max_new_tokens=8, chunk_tokens=3, **kw)
+        with no_host_sync():
+            got = engine.generate_all(prompts)
+            want = [generator.generate(p, output_attentions=False, output_hidden_states=False) for p in prompts]
+        for p, g, w in zip(prompts, got, want):
+            assert g["tokens"] == w["sequences"][0, len(p):].tolist()
+            np.testing.assert_allclose(g["log_probs"], w["log_probs"][0], atol=1e-5, rtol=0)

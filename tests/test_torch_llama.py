@@ -196,6 +196,68 @@ def test_kv8_codes_differ_from_jax_only_at_rounding_boundaries(tokens, monkeypat
     assert flipped <= 1e-3 * 4 * 2 * T * CFG["num_kv_heads"] * head_dim
 
 
+def test_kv8_cache_at_heads_of_64_within_the_one_flip_bound(tokens, monkeypatch):
+    """KV8 parity at heads of 64: a 130-token prefill and 3 decode steps.
+
+    The bound, derived: where a cached code differs from JAX's, the port's
+    x / scale lies at a rounding boundary (checked below, as in the test
+    above) and the two codes are its neighbours, so that cached value moves
+    by exactly one step, its scale max|x| / 127. Everything else is the f32
+    arithmetic of F32_ATOL. So the logits may differ from JAX's by F32_ATOL
+    plus the effect of moving each flipped value by its max|x| / 127, which
+    the test computes by running the port again with JAX's codes put in at
+    the flips (the port's arithmetic otherwise): that run must agree with
+    JAX to F32_ATOL, and the port's own run differs from it by the flips'
+    effect alone."""
+    import runia_core_tpu_torch.models.llama as llama
+
+    cfg = dict(CFG, head_dim=64)
+    params = jax.tree_util.tree_map(np.asarray, JaxLlamaLM(**cfg).init(jax.random.key(0), jnp.zeros((1, 8), jnp.int32)))
+    jm = JaxLlamaLM(**cfg, quantized_kv=True)
+    port = LlamaLM(**cfg, quantized_kv=True, device="cpu")
+    port.load_state_dict(llama_from_flax(params, device="cpu"))
+    b, steps = tokens.shape[0], 3
+    calls = [(tokens, 0)] + [(np.random.RandomState(1 + s).randint(0, 128, (b, 1)).astype(np.int32), T + s)
+                             for s in range(steps)]
+    jcache, want, jcodes = jax_init_cache(jm, b, CACHE), [], []
+    for chunk, index in calls:
+        lj, _, _, jcache = jm.apply(params, jnp.asarray(chunk), jcache, jnp.int32(index))
+        want.append(_np(lj))
+        for layer in jcache["layers"]:  # the order the port quantizes in: per layer, k then v
+            jcodes += [np.array(layer[name])[:, index:index + chunk.shape[1]] for name in ("k", "v")]
+
+    real, seen = llama._quantize_kv, []
+
+    def run(force: bool):
+        seen.clear()
+
+        def quantize(x):
+            xq, scale = real(x)
+            seen.append((x / scale[..., None], xq, scale))
+            return (torch.from_numpy(jcodes[len(seen) - 1]), scale) if force else (xq, scale)
+
+        monkeypatch.setattr(llama, "_quantize_kv", quantize)
+        cache, out = init_cache(port, b, CACHE, device="cpu"), []
+        with torch.no_grad():
+            for chunk, index in calls:
+                out.append(port(torch.from_numpy(chunk).long(), cache, index)[0].numpy())
+        return out
+
+    plain = run(force=False)
+    flips = 0
+    for (quotient, xq, scale), jc in zip(seen, jcodes):
+        moved = xq.numpy() != jc
+        flips += int(moved.sum())
+        q = quotient.numpy()[moved]
+        assert np.all(np.abs(np.abs(q - np.trunc(q)) - 0.5) <= 2.5e-4), q  # at a rounding boundary
+        assert np.array_equal(np.abs(xq.numpy()[moved].astype(np.int32) - jc[moved]), np.ones(int(moved.sum())))
+    forced = run(force=True)
+    assert flips > 0  # heads of 64 flip codes on this prompt (ROADMAP Queue 3)
+    for lj, lp, lf in zip(want, plain, forced):
+        np.testing.assert_allclose(lf, lj, atol=F32_ATOL, rtol=0)  # JAX's codes: the f32 bound
+        np.testing.assert_array_less(np.abs(lp - lj), F32_ATOL + np.abs(lp - lf) + 1e-12)
+
+
 def test_quantization_matches_jax_exactly(base):
     _, port = _pair(base)
     ours = fuse_quantized_llama_params(quantize_llama_params(port.state_dict()))
