@@ -60,6 +60,23 @@ kernel against its plain PyTorch version on the card. Then, through
   ``serve_check`` holds the replays against the eager programs, the card
   against the CPU (f32, 2 layers at cell 1's width, prefix cache and lanes)
   and the engine against ``TorchGenerator.generate``.
+* Speculative serving and the fused drain: ``spec_engine_7b_int8`` (cell
+  1's model as the distilled pair of ``bench.py:810-871``, its first 4 of
+  32 blocks the draft, the upper blocks' o / down scales times 0.03; the
+  shared-system-prompt traffic of ``bench.py:887-901``; gamma 4, chunks of
+  15 tokens, chunked prefill of 128 in lanes of 4, prefix cache, the
+  break-even guard armed) against the plain engine on the same target, in
+  turns; ``spec_engine_1b`` (the bench's own leg on the production Llama
+  in bf16, its 4-of-22 draft, chunks of 64, no hand kernel);
+  ``generate_all_fused`` on cell 2 (chunks of 64, 8 lanes, 4-step
+  iterations, in turns with the interactive drains and static batching)
+  and on cell 1 (``fused_7b``: lanes of 4 x 128 chosen on the device);
+  ``uncertainty_serving`` (``UncertaintyServer``, all six methods,
+  ``bench.py:1048-1125``) and ``generation_service`` (32 requests from 4
+  threads); ``spec_serve_check`` holds the round chunk, the spec lanes and
+  both fused iterations against their eager programs, the card against the
+  CPU at 2 layers, spec greedy against plain and one fused lane against
+  ``generate_all``.
 
 Both paths run as the port runs them by default: the LaREx scorer and the
 decode steps as replays of CUDA graphs (``utils/graphs.py``; the JAX
@@ -236,6 +253,36 @@ SERVE_CHECK_LAYERS, SERVE_CHECK_REQUESTS = 2, 8
 # Card against CPU (serve_check): a 256-token system prompt shared by every
 # request (so the prefix cache hits), suffixes of 20-120 tokens, 4 new tokens.
 SERVE_XCHECK = dict(system=256, suffix=(20, 121), requests=4, new=4)
+# The speculative engine (bench.py:874-950): the distilled pair (the
+# target's o / down of blocks 4.. scaled by 0.03, the draft its first 4
+# blocks, norm_f and lm_head), gamma 4, shared-system-prompt traffic from
+# RandomState(7): a 256-token system prompt, suffixes of 8-64 tokens,
+# budgets 16-48, 24 requests. Cell 1 runs it on the 7B int8 model with
+# chunked prefill of 128 in lanes of 4 (the bench's 64 never reaches kernel
+# 4); the bench's own leg on the production Llama in bf16 keeps its 64.
+SPEC_TRAFFIC = dict(seed=7, system=256, suffixes=(8, 65), budgets=(16, 49), requests=24)
+SPEC7B_ENGINE = dict(num_slots=8, max_ctx=512, max_new_tokens=48, chunk_tokens=15, prefill_chunk=128,
+                     prefill_lanes=4, prefix_cache=True)
+SPEC1B_ENGINE = dict(num_slots=8, max_ctx=448, max_new_tokens=48, chunk_tokens=15, prefill_chunk=64,
+                     prefix_cache=True)
+SPEC_ENGINE_PASSES = 2  # timed passes per engine, in turns
+# The fused offline drain: cell 2 as bench.py:708-731 runs it (chunked
+# prefill of 64, 4 decode steps an iteration, 8 lanes, lpt), cell 1 in lanes
+# of 4 x 128 (kernel 4's KV8 variant in lanes chosen on the device, kernel 3
+# at 512 rows).
+FUSED_MIXED_ENGINE = dict(num_slots=32, max_ctx=320, max_new_tokens=64, prompt_bucket=64, prefill_chunk=64,
+                          chunk_tokens=4, admission="lpt")
+FUSED_MIXED_LANES, FUSED_7B_LANES = 8, 4
+# UncertaintyServer (bench.py:1048-1125): the production Llama in bf16 with
+# dense attention, all six methods, 16 prompts of 24-64 tokens (a fresh set
+# a pass), 4 samples of 32 tokens at temperature 0.9, 24 slots, chunks of
+# 16, bucketed prefill of 64, max_ctx 128; the deberta-v2-large judge.
+UNC_PROMPTS, UNC_SAMPLES, UNC_NEW, UNC_PASSES = 16, 4, 32, 2
+UNC_ENGINE = dict(num_slots=24, max_ctx=128, chunk_tokens=16, prefill_chunk=None, prompt_bucket=64)
+# GenerationService: 32 requests of 16-160 tokens from 4 threads, batches
+# of up to 8, 16 new tokens.
+SERVICE_REQUESTS, SERVICE_THREADS, SERVICE_BATCH, SERVICE_NEW = 32, 4, 8, 16
+SPEC_CHECK_LAYERS = 2
 # HF against the port on the card, f32, TF32 off: the JAX tests' bounds
 # (tests/test_torch_convert.py's GPT-2 and tests/test_neox.py).
 FAMILY_HF_TOL = {"gpt2": (2e-4, 2e-5), "neox": (1e-3, 1e-4)}  # (rtol, atol)
@@ -796,6 +843,12 @@ def quant_matmul_phase(device, gen) -> dict:
         **{f"serve7b_rows{rows}_{name}": (rows, k, n) for rows in (SERVE7B_ENGINE["num_slots"], 4 * 128)
            for name, (k, n) in (("qkv", (s7d, s7d + 2 * s7g * s7hd)), ("o", (s7d, s7d)), ("gate_up", (s7d, 2 * s7h)),
                                 ("down", (s7h, s7d)), ("lm_head", (s7d, SERVE7B_CFG["vocab_size"])))},
+        # the speculative engine on cell 1: the verify forward's S (gamma + 1)
+        # = 8 x 5 rows through every projection and the head (the draft's
+        # steps are serve7b_rows8, its lanes serve7b_rows512)
+        **{f"spec7b_rows40_{name}": (SPEC7B_ENGINE["num_slots"] * (SPEC_GAMMA + 1), k, n)
+           for name, (k, n) in (("qkv", (s7d, s7d + 2 * s7g * s7hd)), ("o", (s7d, s7d)), ("gate_up", (s7d, 2 * s7h)),
+                                ("down", (s7h, s7d)), ("lm_head", (s7d, SERVE7B_CFG["vocab_size"])))},
     }
     errors, abs_errors, timings = {}, {}, {}
     for name, (rows, k, n) in shapes.items():
@@ -818,7 +871,8 @@ def quant_matmul_phase(device, gen) -> dict:
         abs_errors[name] = float((got.float() - want).abs().max())
         errors[name] = abs_errors[name] / float(want.abs().max())
         require(errors[name] <= QMM_BOUND[dtype], f"quant_matmul {name}: rel err {errors[name]} > {QMM_BOUND[dtype]}")
-        if name in decode_names or name == "lm_head" or name.startswith(("rows", "moe", "spec", "serve7b")):
+        timed_names = ("rows", "moe", "spec", "serve7b")
+        if name in decode_names or name == "lm_head" or name.startswith(timed_names):
             # Copies that together exceed the 50 MB L2, used in turns: every
             # call reads its weights from device memory, as a decode step does.
             copies = [(x, wq, scale)] + [(x, wq.clone(), scale) for _ in range(max(0, -(-64 * 2**20 // (k * n)) - 1))]
@@ -829,7 +883,7 @@ def quant_matmul_phase(device, gen) -> dict:
                              "grid": [plan.n_tiles, plan.splits, plan.row_blocks],
                              **with_share(quant_matmul_bound(rows, k, n, dtype), ms)}
             require(ms <= plain_ms, f"quant_matmul {name}: the kernel ({ms} ms) is no slower than plain ({plain_ms} ms)")
-            if name in decode_names or name == "lm_head" or name.startswith(("moe", "spec", "serve7b")):
+            if name in decode_names or name == "lm_head" or name.startswith(timed_names):
                 # A different function, as a reference point only: cuBLAS on
                 # the dequantized bf16 weight, twice the bytes.
                 dense = [(x, copies[i % len(copies)][1].to(torch.bfloat16))
@@ -839,7 +893,7 @@ def quant_matmul_phase(device, gen) -> dict:
                 # At the lanes' 512 rows torch._weight_int8pack_mm takes 28-146
                 # ms a call on an H100: about 70 s of the run for a reference
                 # point, so the serving shapes time it at the decode rows only.
-                if not name.startswith("serve7b_rows512"):
+                if not name.startswith(("serve7b_rows512", "rows", "spec7b")):
                     timings[name]["int8pack_mm_ms"] = int8pack_mm_ms(x, wq, scale)
                 del dense
             del copies
@@ -985,6 +1039,15 @@ def flash_phase(device, gen) -> dict:
         # 128; KV8 (the cell's) and a bf16 counterpart
         **{name: (4, s7hq, s7g, 128, SERVE7B_ENGINE["max_ctx"], s7hd, [0, 128, 256, 384], None, bf16, kv8, "transposed")
            for name, kv8 in (("serve7b_lanes_kv8", True), ("serve7b_lanes", False))},
+        # the speculative cell's lanes, the draft's as the target's (the
+        # draft has the target's heads): chunks of the shared-prompt traffic
+        # at 0, 128 and 256 over 512 slots; and the fused drain's lanes
+        # chosen on the device, rows 2 and 3 duplicates of row 0 (fewer
+        # pending slots than lanes), which must come out identical
+        "spec7b_draft_lanes_kv8": (4, s7hq, s7g, 128, SPEC7B_ENGINE["max_ctx"], s7hd, [0, 128, 256, 256], None, bf16,
+                                   True, "transposed"),
+        "fused7b_dup_lanes_kv8": (4, s7hq, s7g, 128, SERVE7B_ENGINE["max_ctx"], s7hd, [256, 128, 256, 256], None,
+                                  bf16, True, "duplicates"),
     }
     errors, err_over_bound, timings = {}, {}, {}
     for name, (b, nh, ng, tq, kk, d, q_start, kv_start, dtype, kv8, *layout) in cases.items():
@@ -1000,6 +1063,10 @@ def flash_phase(device, gen) -> dict:
             k = torch.randn((b, ng, kk, d), generator=gen, device=device).to(dtype)
             v = torch.randn((b, ng, kk, d), generator=gen, device=device).to(dtype)
             ks = vs = None
+        if layout == "duplicates":
+            for t in (q, k, v) + ((ks, vs) if kv8 else ()):
+                t[2:] = t[:1]
+            layout = "transposed"
         qs = torch.tensor(q_start, dtype=torch.int32, device=device)
         kvs = None if kv_start is None else torch.tensor(kv_start, dtype=torch.int32, device=device)
         k_in, v_in, q_in = k, v, q
@@ -1024,6 +1091,8 @@ def flash_phase(device, gen) -> dict:
         torch.cuda.synchronize()
         require(got.shape == want.shape and bool(torch.isfinite(got).all()), f"flash {name}: finite, shape")
         require(torch.equal(got, again), f"flash {name}: two runs on the same inputs are bit-identical")
+        if name == "fused7b_dup_lanes_kv8":
+            require(torch.equal(got[2:], got[:1].expand_as(got[2:])), f"flash {name}: duplicate lanes are identical")
         diff = (got.float() - want.float()).abs()
         errors[name] = float(diff.max())
         if dtype == torch.float32:
@@ -1040,7 +1109,8 @@ def flash_phase(device, gen) -> dict:
                 empty = max(0, kvs_r - qs_r)
                 require(bool((got[row, :, :empty] == 0).all()), f"flash {name}: empty-window rows are exact zeros")
         if name in ("prefill", "kv8_prefill", "chunked", "moe_prefill", "moe_kv8_prefill", "spec_prefill",
-                    "d256_prefill", "serve7b_lanes_kv8", "serve7b_lanes"):
+                    "d256_prefill", "serve7b_lanes_kv8", "serve7b_lanes", "spec7b_draft_lanes_kv8",
+                    "fused7b_dup_lanes_kv8"):
             # The kernel by CUDA-graph replays (the chunk case is shorter than
             # its enqueue), the plain version, milliseconds long, by events.
             plain, kernel = [], []
@@ -2287,7 +2357,7 @@ def _graph_launches(program) -> dict:
             "flash_prefix_attention_kv8": got.get((flash_prefix_attention, "kv8_launches"), 0)}
 
 
-def serve_7b_int8_phase(device) -> dict:
+def serve_7b_int8_phase(device, model, model_s: float) -> dict:
     """Cell 1 (bench.py:469-537): the 7B-class int8 + KV8 model served to
     24 requests by two engines, the open-loop drain (``defer_fetch``, the
     bench's) and the lookahead drain, each built once (its programs
@@ -2302,10 +2372,6 @@ def serve_7b_int8_phase(device) -> dict:
     from runia_core_tpu_torch.utils import CudaGraph, device_profile
 
     cfg, eng_cfg = SERVE7B_CFG, SERVE7B_ENGINE
-    start = time.perf_counter()
-    model = build_serve7b(device, cfg["num_layers"])
-    torch.cuda.synchronize()
-    model_s = time.perf_counter() - start
     weight_bytes = _weight_bytes(model)
     prompts, budgets = serve_traffic(SERVE7B_TRAFFIC, cfg["vocab_size"])
     useful = sum(budgets)
@@ -2395,9 +2461,9 @@ def serve_7b_int8_phase(device) -> dict:
           "warm_pass_captures": warm_captures, "drains": drains,
           "kernel_share": {k: v for k, v in profile.items() if k != "kernels_per_unit_by_category"},
           "program_profiles": by_program})
-    del engines, timers, model
+    del engines, timers
     torch.cuda.empty_cache()
-    return launches
+    return launches, {drain: d["useful_tok_s"] for drain, d in drains.items()}
 
 
 def serve_mixed_96_phase(device, dense) -> dict:
@@ -2439,13 +2505,19 @@ def serve_mixed_96_phase(device, dense) -> dict:
         return out
 
     static_pass()  # captures its decode program
+    fused = ContinuousBatchingEngine(model, **FUSED_MIXED_ENGINE)
+    fused_first = timed_fused_pass(fused, prompts, budgets, FUSED_MIXED_LANES, "serve_mixed_96 fused")
+    fused_timer = FusedTimer(next(iter(fused._fused_cache.entries.values())))
     engines = {"engine": engine, "engine_eager_prefill": eager_prefill}
     timers = {name: ProgramTimer(e) for name, e in engines.items()}
-    passes, static_seconds = {name: [] for name in engines}, []
+    passes, static_seconds, fused_passes = {name: [] for name in engines}, [], []
     for turn in range(SERVE_PASSES):
-        order = ["engine", "engine_eager_prefill", "static"]
+        order = ["engine", "engine_eager_prefill", "fused", "static"]
         for kind in order if turn % 2 == 0 else order[::-1]:
-            if kind == "static":
+            if kind == "fused":
+                fused_passes.append(timed_fused_pass(fused, prompts, budgets, FUSED_MIXED_LANES,
+                                                     "serve_mixed_96 fused", fused_timer))
+            elif kind == "static":
                 torch.cuda.synchronize()
                 start = time.perf_counter()
                 with no_host_sync():
@@ -2455,9 +2527,10 @@ def serve_mixed_96_phase(device, dense) -> dict:
             else:
                 passes[kind].append(timed_serve_pass(engines[kind], timers[kind], prompts, budgets,
                                                      f"serve_mixed_96 {kind}"))
-    warm_captures = sum(p["captures"] for ps in passes.values() for p in ps)
+    warm_captures = sum(p["captures"] for ps in [*passes.values(), fused_passes] for p in ps)
     require(warm_captures == 0, f"serve_mixed_96: warm passes capture nothing, got {warm_captures}")
     static_tps = useful / statistics.mean(static_seconds)
+    fused_tps = useful / _mean(fused_passes, "seconds")
     record = {}
     for name, ps in passes.items():
         wall_ms = 1e3 * sum(p["seconds"] for p in ps)
@@ -2483,9 +2556,12 @@ def serve_mixed_96_phase(device, dense) -> dict:
           "static": f"TorchGenerator.generate_batch x {len(prompts) // rows} of {rows} rows, pad_to="
                     f"{MIXED_STATIC_PAD}, {MIXED_ENGINE['max_new_tokens']} new tokens (graph route)",
           "engine_eager_prefill": record["engine_eager_prefill"],
-          "fused_tok_s": None, "fused": "not measured: generate_all_fused is not ported yet (the next slice)",
+          "fused_tok_s": fused_tps, "fused_vs_static": fused_tps / static_tps,
+          "fused_vs_interactive": fused_tps / record["engine"]["useful_tok_s"],
+          "fused": {"engine": FUSED_MIXED_ENGINE, "lanes": FUSED_MIXED_LANES, "first_call": fused_first,
+                    "seconds": [p["seconds"] for p in fused_passes], "passes": fused_passes},
           "warm_pass_captures": warm_captures})
-    del engine, eager_prefill, engines, gen, timers
+    del engine, eager_prefill, engines, gen, timers, fused, fused_timer
     _drop_programs()
     torch.cuda.empty_cache()
     return launches
@@ -2589,6 +2665,468 @@ def serve_check_phase(device, dense) -> dict:
     return record
 
 
+# ---- PR: the speculative engine, the fused drain and the serving fronts ----
+def spec_traffic(vocab: int):
+    """(prompts, budgets) as bench.py:887-893 draws them: the system
+    prompt, the budgets, the suffix lengths, then each suffix's tokens."""
+    t = SPEC_TRAFFIC
+    rng = np.random.RandomState(t["seed"])
+    system = list(rng.randint(1, vocab, t["system"]))
+    budgets = rng.randint(*t["budgets"], t["requests"])
+    prompts = [system + list(rng.randint(1, vocab, int(n))) for n in rng.randint(*t["suffixes"], t["requests"])]
+    return prompts, [int(b) for b in budgets]
+
+
+def distilled_pair(model, draft_layers: int = SPEC_DRAFT_LAYERS):
+    """The distilled pair of bench.py:810-871 from ``model``: a target whose
+    o / down outputs of blocks ``draft_layers``.. are scaled by SPEC_EPS (an
+    int8 model's per-column scales, so every weight byte is still read), and
+    a draft of its first ``draft_layers`` blocks, norm_f and lm_head. Both
+    hold ``model``'s tensors; only the scaled ones are new."""
+    from runia_core_tpu_torch.models import LlamaLM
+
+    keys = ("vocab_size", "num_layers", "num_heads", "num_kv_heads", "d_model", "hidden_dim", "max_len", "dtype",
+            "use_flash", "quantized", "quantized_kv", "fused_qkv")
+    cfg = {k: getattr(model, k) for k in keys}
+    leaf = "scale" if model.quantized else "kernel"
+    state = dict(model.state_dict())
+    for i in range(draft_layers, model.num_layers):
+        for proj in ("o", "down"):
+            name = f"block_{i}.{proj}.{leaf}"
+            state[name] = state[name] * SPEC_EPS
+    target = LlamaLM(**cfg).eval()
+    target.load_state_dict(state, assign=True)
+    draft = LlamaLM(**dict(cfg, num_layers=draft_layers)).eval()
+    draft.load_state_dict({k: v for k, v in state.items() if not k.startswith("block_")
+                           or int(k.split(".")[0][6:]) < draft_layers}, assign=True)
+    return target, draft
+
+
+def _counted() -> dict:
+    """The launch counts of kernels 3 and 4 (bf16 and KV8)."""
+    from runia_core_tpu_torch.ops.flash_prefill import flash_prefix_attention
+    from runia_core_tpu_torch.ops.quant_matmul import quant_matmul
+
+    return {"quant_matmul": quant_matmul.launches, "flash_prefix_attention": flash_prefix_attention.launches,
+            "flash_prefix_attention_kv8": flash_prefix_attention.kv8_launches}
+
+
+def _zero_counts() -> None:
+    from runia_core_tpu_torch.ops.flash_prefill import flash_prefix_attention
+    from runia_core_tpu_torch.ops.quant_matmul import quant_matmul
+
+    quant_matmul.launches = 0
+    flash_prefix_attention.launches = flash_prefix_attention.kv8_launches = 0
+
+
+def spec_engine_phase(device, model, engine_kw: dict, phase: str, hand_kernels: bool) -> dict:
+    """The speculative engine (bench.py:874-950) on ``model``'s distilled
+    pair: the spec engine with its break-even guard armed
+    (speculative_breakeven of the draft's byte ratio, gamma 4) against the
+    plain engine on the same target and traffic. Both built once (their
+    programs captured), a first pass each (the spec one is the main path,
+    counted), then SPEC_ENGINE_PASSES timed passes each in turns. Useful
+    tok/s and the speedup, acceptance, prefix hits, the guard, the round
+    chunk's replay ms by events and its kernels by category, kernel 3 and 4
+    launches, and where the greedy tokens of the two engines first differ
+    (bf16: a 5-row verify and 1-row steps round differently)."""
+    from runia_core_tpu_torch.llm import ContinuousBatchingEngine, speculative_breakeven
+    from runia_core_tpu_torch.utils import CudaGraph, device_profile
+
+    target, draft = distilled_pair(model)
+    cost = _read_bytes(draft) / _read_bytes(target)
+    floor = speculative_breakeven(cost, SPEC_GAMMA)
+    prompts, budgets = spec_traffic(model.vocab_size)
+    useful = sum(budgets)
+    built = {}
+    engines = {}
+    for kind in ("spec", "plain"):
+        captures, start = CudaGraph.captures, time.perf_counter()
+        extra = dict(draft_model=draft, gamma=SPEC_GAMMA, spec_min_acceptance=floor) if kind == "spec" else {}
+        engines[kind] = ContinuousBatchingEngine(target, **engine_kw, **extra)
+        torch.cuda.synchronize()
+        built[kind] = {"seconds": time.perf_counter() - start, "captures": CudaGraph.captures - captures}
+    spec = engines["spec"]
+    per_replay = {"round_chunk": _graph_launches(spec._chunk_prog),
+                  **{f"lanes_{w}": _graph_launches(p) for w, p in spec._lane_progs.items()}}
+    round_graph = spec._chunk_prog.graph
+
+    _zero_counts()
+    first = {"spec": timed_serve_pass(spec, None, prompts, budgets, f"{phase} spec")}
+    launches = _counted()
+    if hand_kernels:
+        require(launches["quant_matmul"] > 0 and launches["flash_prefix_attention_kv8"] > 0,
+                f"{phase}: kernels 3 and 4 (KV8) launched on the main path: {launches}")
+    else:
+        require(launches == {"quant_matmul": 0, "flash_prefix_attention": 0, "flash_prefix_attention_kv8": 0},
+                f"{phase}: a bf16 engine with prefill chunks of 64 runs no hand kernel: {launches}")
+    with no_host_sync():
+        spec_tokens = serve_pass(spec, prompts, budgets)
+    first["plain"] = timed_serve_pass(engines["plain"], None, prompts, budgets, f"{phase} plain")
+    with no_host_sync():
+        plain_tokens = serve_pass(engines["plain"], prompts, budgets)
+    divergence = [_first_divergence(a["tokens"], b["tokens"]) for a, b in zip(spec_tokens, plain_tokens)]
+
+    timers = {kind: ProgramTimer(e) for kind, e in engines.items()}
+    passes = {kind: [] for kind in engines}
+    hits = spec.prefix_hits
+    for kind in ["spec", "plain", "plain", "spec"] * SPEC_ENGINE_PASSES:
+        if len(passes[kind]) < SPEC_ENGINE_PASSES:
+            passes[kind].append(timed_serve_pass(engines[kind], timers[kind], prompts, budgets, f"{phase} {kind}"))
+    stats = spec.stats()
+    tps = {kind: useful / _mean(ps, "seconds") for kind, ps in passes.items()}
+    decode = [p["programs"]["decode"] for p in passes["spec"]]
+    chunk_ms = sum(d["device_ms"] for d in decode) / max(1, sum(d["calls"] for d in decode))
+    plain_decode = [p["programs"]["decode"] for p in passes["plain"]]
+    plain_chunk_ms = sum(d["device_ms"] for d in plain_decode) / max(1, sum(d["calls"] for d in plain_decode))
+    rounds = spec._rounds
+    profile = None
+    if round_graph is not None:
+        got = device_profile(round_graph.replay, category=kernel_category)
+        profile = {"ms": got["device_busy_ms_per_unit"], "kernels": got["kernels_per_unit"],
+                   "ms_by_category": got["device_ms_per_unit_by_category"]}
+    record = {
+        "phase": phase, "engine": engine_kw, "traffic": SPEC_TRAFFIC, "gamma": SPEC_GAMMA, "eps": SPEC_EPS,
+        "draft_layers": SPEC_DRAFT_LAYERS, "draft_cost_ratio": cost, "breakeven_acceptance": floor,
+        "useful_tokens": useful, "useful_tok_s": tps["spec"], "plain_useful_tok_s": tps["plain"],
+        "speedup_vs_plain_engine": tps["spec"] / tps["plain"],
+        "seconds": {k: [p["seconds"] for p in ps] for k, ps in passes.items()},
+        "acceptance": stats.get("acceptance"), "accepted": stats["accepted"], "proposed": stats["proposed"],
+        "spec_auto_disabled": bool(stats.get("spec_disabled", 0)),
+        "prefix_hits_per_pass": (spec.prefix_hits - hits) / SPEC_ENGINE_PASSES,
+        "decode_chunks_per_pass": {k: _mean(ps, "decode_chunks") for k, ps in passes.items()},
+        "rounds_per_chunk": rounds, "round_chunk_ms": chunk_ms, "round_ms": chunk_ms / rounds,
+        "plain_chunk_ms": plain_chunk_ms, "plain_step_ms": plain_chunk_ms / engine_kw["chunk_tokens"],
+        "round_chunk_profile": profile, "launches": launches, "launches_per_replay": per_replay,
+        "built": built, "first_pass_s": {k: v["seconds"] for k, v in first.items()},
+        "warm_pass_captures": sum(p["captures"] for ps in passes.values() for p in ps),
+        "greedy_first_divergence": divergence,
+        "greedy_identical_requests": sum(d == len(a["tokens"]) for d, a in zip(divergence, spec_tokens)),
+        **{f"t_{k}": {kind: _mean(ps, f"t_{k}_s") for kind, ps in passes.items()}
+           for k in ("fetch", "dispatch", "prefill", "sched")},
+    }
+    emit(record)
+    del engines, timers, spec, target, draft, round_graph
+    torch.cuda.empty_cache()
+    return launches
+
+
+class FusedTimer:
+    """CUDA events around a fused drain's iteration programs and the wall
+    time of each call: device ms per prefill and decode iteration, and the
+    host gap per iteration (the wall time the device spent on no
+    iteration: the flag's copy and read, the host's choice, the launch)."""
+
+    def __init__(self, drain):
+        self.marks = {"prefill": [], "decode": []}
+        self.drain = drain
+        drain.programs = tuple(self._timed(kind, p) for kind, p in zip(("prefill", "decode"), drain.programs))
+
+    def _timed(self, kind, fn):
+        def call():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            self.marks[kind].append((start, end))
+
+        return call
+
+    def read(self, wall_s: float) -> dict:
+        torch.cuda.synchronize()
+        out = {kind: {"iters": len(m), "device_ms": sum(a.elapsed_time(b) for a, b in m)}
+               for kind, m in self.marks.items()}
+        iters = sum(v["iters"] for v in out.values())
+        busy = sum(v["device_ms"] for v in out.values())
+        out["host_gap_ms_per_iter"] = (wall_s * 1e3 - busy) / max(1, iters)
+        out["device_share"] = busy / (wall_s * 1e3)
+        for m in self.marks.values():
+            m.clear()
+        return out
+
+
+def timed_fused_pass(engine, prompts, budgets, lanes: int, what: str, timer=None) -> dict:
+    from runia_core_tpu_torch.utils import CudaGraph
+
+    captures = CudaGraph.captures
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with no_host_sync():
+        results = engine.generate_all_fused(prompts, budgets, prefill_lanes=lanes)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    check_served(results, budgets, what)
+    drain = next(iter(engine._fused_cache.entries.values()))
+    return {"seconds": seconds, "captures": CudaGraph.captures - captures, **engine._last_fused_stats,
+            "flag_reads": drain.flag_reads, "programs": timer.read(seconds) if timer else None}
+
+
+def fused_7b_phase(device, model, interactive_tok_s: dict) -> dict:
+    """The fused offline drain on cell 1 (the 7B int8 + KV8 model, 24
+    requests, SERVE7B_ENGINE) in lanes of 4 x 128 chosen on the device: the
+    first call captures the two iteration programs and is the main path
+    (counted: kernel 3 at 512 rows, kernel 4's KV8 variant), then timed
+    calls; tok/s beside the interactive drains' (serve_7b_int8),
+    _last_fused_stats, captures a call, the host gap an iteration."""
+    from runia_core_tpu_torch.llm import ContinuousBatchingEngine
+
+    prompts, budgets = serve_traffic(SERVE7B_TRAFFIC, model.vocab_size)
+    useful = sum(budgets)
+    engine = ContinuousBatchingEngine(model, **SERVE7B_ENGINE)
+    _zero_counts()
+    first = timed_fused_pass(engine, prompts, budgets, FUSED_7B_LANES, "fused_7b")
+    launches = _counted()
+    require(launches["quant_matmul"] > 0 and launches["flash_prefix_attention_kv8"] > 0,
+            f"fused_7b: kernels 3 and 4 (KV8) launched on the main path: {launches}")
+    drain = next(iter(engine._fused_cache.entries.values()))
+    per_replay = {name: _graph_launches(p) for name, p in zip(("prefill_iter", "decode_iter"), drain.programs)}
+    timer = FusedTimer(drain)
+    passes = [timed_fused_pass(engine, prompts, budgets, FUSED_7B_LANES, "fused_7b", timer) for _ in range(2)]
+    require(all(p["captures"] == 0 for p in passes), "fused_7b: a warm call captures nothing")
+    tps = useful / _mean(passes, "seconds")
+    record = {"phase": "fused_7b", "engine": SERVE7B_ENGINE, "lanes": FUSED_7B_LANES, "traffic": SERVE7B_TRAFFIC,
+              "useful_tokens": useful, "fused_tok_s": tps, "interactive_tok_s": interactive_tok_s,
+              "seconds": [p["seconds"] for p in passes], "first_call": first, "passes": passes,
+              "launches": launches, "launches_per_replay": per_replay}
+    emit(record)
+    del engine, drain, timer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def uncertainty_serving_phase(device, dense) -> dict:
+    """bench.py:1048-1125: UncertaintyServer with all six methods on the
+    production Llama in bf16 (dense attention) in the merged layout, the
+    deberta-v2-large judge through wrap_torch_nli; a warm pass (the bucketed
+    prefill programs are captured there), then UNC_PASSES timed passes, each
+    on a fresh prompt set: responses/s, every score finite."""
+    from runia_core_tpu_torch.llm import UncertaintyServer
+    from runia_core_tpu_torch.models import DebertaV2Classifier, wrap_torch_nli
+    from runia_core_tpu_torch.utils import CudaGraph
+
+    model = sharing(dense, use_flash=False)
+    nli = DebertaV2Classifier(**NLI_LARGE, dtype=torch.bfloat16).eval()
+    nli.init_weights(torch.Generator(device=device).manual_seed(SEED + 8))
+    judge = wrap_torch_nli(nli, PairTok(NLI_LARGE["vocab_size"]), max_len=96, len_buckets=(96,), batch_bucket=16)
+    server = UncertaintyServer(model, None, SEMANTIC_REQUESTS, num_samples=UNC_SAMPLES, max_new_tokens=UNC_NEW,
+                               temperature=0.9, entailment_model=judge, engine_kwargs=UNC_ENGINE)
+    require(server._merged, "uncertainty_serving: one drain serves the deterministic pass and the samples")
+
+    def one_pass(seed):
+        rng = np.random.RandomState(seed)
+        prompts = [list(rng.randint(1, LLM_CFG["vocab_size"], int(n))) for n in rng.randint(24, 65, UNC_PROMPTS)]
+        captures = CudaGraph.captures
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with no_host_sync():
+            _, scores = server.serve(prompts)
+        seconds = time.perf_counter() - start
+        require(len(scores) == UNC_PROMPTS, "uncertainty_serving: one score dict a prompt")
+        for s_ in scores:
+            require(all(np.isfinite(s_[k]) for k in ("perplexity", "generation_entropy", "RAUQ_original_original",
+                                                      "normalized_entropy", "eigen_score", "semantic_entropy")),
+                    f"uncertainty_serving: every score finite: {s_}")
+        return {"seconds": seconds, "captures": CudaGraph.captures - captures,
+                "semantic_entropy_mean": float(np.mean([s_["semantic_entropy"] for s_ in scores]))}
+
+    warm = one_pass(11)
+    passes = [one_pass(12 + i) for i in range(UNC_PASSES)]
+    stats = server.stats()["deterministic"]
+    record = {"phase": "uncertainty_serving", "config": LLM_CFG, "engine": UNC_ENGINE,
+              "methods": [r["method_name"] for r in SEMANTIC_REQUESTS], "prompts": UNC_PROMPTS,
+              "samples": UNC_SAMPLES, "new_tokens": UNC_NEW, "temperature": 0.9,
+              "judge": "deberta-v2-large geometry (bench.py _NLI_LARGE), max_len 96, batch_bucket 16",
+              "responses_per_s": UNC_PROMPTS / _mean(passes, "seconds"),
+              "decoded_tokens_per_s": UNC_PROMPTS * (1 + UNC_SAMPLES) * UNC_NEW / _mean(passes, "seconds"),
+              "seconds": [p["seconds"] for p in passes], "warm_pass": warm, "passes": passes,
+              "engine_stats": {k: v for k, v in stats.items() if not k.startswith("t_")}}
+    emit(record)
+    del server, judge, nli, model
+    torch.cuda.empty_cache()
+    return {}
+
+
+def generation_service_phase(device, dense) -> dict:
+    """GenerationService on the production Llama (bf16): SERVICE_REQUESTS
+    prompts of mixed lengths submitted from SERVICE_THREADS threads while
+    the worker captures and replays the decode programs. Every
+    generate_batch call the worker made is repeated directly with the same
+    arguments (bit-identical outputs), and every request's result is its
+    row of its call."""
+    import threading
+
+    from runia_core_tpu_torch.llm import GenerationService, TorchGenerator
+    from runia_core_tpu_torch.utils import CudaGraph
+
+    gen = TorchGenerator(dense, max_new_tokens=SERVICE_NEW)
+    calls, real = [], gen.generate_batch
+
+    def recorded(prompts, **kw):
+        out = real(prompts, **kw)
+        calls.append((prompts, kw, out))
+        return out
+
+    gen.generate_batch = recorded
+    rng = np.random.RandomState(SEED + 30)
+    prompts = [list(rng.randint(1, LLM_CFG["vocab_size"], int(n))) for n in rng.randint(16, 161, SERVICE_REQUESTS)]
+    service = GenerationService(gen, max_batch=SERVICE_BATCH, max_wait_s=0.05, length_bucket=64)
+    futures = [None] * len(prompts)
+
+    def submit(part):
+        for i in range(part, len(prompts), SERVICE_THREADS):
+            futures[i] = service.submit(prompts[i])
+
+    captures = CudaGraph.captures
+    start = time.perf_counter()
+    threads = [threading.Thread(target=submit, args=(k,)) for k in range(SERVICE_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    try:
+        results = [f.result(timeout=600) for f in futures]
+    finally:
+        service.close()
+    seconds = time.perf_counter() - start
+    gen.generate_batch = real
+    for filled, kw, out in calls:
+        again = gen.generate_batch(filled, **kw)
+        require(np.array_equal(again["sequences"], out["sequences"])
+                and np.array_equal(again["log_probs"], out["log_probs"]),
+                "generation_service: a direct generate_batch call equals the worker's")
+    for p, res in zip(prompts, results):
+        row = next((filled, i, out) for filled, _, out in calls for i, q in enumerate(filled) if list(q) == list(p))
+        filled, i, out = row
+        seq = out["sequences"][i]
+        require(np.array_equal(res["sequences"][0], seq[seq.shape[0] - len(p) - SERVICE_NEW:])
+                and np.array_equal(res["log_probs"], out["log_probs"][i]),
+                "generation_service: each result is its row of its call")
+        require(res["sequences"][0][:len(p)].tolist() == [int(t) for t in p], "generation_service: the prompt leads")
+    record = {"phase": "generation_service", "config": LLM_CFG, "requests": SERVICE_REQUESTS,
+              "threads": SERVICE_THREADS, "max_batch": SERVICE_BATCH, "new_tokens": SERVICE_NEW,
+              "calls": len(calls), "rows_per_call": [len(c[0]) for c in calls],
+              "pad_to": sorted({c[1]["pad_to"] for c in calls}), "seconds": seconds,
+              "requests_per_s": SERVICE_REQUESTS / seconds, "captures": CudaGraph.captures - captures,
+              "identical_to_direct_calls": True}
+    emit(record)
+    del gen
+    _drop_programs()
+    torch.cuda.empty_cache()
+    return {}
+
+
+def spec_serve_check_phase(device) -> dict:
+    """Correctness of the new programs on the card, under sync-debug
+    "error" (the flag reads are the only other waits). (a) Replays against
+    use_graph=False at the 7B width, 2 layers, int8 + KV8 with a 1-block
+    draft: the spec round chunk and lanes, both fused iterations (plain and
+    spec): tokens identical, log-probs within GRAPH_LOGPROB_ATOL.
+    (b) f32, 2 layers: the card against the CPU for the spec engine and the
+    fused drains (LLM_XCHECK_REL of max(1, |lp|)), int8 + KV8 too. (c) The
+    spec engine's greedy tokens are the plain engine's (f32).
+    (d) generate_all_fused(prefill_lanes=1) equals generate_all bit for
+    bit."""
+    from runia_core_tpu_torch.llm import ContinuousBatchingEngine
+    from runia_core_tpu_torch.models import LlamaLM, fuse_quantized_llama_params, quantize_llama_params
+
+    record = {"graph_vs_eager": {}, "card_vs_cpu": {}, "spec_vs_plain": {}, "fused_one_lane_vs_interactive": {}}
+    n = SERVE_CHECK_REQUESTS
+    sp, sb = spec_traffic(SERVE7B_CFG["vocab_size"])
+    sp, sb = sp[:n], sb[:n]
+    p7, b7 = serve_traffic(SERVE7B_TRAFFIC, SERVE7B_CFG["vocab_size"])
+    p7, b7 = p7[:n], b7[:n]
+    small = build_serve7b(device, SPEC_CHECK_LAYERS)
+    target, draft = distilled_pair(small, 1)
+    spec_kw = dict(SPEC7B_ENGINE, draft_model=draft, gamma=SPEC_GAMMA)
+    fused_spec_kw = dict(SERVE7B_ENGINE, chunk_tokens=SPEC7B_ENGINE["chunk_tokens"], draft_model=draft,
+                         gamma=SPEC_GAMMA)
+    cases = [("spec_engine", spec_kw, sp, sb, None), ("fused_plain", SERVE7B_ENGINE, p7, b7, FUSED_7B_LANES),
+             ("fused_spec", fused_spec_kw, p7, b7, FUSED_7B_LANES)]
+
+    def run(engine, prompts, budgets, lanes):
+        if lanes is None:
+            return serve_pass(engine, prompts, budgets)
+        return engine.generate_all_fused(prompts, budgets, prefill_lanes=lanes)
+
+    for name, kw, prompts, budgets, lanes in cases:
+        graph = ContinuousBatchingEngine(target, **kw)
+        eager = ContinuousBatchingEngine(target, **kw, use_graph=False)
+        with no_host_sync():
+            want = run(eager, prompts, budgets, lanes)
+            got = run(graph, prompts, budgets, lanes)
+        check_served(got, budgets, f"spec_serve_check {name}")
+        err = _same_served(got, want, GRAPH_LOGPROB_ATOL, f"spec_serve_check {name}: replay vs eager")
+        same_stats = graph._last_fused_stats == eager._last_fused_stats if lanes else (
+            graph.stats()["accepted"] == eager.stats()["accepted"])
+        require(same_stats, f"spec_serve_check {name}: the schedules agree")
+        record["graph_vs_eager"][name] = {"max_abs_err_log_probs": err, "requests": len(prompts),
+                                          "stats": graph._last_fused_stats if lanes else
+                                          {k: graph.stats()[k] for k in ("accepted", "proposed")}}
+        if name == "fused_plain":
+            with no_host_sync():
+                one = graph.generate_all_fused(prompts, budgets, prefill_lanes=1)
+                inter = serve_pass(ContinuousBatchingEngine(target, **dict(kw, prefill_lanes=1)), prompts, budgets)
+            _same_served(one, inter, 0.0, "spec_serve_check: fused lanes 1 vs generate_all, int8")
+            record["fused_one_lane_vs_interactive"]["int8_kv8"] = True
+        del graph, eager
+    del small, target, draft
+
+    cfg = dict(SERVE7B_CFG, num_layers=SPEC_CHECK_LAYERS)
+    f32 = LlamaLM(**cfg, dtype=torch.float32, use_flash=True).eval()
+    f32.init_weights(torch.Generator(device=device).manual_seed(SEED + 31))
+    int8 = LlamaLM(**cfg, dtype=torch.float32, use_flash=True, quantized=True, quantized_kv=True,
+                   fused_qkv=True).eval()
+    int8.load_state_dict(fuse_quantized_llama_params(quantize_llama_params(f32.state_dict())))
+    rng = np.random.RandomState(SEED + 32)
+    xc = SERVE_XCHECK
+    system = list(rng.randint(1, cfg["vocab_size"], xc["system"]))
+    prompts = [system + list(rng.randint(1, cfg["vocab_size"], rng.randint(*xc["suffix"])))
+               for _ in range(xc["requests"])]
+    budgets = [2 * xc["new"]] * len(prompts)
+    kw = dict(num_slots=4, max_ctx=SERVE7B_ENGINE["max_ctx"], max_new_tokens=2 * xc["new"], chunk_tokens=10,
+              prefill_chunk=128, prefill_lanes=4, prefix_cache=True)
+    for name, model in (("f32", f32), ("int8_kv8", int8)):
+        target, draft = distilled_pair(model, 1)
+        cpu_t, cpu_d = (LlamaLM(**{k: getattr(m, k) for k in ("vocab_size", "num_layers", "num_heads",
+                                                              "num_kv_heads", "d_model", "hidden_dim", "max_len",
+                                                              "use_flash", "quantized", "quantized_kv",
+                                                              "fused_qkv")}, dtype=torch.float32,
+                                device="cpu").eval() for m in (target, draft))
+        cpu_t.load_state_dict({k: v.cpu() for k, v in target.state_dict().items()})
+        cpu_d.load_state_dict({k: v.cpu() for k, v in draft.state_dict().items()})
+        out = {}
+        for what, lanes in (("spec_engine", None), ("fused_spec", 4), ("fused_plain", 4)):
+            spec_extra = {} if what == "fused_plain" else dict(gamma=SPEC_GAMMA)
+            card = ContinuousBatchingEngine(target, **kw, **spec_extra,
+                                            **({} if what == "fused_plain" else {"draft_model": draft}))
+            cpu = ContinuousBatchingEngine(cpu_t, **kw, **spec_extra,
+                                           **({} if what == "fused_plain" else {"draft_model": cpu_d}))
+            with no_host_sync():
+                got = run(card, prompts, budgets, lanes)
+            want = run(cpu, prompts, budgets, lanes)
+            out[what] = {"max_rel_err_log_probs": _same_served(got, want, LLM_XCHECK_REL[name],
+                                                               f"spec_serve_check {name} {what}: card vs CPU",
+                                                               rel=True)}
+            if what == "spec_engine":
+                out[what]["acceptance"] = card.stats().get("acceptance")
+                if name == "f32":
+                    plain = ContinuousBatchingEngine(target, **kw)
+                    with no_host_sync():
+                        base = serve_pass(plain, prompts, budgets)
+                    record["spec_vs_plain"]["f32_tokens_identical"] = all(
+                        a["tokens"] == b["tokens"] for a, b in zip(got, base))
+                    require(record["spec_vs_plain"]["f32_tokens_identical"],
+                            "spec_serve_check: greedy spec tokens are the plain engine's (f32)")
+            del card, cpu
+        record["card_vs_cpu"][name] = out
+        del cpu_t, cpu_d, target, draft
+    emit({"phase": "spec_serve_check", "layers": SPEC_CHECK_LAYERS, "bound_graph_log_probs": GRAPH_LOGPROB_ATOL,
+          "bound_card_vs_cpu": LLM_XCHECK_REL, **record})
+    del f32, int8
+    torch.cuda.empty_cache()
+    return record
+
+
 def _drop_programs() -> None:
     """Forget every cached decode program (their buffers and graphs)."""
     from runia_core_tpu_torch.llm.generate import _PROGRAM_CACHE
@@ -2627,15 +3165,28 @@ def main() -> None:
     speculative = timed("spec_slice", spec_slice_phase, device, models["bf16"])
     mixed = timed("serve_mixed_96", serve_mixed_96_phase, device, models["bf16"])
     timed("serve_check", serve_check_phase, device, models["bf16"])
+    spec1b = timed("spec_engine_1b", spec_engine_phase, device, models["bf16"], SPEC1B_ENGINE, "spec_engine_1b", False)
+    timed("uncertainty_serving", uncertainty_serving_phase, device, models["bf16"])
+    timed("generation_service", generation_service_phase, device, models["bf16"])
     del models, dense, int8
     _drop_programs()
     torch.cuda.empty_cache()
-    serve7b = timed("serve_7b_int8", serve_7b_int8_phase, device)
+    start = time.perf_counter()
+    model7b = build_serve7b(device, SERVE7B_CFG["num_layers"])
+    torch.cuda.synchronize()
+    model7b_s = time.perf_counter() - start
+    serve7b, interactive7b = timed("serve_7b_int8", serve_7b_int8_phase, device, model7b, model7b_s)
+    spec7b = timed("spec_engine_7b_int8", spec_engine_phase, device, model7b, SPEC7B_ENGINE, "spec_engine_7b_int8",
+                   True)
+    fused7b = timed("fused_7b", fused_7b_phase, device, model7b, interactive7b)
+    del model7b
+    torch.cuda.empty_cache()
+    timed("spec_serve_check", spec_serve_check_phase, device)
     timed("nli", nli_phase, device)
     moe = timed("moe_slice", moe_slice_phase, device)
     timed("gpt2_slice", family_slice_phase, device, "gpt2")
     timed("neox_slice", family_slice_phase, device, "neox")
-    for counts in (semantic, speculative, mixed, serve7b, moe):
+    for counts in (semantic, speculative, mixed, spec1b, serve7b, spec7b, fused7b, moe):
         for name, n in counts.items():
             if name in launches:
                 launches[name] += n

@@ -1,10 +1,14 @@
 """LLM uncertainty of the PyTorch port: the TorchGenerator decode backend,
 speculative decoding (SpeculativeGenerator), the continuous-batching serving
-engine (ContinuousBatchingEngine), the scores that read their output, the NLI
-judges of semantic entropy, and the streaming attention aggregator."""
+engine (ContinuousBatchingEngine, plain or speculative, with its fused
+offline drain), the serving fronts built on them (UncertaintyServer /
+serve_uncertainties, GenerationService), the scores that read their output,
+the NLI judges of semantic entropy, and the streaming attention aggregator."""
 
 from runia_core_tpu_torch.llm.attention import StreamingAttentionAggregator
 from runia_core_tpu_torch.llm.continuous import ContinuousBatchingEngine, speculative_breakeven
+from runia_core_tpu_torch.llm.serve_uncertainty import UncertaintyServer, serve_uncertainties
+from runia_core_tpu_torch.llm.service import GenerationService
 
 from runia_core_tpu_torch.llm.generate import (
     TorchGenerator,
@@ -32,10 +36,12 @@ from runia_core_tpu_torch.llm.utils import make_nli_batch_labels, make_nli_equiv
 
 __all__ = [
     "ContinuousBatchingEngine",
+    "GenerationService",
     "RAUQ",
     "SpeculativeGenerator",
     "StreamingAttentionAggregator",
     "TorchGenerator",
+    "UncertaintyServer",
     "batched_rauq",
     "compute_uncertainties",
     "eigen_score",
@@ -52,6 +58,7 @@ __all__ = [
     "run_generation",
     "sample_logits",
     "semantic_entropy",
+    "serve_uncertainties",
     "speculative_breakeven",
     "speculative_sample_round",
     "validate_generation_request",

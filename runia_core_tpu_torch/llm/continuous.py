@@ -66,13 +66,35 @@ active or not; a prefix copy brings the donor's whole row). That is legal
 because each row's owner rewrites it before anything attends it; the engine
 keeps every write position of the JAX engine (parked clocks) for that.
 
-Speculative rounds (``draft_model``) and the fused offline drain are not
-ported yet.
+**Speculative rounds** (``draft_model=``): a draft model proposes ``gamma``
+tokens per slot on its own cache, one (S, gamma + 1) target forward
+verifies them, and each slot advances by its own acceptance on the vector
+clocks (:func:`_spec_round`, shared by the interactive chunk and the fused
+drain, as JAX shares ``_make_spec_round``). The correction is deferred
+through ``step_logits`` (greedy) or the per-slot residual distribution
+``samp_logp`` (sampled, exact Leviathan rejection sampling). The decode
+chunk of such an engine is ``chunk_tokens // (gamma + 1)`` rounds, one CUDA
+graph captured at construction; every lane program carries the draft's leg.
+``spec_min_acceptance`` turns speculation off at a drain boundary once the
+measured acceptance sits below it; the plain decode chunk and draft-free
+lane programs are captured then.
+
+**The fused offline drain** (:meth:`ContinuousBatchingEngine.
+generate_all_fused`): JAX runs the whole scheduler as one ``lax.while_loop``.
+Here the scheduler state (slot assignments, prefill progress, clocks, the
+device queue head, the (R, M) output buffers) lives in static buffers of one
+:class:`_FusedDrain` per (R, P_pad, M, lanes) shape, and two programs, a
+prefill iteration and a decode iteration, each end with the refill and a
+2-int flag (any pending prefill, done); the host copies the flag behind an
+event and chooses the next program from it. JAX's dropped scatters
+(``mode="drop"``) aim at spare rows and columns here.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
+import warnings
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -81,9 +103,11 @@ import torch
 
 from runia_core_tpu_torch.llm.generate import sample_logits
 from runia_core_tpu_torch.models.transformer import init_cache
-from runia_core_tpu_torch.utils.graphs import CudaGraph, drawing_from, host_sync, upload
+from runia_core_tpu_torch.utils.graphs import CudaGraph, ProgramCache, copy_to_host, drawing_from, host_sync, upload
 
 __all__ = ["ContinuousBatchingEngine", "speculative_breakeven"]
+
+_FUSED_PROGRAMS = 4  # fused-drain shapes an engine keeps (each holds two programs and its buffers)
 
 
 def _vocab_norm_entropy(log_soft: torch.Tensor) -> torch.Tensor:
@@ -94,19 +118,129 @@ def _vocab_norm_entropy(log_soft: torch.Tensor) -> torch.Tensor:
     return -terms.sum(-1) / float(np.log(log_soft.shape[-1]))
 
 
-def _pack_harvest(toks, lps, ents, emitted, active) -> torch.Tensor:
+def _pack_harvest(toks, lps, ents, emitted, active, extra=None) -> torch.Tensor:
     """Every host-bound output of a chunk as ONE f32 buffer, so the host
-    reads one copy a chunk. Token ids ride as f32, exact below 2**24."""
-    return torch.cat([t.to(torch.float32).reshape(-1) for t in (toks, lps, ents, emitted, active)])
+    reads one copy a chunk. Token ids ride as f32, exact below 2**24;
+    ``extra`` appends a trailer of counters."""
+    parts = [toks, lps, ents, emitted, active] + ([] if extra is None else [extra])
+    return torch.cat([t.to(torch.float32).reshape(-1) for t in parts])
 
 
-def _unpack_harvest(packed: np.ndarray, shape, num_slots):
+def _unpack_harvest(packed: np.ndarray, shape, num_slots, n_extra=0):
     """Invert :func:`_pack_harvest` on the host: (toks, lps, ents, emitted,
-    active) with ``toks/lps/ents/emitted`` of ``shape``."""
+    active, extra) with ``toks/lps/ents/emitted`` of ``shape``."""
     n = int(np.prod(shape))
     sec = [packed[i * n:(i + 1) * n].reshape(shape) for i in range(4)]
     active = packed[4 * n:4 * n + num_slots] > 0.5
-    return sec[0].astype(np.int64), sec[1], sec[2], sec[3] > 0.5, active
+    extra = packed[4 * n + num_slots:4 * n + num_slots + n_extra]
+    return sec[0].astype(np.int64), sec[1], sec[2], sec[3] > 0.5, active, extra
+
+
+def _spec_round(model, draft, gamma: int, eos, do_sample: bool, temperature: float, cache, d_cache,
+                step_logits, samp_logp, slot_pos, active, limit, collect_rauq: bool = False,
+                generator: Optional[torch.Generator] = None, draws: Optional[Dict[str, torch.Tensor]] = None):
+    """ONE speculative round over every slot: JAX's ``_make_spec_round``.
+
+    Select each slot's next token ``tok0`` (argmax of its ``step_logits``
+    row, or a draw from its ``samp_logp`` row), take ``gamma + 1`` draft
+    steps at the per-slot clocks on ``d_cache`` (the last only writes the
+    last proposal's K/V), verify the (S, gamma + 1) block with one target
+    forward on ``cache``, and take the longest agreeing prefix (greedy) or
+    the Leviathan-accepted one (sampled, the residual max(p_t - p_d, 0) at
+    the rejection row carried as the next round's ``samp_logp``). The EOS
+    and budget cuts give the ``emit`` mask; the target's row at the
+    rejection index becomes the slot's next ``step_logits`` (the deferred
+    correction). Both caches are written in place; rejected rows stay stale
+    behind the causal mask until their owner rewrites them.
+
+    ``draws`` may hold the random draws instead of ``generator``: ``tok0``
+    (S, V) and ``draft`` (gamma + 1, S, V) Gumbel noise (a categorical draw
+    is argmax(logits + noise), as ``jax.random.categorical``) and
+    ``uniforms`` (S, gamma), the acceptance draws. Returns a dict of the
+    advanced ``step_logits`` / ``samp_logp`` / ``slot_pos`` / ``active``,
+    the (S, gamma + 1) ``block`` / ``lps`` / ``ents`` / ``emit``, ``take``,
+    ``n_acc`` and, with ``collect_rauq``, ``att_prev`` (L, S, H, gamma + 1):
+    each emission's attention to its previous position in the verify
+    forward.
+    """
+    draws = draws or {}
+    dev = step_logits.device
+    idxs = torch.arange(gamma + 1, device=dev)[None, :]
+    log_soft = torch.log_softmax(step_logits, dim=-1)
+    if do_sample:
+        tok0 = sample_logits(samp_logp, generator, noise=draws.get("tok0"))
+    else:
+        tok0 = torch.argmax(step_logits, dim=-1)
+    # Reported log-probs are the raw target's, not the sampling distribution's.
+    lp0 = log_soft.gather(1, tok0[:, None])[:, 0]
+    ent0 = _vocab_norm_entropy(log_soft)
+
+    tok, proposals, draft_probs = tok0, [], []
+    for j in range(gamma + 1):
+        lg = draft(tok[:, None], d_cache, slot_pos + j, need_attentions=False, need_hiddens=False)[0]
+        if do_sample:
+            row = lg[:, 0] / temperature
+            noise = draws["draft"][j] if "draft" in draws else None
+            tok = sample_logits(row, generator, noise=noise)
+        else:
+            # Greedy ignores the temperature (0.0 is a common greedy idiom).
+            row = lg[:, 0]
+            tok = torch.argmax(row, dim=-1)
+        if j < gamma:
+            proposals.append(tok)
+            if do_sample:
+                draft_probs.append(torch.softmax(row, dim=-1))
+    proposals = torch.stack(proposals, dim=1)  # (S, gamma)
+    block = torch.cat([tok0[:, None], proposals], dim=1)
+    lg, v_attn, _, _ = model(block, cache, slot_pos, need_attentions=collect_rauq, need_hiddens=False)
+    att_prev = None
+    if collect_rauq:
+        # Emission j's query sits at clock + j, its previous position at
+        # clock + j - 1: one column per (slot, j) of (L, S, H, gamma+1, kv).
+        prev = torch.clamp_min(slot_pos[:, None] + idxs - 1, 0)
+        at = prev[None, :, None, :, None].expand(*v_attn.shape[:4], 1)
+        att_prev = v_attn.gather(-1, at)[..., 0]
+    logp = torch.log_softmax(lg, dim=-1)
+    vocab = lg.shape[-1]
+    if do_sample:
+        t_probs = torch.softmax(lg / temperature, dim=-1)
+        d_probs = torch.stack(draft_probs, dim=1)
+        p_t = t_probs[:, :-1].gather(-1, proposals[..., None])[..., 0]
+        p_d = d_probs.gather(-1, proposals[..., None])[..., 0]
+        u = draws.get("uniforms")
+        if u is None:
+            u = torch.rand(p_t.shape, generator=generator, device=dev)
+        accept = u < torch.clamp(p_t / p_d.clamp_min(1e-20), max=1.0)
+        n_acc = torch.cumprod(accept.to(torch.int64), dim=1).sum(1)
+        draft_ext = torch.cat([d_probs, torch.zeros_like(t_probs[:, :1])], dim=1)
+        at = n_acc[:, None, None].expand(-1, 1, vocab)
+        t_row = t_probs.gather(1, at)[:, 0]
+        residual = (t_row - draft_ext.gather(1, at)[:, 0]).clamp_min(0.0)
+        residual = torch.where(residual.sum(-1, keepdim=True) > 0, residual, t_row)
+        samp_logp = torch.where(active[:, None], torch.log(residual + 1e-30), samp_logp)
+    else:
+        preds = torch.argmax(lg, dim=-1)
+        n_acc = torch.cumprod((proposals == preds[:, :-1]).to(torch.int64), dim=1).sum(1)
+
+    lps = torch.cat([lp0[:, None], logp[:, :-1].gather(-1, proposals[..., None])[..., 0]], dim=1)
+    ents = torch.cat([ent0[:, None], _vocab_norm_entropy(logp[:, :-1])], dim=1)
+    cand = n_acc + 1
+    if eos is not None:
+        is_eos = (block == eos) & (idxs < cand[:, None])
+        has_eos = is_eos.any(1)
+        cand = torch.where(has_eos, torch.argmax(is_eos.to(torch.int64), dim=1) + 1, cand)
+    emit = active[:, None] & (idxs < cand[:, None]) & ((slot_pos[:, None] + idxs) < limit[:, None])
+    take = emit.sum(1)
+    new_pos = slot_pos + take
+    new_active = active & (new_pos < limit)
+    if eos is not None:
+        new_active = new_active & ~has_eos
+    nxt_row = lg.gather(1, n_acc[:, None, None].expand(-1, 1, vocab))[:, 0]
+    return {
+        "step_logits": torch.where(active[:, None], nxt_row, step_logits), "samp_logp": samp_logp,
+        "slot_pos": new_pos, "active": new_active, "block": block, "lps": lps, "ents": ents, "emit": emit,
+        "take": take, "n_acc": n_acc, "att_prev": att_prev,
+    }
 
 
 def speculative_breakeven(cost_ratio: float, gamma: int, overhead: float = 0.0) -> float:
@@ -138,6 +272,21 @@ def speculative_breakeven(cost_ratio: float, gamma: int, overhead: float = 0.0) 
         else:
             hi = mid
     return hi
+
+
+def _prefill_rows(model, cache, slots, tokens, write_pos, need_hiddens=False, last_logits_only=False):
+    """A prefill-lane forward: the cache rows of ``slots`` gathered, the
+    (W, C) ``tokens`` written at each lane's ``write_pos`` and the rows
+    scattered back (duplicate lanes write identical rows). Returns the
+    model's (logits, hiddens)."""
+    rows = {"layers": [{name: buf.index_select(0, slots) for name, buf in layer.items()}
+                       for layer in cache["layers"]]}
+    logits, _, hiddens, _ = model(tokens, rows, write_pos, need_attentions=False, need_hiddens=need_hiddens,
+                                  last_logits_only=last_logits_only)
+    for layer, row in zip(cache["layers"], rows["layers"]):
+        for name, buf in layer.items():
+            buf.index_copy_(0, slots, row[name])
+    return logits, hiddens
 
 
 class _Program:
@@ -351,19 +500,25 @@ class ContinuousBatchingEngine:
                 )
             if draft_model.vocab_size != model.vocab_size:
                 raise ValueError("draft and target must share one vocabulary")
-            raise NotImplementedError(
-                "the speculative engine (draft_model=) is not ported yet: it is the next slice of "
-                "ROADMAP Queue 1 item 3 (speculative rounds and generate_all_fused); use "
-                "llm.SpeculativeGenerator for speculative decoding"
-            )
-        self._ctx_slack = 0  # the speculative engine's gamma + 1 rows past a clock
+            # Acceptance over the slots live at each round's start, as the
+            # fused drain's _last_fused_stats counts it.
+            self._stats["accepted"] = 0
+            self._stats["proposed"] = 0
+        self._spec_disabled = False
+        self._SPEC_EVIDENCE = 256  # proposals before the break-even guard may fire
+        # Verify and draft passes write gamma + 1 rows past a slot's clock.
+        self._ctx_slack = self.gamma + 1 if draft_model is not None else 0
+        self._rounds = max(1, self.chunk_tokens // (self.gamma + 1))  # spec rounds a decode chunk
         dev = self.device
         self.generator = generator or torch.Generator(device=dev).manual_seed(0)
 
-        # Device state. Row S of step_logits and hid_prev is a spare that a
-        # prefill lane which is not on its last chunk writes into.
+        # Device state. Row S of step_logits, samp_logp and hid_prev is a
+        # spare that a prefill lane which is not on its last chunk writes into.
         S, vocab = self.num_slots, model.vocab_size
         self.cache = init_cache(model, S, self.max_ctx, dev)
+        self.d_cache = init_cache(draft_model, S, self.max_ctx, dev) if draft_model is not None else None
+        self.samp_logp = (torch.zeros((S + 1, vocab), dtype=torch.float32, device=dev)
+                          if draft_model is not None and do_sample else None)
         self.step_logits = torch.zeros((S + 1, vocab), dtype=torch.float32, device=dev)
         self._state = torch.zeros((5 * S,), dtype=torch.int32, device=dev)
         self._hid_prev = self._hid_last = None
@@ -371,10 +526,9 @@ class ContinuousBatchingEngine:
             d = int(model.d_model)
             self._hid_prev = torch.zeros((S + 1, d), dtype=torch.float32, device=dev)
             self._hid_last = torch.zeros((S, d), dtype=torch.float32, device=dev)
-        K = self.chunk_tokens
-        self._packed = torch.zeros((4 * K * S + S,), dtype=torch.float32, device=dev)
-        self._att_prev = (torch.zeros((K, model.num_layers, S, model.num_heads), dtype=torch.float32, device=dev)
-                          if self.collect_rauq else None)
+        self._harvest_buffers(self._spec_on)
+        self._fused_cache = ProgramCache(_FUSED_PROGRAMS)
+        self._last_fused_stats: Dict[str, Any] = {}
         # Host mirrors of the scheduling state: the packed (5 S,) device copy
         # is [slot_pos | kv_start | limit | active | sample flag].
         self.slot_pos = np.zeros((S,), np.int32)  # next write
@@ -387,30 +541,57 @@ class ContinuousBatchingEngine:
 
         # Programs, built while every buffer is zero; the warm-up calls'
         # writes are cleared after.
-        self._gen_own = torch.Generator(device=dev) if do_sample else None
-        self._chunk_prog = _Program(self._chunk_body, dev, self.use_graph,
-                                    [self._gen_own] if do_sample else [])
         self._bucket_args: Dict[tuple, torch.Tensor] = {}
         self._bucket_progs: Dict[tuple, _Program] = {}
         self._lane_args: Dict[int, torch.Tensor] = {}
-        self._lane_progs: Dict[int, _Program] = {}
         if self.prefill_chunk:
             for w in range(1, self.prefill_lanes + 1):
                 self._lane_args[w] = torch.zeros((w, self.prefill_chunk + 7), dtype=torch.int64, device=dev)
-                self._lane_progs[w] = _Program(lambda w=w: self._lane_body(w), dev, self.use_graph)
+        self._build_decode_programs()
         for t in self._device_buffers():
             t.zero_()
-        self._harvest_pool: List[_Harvest] = []
 
         self._slot_req: List[Optional[dict]] = [None] * S
         self._queue: deque = deque()
         self._results: Dict[int, dict] = {}
         self._next_id = 0
 
+    @property
+    def _spec_on(self) -> bool:
+        """Whether the decode chunks are speculative rounds."""
+        return self.draft_model is not None and not self._spec_disabled
+
+    def _harvest_buffers(self, spec: bool) -> None:
+        """The decode chunk's host-bound outputs for the decode mode: K
+        steps, or R rounds of gamma + 1 emissions and the (accepted,
+        proposed) trailer; with ``collect_rauq`` the attention columns."""
+        S, K, G, dev, model = self.num_slots, self.chunk_tokens, self.gamma + 1, self.device, self.model
+        shape = (self._rounds, S, G) if spec else (K, S)
+        self._packed = torch.zeros((4 * int(np.prod(shape)) + S + (2 if spec else 0),), dtype=torch.float32,
+                                   device=dev)
+        att = (self._rounds, model.num_layers, S, model.num_heads, G) if spec else (K, model.num_layers, S,
+                                                                                    model.num_heads)
+        self._att_prev = torch.zeros(att, dtype=torch.float32, device=dev) if self.collect_rauq else None
+        self._harvest_pool: List[_Harvest] = []
+
+    def _build_decode_programs(self) -> None:
+        """The decode chunk of the current mode and the lane programs of
+        every W <= ``prefill_lanes`` (with the draft's leg while speculation
+        is on), captured on a CUDA device with ``use_graph``. Each program
+        draws from a generator of its own."""
+        dev, spec = self.device, self._spec_on
+        self._gen_own = torch.Generator(device=dev) if self.do_sample else None
+        body = self._spec_chunk_body if spec else self._chunk_body
+        self._chunk_prog = _Program(body, dev, self.use_graph, [self._gen_own] if self.do_sample else [])
+        self._lane_progs: Dict[int, _Program] = {
+            w: _Program(lambda w=w: self._lane_body(w, spec), dev, self.use_graph) for w in self._lane_args}
+
     def _device_buffers(self) -> List[torch.Tensor]:
         bufs = [t for layer in self.cache["layers"] for t in layer.values()]
+        if self.d_cache is not None:
+            bufs += [t for layer in self.d_cache["layers"] for t in layer.values()]
         bufs += [self.step_logits, self._state, self._packed, *self._lane_args.values()]
-        return bufs + [t for t in (self._hid_prev, self._hid_last, self._att_prev) if t is not None]
+        return bufs + [t for t in (self._hid_prev, self._hid_last, self._att_prev, self.samp_logp) if t is not None]
 
     # -- device programs ------------------------------------------------------
     def _chunk_body(self) -> None:
@@ -479,13 +660,48 @@ class ContinuousBatchingEngine:
         state[0].copy_(slot_pos)
         state[3].copy_(active)
 
-    def _lane_body(self, W: int) -> None:
+    def _spec_chunk_body(self) -> None:
+        """``chunk_tokens // (gamma + 1)`` speculative rounds for every slot
+        (:func:`_spec_round`): the JAX ``_build_spec_chunk`` scan, unrolled.
+        The harvest carries the rounds' (accepted, proposed) sums."""
+        S, gamma = self.num_slots, self.gamma
+        state = self._state.view(5, S)
+        slot_pos, limit, active = state[0].long(), state[2].long(), state[3] > 0
+        step_logits = self.step_logits[:S]
+        samp_logp = self.samp_logp[:S] if self.samp_logp is not None else None
+        toks, lps, ents, emits, accs = [], [], [], [], []
+        for r in range(self._rounds):
+            out = _spec_round(self.model, self.draft_model, gamma, self.eos_id, self.do_sample, self.temperature,
+                              self.cache, self.d_cache, step_logits, samp_logp, slot_pos, active, limit,
+                              collect_rauq=self.collect_rauq, generator=self._gen_own)
+            emit = out["emit"]
+            toks.append(torch.where(emit, out["block"], torch.zeros_like(out["block"])))
+            lps.append(torch.where(emit, out["lps"], torch.full_like(out["lps"], float("-inf"))))
+            ents.append(out["ents"])
+            emits.append(emit)
+            accs.append(torch.stack([torch.where(active, out["n_acc"], 0).sum(), torch.where(active, gamma, 0).sum()]))
+            if self.collect_rauq:
+                self._att_prev[r].copy_(out["att_prev"])
+            step_logits, samp_logp = out["step_logits"], out["samp_logp"]
+            slot_pos, active = out["slot_pos"], out["active"]
+        self.step_logits[:S].copy_(step_logits)
+        if samp_logp is not None:
+            self.samp_logp[:S].copy_(samp_logp)
+        self._packed.copy_(_pack_harvest(torch.stack(toks), torch.stack(lps), torch.stack(ents), torch.stack(emits),
+                                         active, extra=torch.stack(accs).sum(0)))
+        state[0].copy_(slot_pos)
+        state[3].copy_(active)
+
+    def _lane_body(self, W: int, with_draft: bool = False) -> None:
         """Advance W slots' prefills by one chunk each in one (W, C)
         forward: the JAX ``_build_prefill_chunk_many`` (W = 1 is its
         ``_build_prefill_chunk``). Each lane's cache row is gathered from
         its slot, written at its own offset and scattered back; a lane on
         its final chunk sets its slot's next-token logits (and hidden
-        vector) from its last real token, the others write the spare row."""
+        vector, and the sampled speculative engine's ``samp_logp``, JAX's
+        ``_seed_samp``) from its last real token, the others write the
+        spare row. ``with_draft``: the draft tracks the same chunk on its
+        own cache."""
         S, C, li = self.num_slots, self.prefill_chunk, self.collect_hidden
         args = self._lane_args[W]
         tokens = args[:, :C]
@@ -494,16 +710,14 @@ class ContinuousBatchingEngine:
         # kv_start and limit, activate the slot on its final chunk.
         edits = torch.stack([parked, torch.zeros_like(parked), limit, is_last, samp]).to(torch.int32)
         self._state.view(5, S).index_copy_(1, slots, edits)
-        rows = {"layers": [{name: buf.index_select(0, slots) for name, buf in layer.items()}
-                           for layer in self.cache["layers"]]}
-        logits, _, hiddens, _ = self.model(tokens, rows, write_pos, need_attentions=False,
-                                           need_hiddens=li is not None)
-        for layer, row in zip(self.cache["layers"], rows["layers"]):
-            for name, buf in layer.items():
-                buf.index_copy_(0, slots, row[name])
+        logits, hiddens = _prefill_rows(self.model, self.cache, slots, tokens, write_pos, need_hiddens=li is not None)
+        if with_draft:  # the draft's logits are never read
+            _prefill_rows(self.draft_model, self.d_cache, slots, tokens, write_pos, last_logits_only=True)
         target = torch.where(is_last > 0, slots, torch.full_like(slots, S))
         sel = logits.gather(1, last_idx[:, None, None].expand(W, 1, logits.shape[-1]))[:, 0]
         self.step_logits.index_copy_(0, target, sel)
+        if self.samp_logp is not None:
+            self.samp_logp.index_copy_(0, target, torch.log_softmax(sel / self.temperature, dim=-1))
         if li is not None:
             hvec = hiddens[li].gather(1, last_idx[:, None, None].expand(W, 1, hiddens.shape[-1]))[:, 0]
             self._hid_prev.index_copy_(0, target, hvec)
@@ -566,9 +780,10 @@ class ContinuousBatchingEngine:
         """Slot ``src``'s whole cache row onto slot ``dst``. Rows past the
         shared prefix carry the source's stale data, which the suffix chunks
         and the decode steps rewrite before anything attends them."""
-        for layer in self.cache["layers"]:
-            for buf in layer.values():
-                buf[dst].copy_(buf[src])
+        for cache in (self.cache, self.d_cache):
+            for layer in cache["layers"] if cache is not None else ():
+                for buf in layer.values():
+                    buf[dst].copy_(buf[src])
 
     def _best_prefix(self, prompt: list, ignore_avail: bool = False) -> tuple:
         """(slot, chunk-aligned shared-prefix length) of the best resident
@@ -793,6 +1008,11 @@ class ContinuousBatchingEngine:
             sample = self.do_sample
         elif sample and not self.do_sample:
             raise ValueError("sample=True on a greedy engine (construct with do_sample=True to serve mixed decoding modes)")
+        elif self.draft_model is not None and sample != self.do_sample:
+            raise NotImplementedError(
+                "per-request decoding modes are not supported on the "
+                "speculative engine (the verify path is mode-global)"
+            )
         rid = self._next_id
         self._next_id += 1
         self._queue.append({
@@ -820,6 +1040,7 @@ class ContinuousBatchingEngine:
         if self.defer_fetch:
             yield from self._stream_deferred()
             return
+        self._maybe_disable_spec()
         self._upload_state()
         self._refill()
         inflight = None
@@ -890,7 +1111,7 @@ class ContinuousBatchingEngine:
         K = self.chunk_tokens
         for harvest, owner_reqs, finished in pending:
             packed_np, atts_np, hid_np = harvest.wait(self.device)
-            toks, lps, ents, emitted, _ = _unpack_harvest(packed_np, (K, self.num_slots), self.num_slots)
+            toks, lps, ents, emitted, _, _ = _unpack_harvest(packed_np, (K, self.num_slots), self.num_slots)
             self._stats["tokens_emitted"] += int(emitted.sum())
             for slot, req in owner_reqs.items():
                 before = len(req["tokens"])
@@ -965,8 +1186,18 @@ class ContinuousBatchingEngine:
         self._stats["t_fetch_s"] += time.perf_counter() - t1
         t_sched = time.perf_counter()
         events = []
-        toks, lps, ents, emitted, active_now = _unpack_harvest(
-            packed_np, (self.chunk_tokens, self.num_slots), self.num_slots)
+        S = self.num_slots
+        if self._spec_on:
+            toks, lps, ents, emitted, active_now, acc = _unpack_harvest(
+                packed_np, (self._rounds, S, self.gamma + 1), S, n_extra=2)
+            self._stats["accepted"] += int(acc[0])
+            self._stats["proposed"] += int(acc[1])
+            # (R, S, gamma+1) round blocks -> (R (gamma+1), S) steps in order.
+            toks, lps, ents, emitted = (a.swapaxes(1, 2).reshape(-1, S) for a in (toks, lps, ents, emitted))
+            if atts is not None:  # (R, L, S, H, gamma+1) -> (R (gamma+1), L, S, H)
+                atts = np.transpose(atts, (0, 4, 1, 2, 3)).reshape(-1, *atts.shape[1:4])
+        else:
+            toks, lps, ents, emitted, active_now, _ = _unpack_harvest(packed_np, (self.chunk_tokens, S), S)
         # Each slot's clock moved by its emissions (zero for slots the chunk
         # did not own); active comes back in the harvest but only owned
         # slots take it: a slot refilled after dispatch keeps its state.
@@ -1000,12 +1231,49 @@ class ContinuousBatchingEngine:
         self._stats["t_sched_s"] += time.perf_counter() - t_sched
         yield from events
 
+    def _maybe_disable_spec(self) -> None:
+        """The drain-boundary break-even check (``spec_min_acceptance``):
+        once ``_SPEC_EVIDENCE`` proposals are counted and the measured
+        acceptance sits below the floor, speculation is off for good. Only
+        at a drain boundary, as the sampled residual rides between rounds.
+        The plain decode chunk and the draft-free lane programs are built
+        then (one capture each); the draft cache stays allocated."""
+        if (self.spec_min_acceptance is None or self._spec_disabled or self.draft_model is None
+                or self._stats.get("proposed", 0) < self._SPEC_EVIDENCE):
+            return
+        acc = self._stats["accepted"] / self._stats["proposed"]
+        if acc < self.spec_min_acceptance:
+            warnings.warn(
+                f"speculative decoding disabled: measured acceptance "
+                f"{acc:.3f} < break-even {self.spec_min_acceptance:.3f} "
+                f"(gamma={self.gamma}); continuing on the plain decode path"
+            )
+            self._spec_disabled = True
+            self._stats["spec_disabled"] = 1
+            self._harvest_buffers(False)
+            # The lane programs' warm-up runs on null lanes (all slot 0, write
+            # position 0): it writes garbage into slot 0's first rows, so slot
+            # 0's prompt is no longer resident for the prefix cache. The
+            # decode chunk's warm-up writes at each idle slot's clock, past
+            # its prompt, where the next owner rewrites before attending.
+            for args in self._lane_args.values():
+                args.zero_()
+            self._build_decode_programs()
+            if any(p.graph is not None for p in self._lane_progs.values()):
+                self._slot_prompt[0] = None
+
     def stats(self) -> dict:
         """Serving counters (host-side): requests finished, tokens emitted,
         decode and prefill program calls, prefix-cache hits, admissions
         deferred for a donor mid-prefill, and the wall-time breakdown.
-        Cumulative over the engine's life."""
-        return {**self._stats, "prefix_hits": self.prefix_hits}
+        Speculative engines add ``accepted`` / ``proposed`` and the derived
+        ``acceptance`` (interactive and fused drains together), and
+        ``spec_disabled`` once the break-even guard fired. Cumulative over
+        the engine's life."""
+        out = {**self._stats, "prefix_hits": self.prefix_hits}
+        if out.get("proposed"):
+            out["acceptance"] = round(out["accepted"] / out["proposed"], 4)
+        return out
 
     def result(self, request_id: int) -> dict:
         return self._results[request_id]
@@ -1023,3 +1291,337 @@ class ContinuousBatchingEngine:
         ids = [self.submit(p) for p in prompts]
         self.run_until_drained()
         return [self.result(i) for i in ids]
+
+    # -- fused offline drain ---------------------------------------------------
+    def generate_all_fused(self, prompts: Sequence[Sequence[int]], max_new_tokens: Optional[Sequence[int]] = None,
+                           prefill_lanes: int = 4) -> List[Dict[str, Any]]:
+        """Drain a workload known up front with the scheduler on the device.
+
+        The results contract of :meth:`generate_all` (ordered dicts of
+        ``tokens`` / ``log_probs`` / ``perplexity`` / ``generation_entropy``),
+        the scheduler JAX's ``_fused_drain_fn``: free slots refill from a
+        device-side queue by vectorised rank, each iteration either advances
+        up to ``prefill_lanes`` pending prefills (lanes chosen on the device,
+        padded with the first pending slot) or decodes every active slot
+        (``chunk_tokens`` steps, or ``chunk_tokens // (gamma + 1)``
+        speculative rounds with a draft model), and emissions scatter
+        straight into per-request output buffers. The two iteration programs
+        of a (requests, padded prompt, largest budget, lanes) shape are
+        built at its first call (see :class:`_FusedDrain`); the host reads a
+        2-int flag after each. ``max_new_tokens`` takes one budget per
+        prompt. ``prefill_lanes=1`` gives the interactive drain's results
+        bit for bit; wider lanes can flip a greedy near-tie in bf16.
+
+        Needs chunked prefill; RAUQ and hidden-state collection are
+        interactive-drain features and are rejected, and the prefix cache
+        is not consulted (its residency is dropped after the run).
+        ``_last_fused_stats`` holds the iteration counts (and, with a draft,
+        accepted / proposed / acceptance).
+        """
+        if not self.prefill_chunk:
+            raise ValueError("generate_all_fused requires prefill_chunk")
+        if self.collect_rauq:
+            raise ValueError(
+                "generate_all_fused supports the plain decode path only "
+                "(no RAUQ collection)"
+            )
+        if self.collect_hidden is not None:
+            raise ValueError(
+                "generate_all_fused does not stream hidden states "
+                "(collect_hidden is an interactive-drain feature)"
+            )
+        if any(r is not None for r in self._slot_req) or self._queue:
+            raise RuntimeError("engine has in-flight requests; drain them before a fused run")
+        prompts = [list(p) for p in prompts]
+        if not prompts:
+            return []
+        R = len(prompts)
+        if max_new_tokens is None:
+            budgets = [self.max_new_tokens] * R
+        else:
+            budgets = [int(b) for b in max_new_tokens]
+            if len(budgets) != R:
+                raise ValueError("one budget per prompt")
+        # lpt: the device queue holds the longest budgets first; the
+        # results come back in the caller's order.
+        order = list(range(R))
+        if self.admission == "lpt":
+            order.sort(key=lambda i: -budgets[i])
+            prompts = [prompts[i] for i in order]
+            budgets = [budgets[i] for i in order]
+        C = self.prefill_chunk
+        for p, b in zip(prompts, budgets):
+            if not p:
+                raise ValueError("chunked prefill needs a non-empty prompt")
+            if len(p) + b + self._ctx_slack > self.max_ctx:
+                raise ValueError(
+                    f"prompt of {len(p)} tokens + {b} new "
+                    f"(+{self._ctx_slack} speculative slack) exceeds "
+                    f"max_ctx={self.max_ctx}"
+                )
+        P_pad = -(-max(len(p) for p in prompts) // C) * C
+        M = max(max(budgets), 1)
+        req_tokens = np.zeros((R, P_pad), np.int64)
+        for i, p in enumerate(prompts):
+            req_tokens[i, :len(p)] = p
+
+        drain = self._fused_cache.get_or_build((R, P_pad, M, int(prefill_lanes)),
+                                               lambda: _FusedDrain(self, R, P_pad, M, int(prefill_lanes)))
+        with torch.no_grad():
+            out_t, out_l, out_e, n_emit, iters = drain.run(
+                req_tokens, np.asarray([len(p) for p in prompts], np.int64), np.asarray(budgets, np.int64))
+        # The run rewrote cache rows under its own slot schedule: no prompt
+        # the interactive scheduler saw is resident any more.
+        self._slot_prompt = [None] * self.num_slots
+        self._last_fused_stats = {"prefill_iters": int(iters[0]), "decode_iters": int(iters[1])}
+        self._stats["prefill_chunks"] += int(iters[0])
+        self._stats["decode_chunks"] += int(iters[1])
+        if self.draft_model is not None:
+            acc, prop = int(iters[2]), int(iters[3])
+            self._last_fused_stats.update(accepted=acc, proposed=prop,
+                                          acceptance=round(acc / prop, 4) if prop else 0.0)
+            self._stats["accepted"] += acc
+            self._stats["proposed"] += prop
+        results = []
+        for i in range(R):
+            n = int(n_emit[i])
+            toks, lps, ents = [int(t) for t in out_t[i, :n]], out_l[i, :n], out_e[i, :n]
+            if self.eos_id is not None and self.eos_id in toks:
+                cut = toks.index(self.eos_id)
+                toks, lps, ents = toks[:cut], lps[:cut], ents[:cut]
+            lps, ents = np.asarray(lps, np.float32), np.asarray(ents, np.float32)
+            results.append({
+                "tokens": toks,
+                "log_probs": lps,
+                "prompt_length": len(prompts[i]),
+                "perplexity": float(-lps.mean()) if len(toks) else float("nan"),
+                "generation_entropy": float(ents.mean()) if len(toks) else float("nan"),
+            })
+            self._stats["requests_finished"] += 1
+            # What the device emitted, an EOS included, as the interactive
+            # drain counts it.
+            self._stats["tokens_emitted"] += n
+        if self.admission == "lpt":
+            undo = [0] * R
+            for pos, i in enumerate(order):
+                undo[i] = pos
+            results = [results[undo[i]] for i in range(R)]
+        return results
+
+
+class _FusedDrain:
+    """The fused offline drain of one (R requests, P_pad prompt slots, M
+    budget, lanes) shape on one engine: JAX's ``lax.while_loop`` drain, its
+    loop on the host.
+
+    Static buffers: the request table (tokens (R, P_pad), lengths, budgets,
+    prefill chunks), the scheduler state (per slot: request, write position,
+    prefill chunks left, clock, first emission's clock, limit, active; the
+    queue head), the outputs (tokens, log-probs, entropies (R + 1, M + 1)
+    and emission counts (R + 1,)), the iteration counters [prefill, decode,
+    accepted, proposed] and the flag [any prefill pending, done]. JAX's
+    dropped scatters land in row R / column M here, and a lane that is not
+    on its final chunk writes the engine's spare row S (the clock, start,
+    limit and active vectors carry a spare entry S too).
+
+    Two programs: :meth:`prefill_iter` and :meth:`decode_iter` (plain steps
+    or speculative rounds), each ending with :meth:`refill` and
+    :meth:`set_flag`. On a CUDA engine with ``use_graph`` both are captured
+    at the shape's first call, before it runs: their warm-ups run on the
+    zeroed scheduler and write only cache rows the drain rewrites before
+    attending them (and the spare rows), and the state is reset after. They
+    draw from a generator of their own, lent the engine's state for a call.
+    """
+
+    def __init__(self, engine: ContinuousBatchingEngine, R: int, P_pad: int, M: int, lanes: int):
+        dev, S = engine.device, engine.num_slots
+        self.engine, self.R, self.P_pad, self.M, self.W = engine, R, P_pad, M, min(lanes, S)
+        self.use_samp = engine.do_sample and engine.draft_model is not None
+
+        def zeros(*shape, dtype=torch.int64):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.req_tokens, self.req_len, self.req_budget, self.n_chunks = zeros(R, P_pad), zeros(R), zeros(R), zeros(R)
+        self.slot_req, self.write_pos, self.pre_rem = zeros(S), zeros(S), zeros(S)
+        self.slot_pos, self.start, self.limit = zeros(S + 1), zeros(S + 1), zeros(S + 1)
+        self.active = zeros(S + 1, dtype=torch.bool)
+        self.qh = zeros(1)
+        self.out_t = zeros(R + 1, M + 1)
+        self.out_l = zeros(R + 1, M + 1, dtype=torch.float32)
+        self.out_e = zeros(R + 1, M + 1, dtype=torch.float32)
+        self.n_emit, self.iters, self.flag = zeros(R + 1), zeros(4), zeros(2)
+        self.chunk_cols = torch.arange(engine.prefill_chunk, device=dev)
+        self.emit_cols = torch.arange(engine.gamma + 1, device=dev)
+        cuda = dev.type == "cuda"
+        self.flag_host = torch.zeros((2,), dtype=torch.int64, pin_memory=cuda)
+        self.event = torch.cuda.Event() if cuda else None
+        self.generator = torch.Generator(device=dev) if engine.do_sample else None
+        self.programs = None  # (prefill, decode), built at the first call
+        self.flag_reads = 0  # of the last call
+
+    def reset(self) -> None:
+        for t in (self.slot_req, self.write_pos, self.pre_rem, self.slot_pos, self.start, self.limit, self.active,
+                  self.qh, self.out_t, self.out_e, self.n_emit, self.iters):
+            t.zero_()
+        self.out_l.fill_(float("-inf"))
+
+    def refill(self) -> None:
+        """Vectorised admission: the i-th free slot (by rank among the free
+        ones) takes request qh + i."""
+        S, R = self.engine.num_slots, self.R
+        free = ~self.active[:S] & (self.pre_rem == 0)
+        n_free = free.to(torch.int64)
+        at = self.qh + torch.cumsum(n_free, 0) - 1
+        take = free & (at < R)
+        r_new = at.clamp(0, R - 1)
+        self.slot_req.copy_(torch.where(take, r_new, self.slot_req))
+        self.write_pos.copy_(torch.where(take, 0, self.write_pos))
+        self.pre_rem.copy_(torch.where(take, self.n_chunks[r_new], self.pre_rem))
+        self.qh.add_(torch.minimum(n_free.sum(), (R - self.qh).clamp_min(0)))
+
+    def set_flag(self) -> None:
+        S = self.engine.num_slots
+        pending = (self.pre_rem > 0).any()
+        done = (self.qh[0] >= self.R) & ~self.active[:S].any() & ~pending
+        self.flag.copy_(torch.stack([pending, done]).to(torch.int64))
+
+    def prefill_iter(self) -> None:
+        """Advance up to W pending prefills by one chunk in one (W, C)
+        forward (and the draft's), lanes chosen on the device: the first W
+        pending slots, padded with the first one (duplicate lanes compute
+        and write identical rows)."""
+        e = self.engine
+        S, C, W = e.num_slots, e.prefill_chunk, self.W
+        pending = self.pre_rem > 0
+        order = torch.argsort((~pending).to(torch.int32), stable=True)
+        lanes = torch.where(pending[order[:W]], order[:W], order[0])
+        r_l, w_l = self.slot_req[lanes], self.write_pos[lanes]
+        # dynamic_slice's clamp keeps the C-token window inside the table.
+        cols = w_l.clamp(max=self.P_pad - C)[:, None] + self.chunk_cols[None, :]
+        tokens = self.req_tokens[r_l[:, None], cols]
+        logits, _ = _prefill_rows(e.model, e.cache, lanes, tokens, w_l)
+        if e.draft_model is not None:
+            _prefill_rows(e.draft_model, e.d_cache, lanes, tokens, w_l, last_logits_only=True)
+        rem = self.pre_rem[lanes]
+        r_len = self.req_len[r_l]
+        last_idx = (r_len - 1 - w_l).clamp(0, C - 1)
+        sel = logits.gather(1, last_idx[:, None, None].expand(W, 1, logits.shape[-1]))[:, 0]
+        target = torch.where(rem == 1, lanes, S)
+        e.step_logits.index_copy_(0, target, sel)
+        if self.use_samp:
+            e.samp_logp.index_copy_(0, target, torch.log_softmax(sel / e.temperature, dim=-1))
+        self.slot_pos.index_copy_(0, target, r_len)
+        self.start.index_copy_(0, target, r_len)
+        self.limit.index_copy_(0, target, r_len + self.req_budget[r_l])
+        self.active.index_fill_(0, target, True)
+        self.write_pos.index_copy_(0, lanes, w_l + C)
+        self.pre_rem.index_copy_(0, lanes, rem - 1)
+        self.iters[0] += 1
+        self.refill()
+        self.set_flag()
+
+    def decode_iter(self) -> None:
+        """Every active slot decodes: ``chunk_tokens`` steps, or
+        ``chunk_tokens // (gamma + 1)`` speculative rounds; emissions go
+        straight into the output rows of their requests."""
+        e = self.engine
+        S, R, M = e.num_slots, self.R, self.M
+        slot_req, start, limit = self.slot_req, self.start[:S], self.limit[:S]
+        slot_pos, active = self.slot_pos[:S], self.active[:S]
+        step_logits = e.step_logits[:S]
+        if e.draft_model is not None:
+            samp_logp = e.samp_logp[:S] if self.use_samp else None
+            gamma, idxs = e.gamma, self.emit_cols[None, :]
+            acc = torch.zeros((2,), dtype=torch.int64, device=e.device)
+            for _ in range(e._rounds):
+                out = _spec_round(e.model, e.draft_model, gamma, e.eos_id, self.use_samp, e.temperature, e.cache,
+                                  e.d_cache, step_logits, samp_logp, slot_pos, active, limit,
+                                  generator=self.generator)
+                emit, take = out["emit"], out["take"]
+                base = slot_pos - start
+                e_idx = torch.where(emit, base[:, None] + idxs, M)
+                r_idx = torch.where(emit, slot_req[:, None], R)
+                self.out_t.index_put_((r_idx, e_idx), torch.where(emit, out["block"], 0))
+                self.out_l.index_put_((r_idx, e_idx), out["lps"])
+                self.out_e.index_put_((r_idx, e_idx), out["ents"])
+                self.n_emit.index_put_((torch.where(take > 0, slot_req, R),), base + take)
+                acc = acc + torch.stack([torch.where(active, out["n_acc"], 0).sum(),
+                                         torch.where(active, gamma, 0).sum()])
+                step_logits, samp_logp = out["step_logits"], out["samp_logp"]
+                slot_pos, active = out["slot_pos"], out["active"]
+            if samp_logp is not None:
+                e.samp_logp[:S].copy_(samp_logp)
+            self.iters[2:].add_(acc)
+        else:
+            for _ in range(max(1, e.chunk_tokens)):
+                log_soft = torch.log_softmax(step_logits, dim=-1)
+                if e.do_sample:
+                    token = sample_logits(step_logits, self.generator, e.temperature, e.top_k, e.top_p)
+                else:
+                    token = torch.argmax(step_logits, dim=-1)
+                lp = log_soft.gather(1, token[:, None])[:, 0]
+                emitted = active & (slot_pos < limit)
+                token = torch.where(emitted, token, 0)
+                ent = _vocab_norm_entropy(log_soft)
+                if e.eos_id is not None:
+                    active = active & (token != e.eos_id)
+                e_idx = torch.where(emitted, slot_pos - start, M)
+                r_idx = torch.where(emitted, slot_req, R)
+                self.out_t.index_put_((r_idx, e_idx), token)
+                self.out_l.index_put_((r_idx, e_idx), lp)
+                self.out_e.index_put_((r_idx, e_idx), ent)
+                self.n_emit.index_put_((r_idx,), slot_pos - start + 1)
+                # A finished slot's clock may sit at max_ctx: its write
+                # clamps into the cache, as dynamic_update_slice's does.
+                new_logits = e.model(token[:, None], e.cache, slot_pos.clamp(max=e.max_ctx - 1),
+                                     need_attentions=False, need_hiddens=False)[0]
+                slot_pos = slot_pos + emitted.to(torch.int64)
+                active = active & (slot_pos < limit)
+                step_logits = torch.where(emitted[:, None], new_logits[:, 0], step_logits)
+        e.step_logits[:S].copy_(step_logits)
+        self.slot_pos[:S].copy_(slot_pos)
+        self.active[:S].copy_(active)
+        self.iters[1] += 1
+        self.refill()
+        self.set_flag()
+
+    def read_flag(self) -> tuple:
+        """(any prefill pending, done): the host's one wait an iteration."""
+        self.flag_reads += 1
+        if self.event is None:
+            return tuple(bool(v) for v in self.flag.tolist())
+        self.flag_host.copy_(self.flag, non_blocking=True)
+        self.event.record()
+        with host_sync(self.engine.device):
+            self.event.synchronize()
+        return tuple(bool(v) for v in self.flag_host.tolist())
+
+    def run(self, req_tokens: np.ndarray, req_len: np.ndarray, req_budget: np.ndarray):
+        """Load the request table, drain, and return host copies of the
+        outputs (tokens, log-probs, entropies (R, M), emission counts (R,))
+        and the iteration counters."""
+        e = self.engine
+        dev = e.device
+        self.req_tokens.copy_(upload(req_tokens, dev))
+        self.req_len.copy_(upload(req_len, dev))
+        self.req_budget.copy_(upload(req_budget, dev))
+        self.n_chunks.copy_((self.req_len + e.prefill_chunk - 1) // e.prefill_chunk)
+        if self.programs is None:
+            gens = [self.generator] if self.generator is not None else []
+            self.reset()
+            self.programs = (_Program(self.prefill_iter, dev, e.use_graph, gens),
+                             _Program(self.decode_iter, dev, e.use_graph, gens))
+        self.reset()
+        self.refill()
+        self.set_flag()
+        self.flag_reads = 0
+        lend = drawing_from(self.generator, e.generator) if self.generator is not None else contextlib.nullcontext()
+        with lend:
+            while True:
+                pending, done = self.read_flag()
+                if done:
+                    break
+                self.programs[0 if pending else 1]()
+        R, M = self.R, self.M
+        return copy_to_host(self.out_t[:R, :M], self.out_l[:R, :M], self.out_e[:R, :M], self.n_emit[:R],
+                            self.iters)

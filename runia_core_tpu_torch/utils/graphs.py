@@ -30,7 +30,10 @@ CUDA graph once and replays the graph, one host call for all of them:
   launches, so the count goes to the graph being captured, and each replay
   adds it.
 
-A capture that fails raises; nothing falls back to running eagerly.
+A capture that fails raises; nothing falls back to running eagerly. Captures
+use the thread-local error mode: a synchronising or otherwise unsafe call of
+the capturing thread still fails the capture, while other threads (the
+submitters of ``llm/service.py``) stay free to use the card.
 
 :func:`host_sync` marks the one place an entry point waits for the card, the
 copy of its results to the host: under
@@ -171,7 +174,9 @@ class CudaGraph:
                 if g is not default:  # the capture registers the default generator itself
                     self.graph.register_generator_state(g)
             with torch.cuda.stream(stream):
-                self.graph.capture_begin(pool=pool.handle())
+                # Thread-local: only this thread's unsafe calls are checked, so
+                # a serving worker's capture survives CUDA work on other threads.
+                self.graph.capture_begin(pool=pool.handle(), capture_error_mode="thread_local")
                 try:
                     captured = self._as_tuple(fn(**self.inputs))
                     if len(captured) != len(self.outputs):

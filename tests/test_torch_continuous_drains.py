@@ -238,12 +238,6 @@ def test_constructor_errors_have_the_jax_wording(pair, kw):
     assert str(got.value) == str(want.value)
 
 
-def test_draft_model_names_the_next_slice(pair):
-    (_, _, pd), _ = _drafts()
-    with pytest.raises(NotImplementedError, match="not ported yet.*ROADMAP Queue 1 item 3"):
-        ContinuousBatchingEngine(pair[2], prefill_chunk=8, draft_model=pd)
-
-
 @pytest.mark.parametrize("kw, prompt, call", [
     (dict(max_ctx=32, max_new_tokens=30), list(range(1, 20)), dict()),
     (dict(max_ctx=32, max_new_tokens=8, prefill_chunk=8), list(range(1, 30)), dict()),

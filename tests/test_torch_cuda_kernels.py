@@ -815,3 +815,175 @@ def test_engine_greedy_equals_torch_generator_on_the_card(gen):
         for p, g, w in zip(prompts, got, want):
             assert g["tokens"] == w["sequences"][0, len(p):].tolist()
             np.testing.assert_allclose(g["log_probs"], w["log_probs"][0], atol=1e-5, rtol=0)
+
+
+def _tiny_draft(model):
+    """The first block of ``model`` with its embedding, final norm and head:
+    the distilled draft's construction, holding the same tensors."""
+    from runia_core_tpu_torch.models import LlamaLM
+
+    keys = ("vocab_size", "num_heads", "num_kv_heads", "d_model", "hidden_dim", "max_len", "use_flash", "quantized",
+            "quantized_kv", "fused_qkv")
+    draft = LlamaLM(**{k: getattr(model, k) for k in keys}, num_layers=1, device="cuda").eval()
+    draft.load_state_dict({k: v for k, v in model.state_dict().items() if not k.startswith("block_")
+                           or k.startswith("block_0.")}, assign=True)
+    return draft
+
+
+@pytest.mark.parametrize("form", ["f32", "int8_kv8"])
+@pytest.mark.parametrize("draft", ["first_block", "perfect"])
+def test_spec_engine_replays_match_the_eager_engine(gen, form, draft):
+    """The speculative engine's round chunk and its lane programs (with the
+    draft's leg) as CUDA-graph replays against use_graph=False, under
+    sync-debug "error": tokens identical, log-probs within 1e-5, accepted /
+    proposed equal; a warm pass captures nothing; the greedy tokens are the
+    plain engine's; in int8 kernel 3 runs in the round's graph and kernel
+    4's KV8 variant in the lanes."""
+    from runia_core_tpu_torch.llm import ContinuousBatchingEngine
+
+    model = _tiny_llama(form)
+    dm = model if draft == "perfect" else _tiny_draft(model)
+    prompts = _serving_prompts(13, 8, 10, 200, shared=130)
+    budgets = [3, 9, 1, 6, 12, 2, 8, 5]
+    kw = dict(num_slots=4, max_ctx=384, max_new_tokens=12, chunk_tokens=10, prefill_chunk=128, prefill_lanes=4,
+              prefix_cache=True, collect_rauq=True, admission="lpt")
+    eager = ContinuousBatchingEngine(model, draft_model=dm, gamma=4, use_graph=False, **kw)
+    graph = ContinuousBatchingEngine(model, draft_model=dm, gamma=4, **kw)
+    assert graph._chunk_prog.graph is not None and all(p.graph is not None for p in graph._lane_progs.values())
+    k4_kv8 = flash_prefix_attention.kv8_launches
+    with no_host_sync():
+        want = _served(eager, prompts, budgets)
+        got = _served(graph, prompts, budgets)
+        captures = CudaGraph.captures
+        again = _served(graph, prompts, budgets)
+    assert CudaGraph.captures == captures
+    _same_served(got, want, 1e-5)
+    _same_served(again, got, 1e-5)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g["rauq"], w["rauq"], atol=1e-5, rtol=0)
+    assert {k: graph.stats()[k] for k in ("accepted", "proposed")} == {
+        k: 2 * eager.stats()[k] for k in ("accepted", "proposed")}
+    if form == "int8_kv8":
+        assert graph._chunk_prog.graph.launches[(quant_matmul, "launches")] > 0
+        assert flash_prefix_attention.kv8_launches > k4_kv8
+    else:
+        plain = ContinuousBatchingEngine(model, **{k: v for k, v in kw.items() if k != "collect_rauq"})
+        with no_host_sync():
+            _same_served(got, _served(plain, prompts, budgets), 1e-4)
+    if draft == "perfect":
+        assert graph.stats()["acceptance"] > 0.9
+
+
+def test_spec_engine_sampled_replays_match_eager(gen):
+    from runia_core_tpu_torch.llm import ContinuousBatchingEngine
+
+    model = _tiny_llama("f32")
+    prompts = _serving_prompts(14, 6, 10, 150)
+    kw = dict(num_slots=3, max_ctx=256, max_new_tokens=10, chunk_tokens=10, prefill_chunk=128, prefill_lanes=2,
+              do_sample=True, temperature=0.9, gamma=4)
+    results = []
+    for use_graph in (False, True, True):
+        engine = ContinuousBatchingEngine(model, draft_model=_tiny_draft(model), use_graph=use_graph,
+                                          generator=torch.Generator(device="cuda").manual_seed(5), **kw)
+        with no_host_sync():
+            results.append(_served(engine, prompts, [10] * len(prompts)))
+    _same_served(results[1], results[0], 1e-5)
+    _same_served(results[2], results[1], 0.0)
+
+
+@pytest.mark.parametrize("spec", [False, True], ids=["plain", "spec"])
+def test_fused_drain_replays_match_eager(gen, spec):
+    """generate_all_fused's two iteration programs as replays against the
+    same programs run eagerly, int8 + KV8, lanes 4 x 128 chosen on the
+    device: tokens identical, log-probs within 1e-5, _last_fused_stats
+    equal; a second call captures nothing; prefill_lanes=1 equals the
+    interactive drain bit for bit."""
+    from runia_core_tpu_torch.llm import ContinuousBatchingEngine
+
+    model = _tiny_llama("int8_kv8")
+    prompts = _serving_prompts(15, 10, 10, 300)
+    budgets = [3, 9, 1, 6, 12, 2, 8, 5, 7, 4]
+    kw = dict(num_slots=4, max_ctx=384, max_new_tokens=12, chunk_tokens=10 if spec else 4, prefill_chunk=128)
+    if spec:
+        kw.update(draft_model=_tiny_draft(model), gamma=4)
+    eager = ContinuousBatchingEngine(model, use_graph=False, **kw)
+    graph = ContinuousBatchingEngine(model, **kw)
+    k3, k4 = quant_matmul.launches, flash_prefix_attention.kv8_launches
+    with no_host_sync():
+        want = eager.generate_all_fused(prompts, budgets)
+        captures = CudaGraph.captures
+        got = graph.generate_all_fused(prompts, budgets)
+        assert CudaGraph.captures == captures + 2
+        again = graph.generate_all_fused(prompts, budgets)
+        assert CudaGraph.captures == captures + 2
+        one_lane = graph.generate_all_fused(prompts, budgets, prefill_lanes=1)
+        interactive = _served(graph, prompts, budgets)
+    assert quant_matmul.launches > k3 and flash_prefix_attention.kv8_launches > k4
+    _same_served(got, want, 1e-5)
+    _same_served(again, got, 0.0)
+    _same_served(one_lane, interactive, 0.0)
+    assert graph._last_fused_stats["prefill_iters"] > 0
+    drain = graph._fused_cache.get((len(prompts), 384, 12, 4))
+    assert drain is not None and all(p.graph is not None for p in drain.programs)
+
+
+def test_spec_guard_captures_the_plain_programs_at_a_drain_boundary(gen):
+    """An uncorrelated draft under a floor of 0.99: the second drain runs on
+    the plain chunk and draft-free lanes, captured then, and equals the
+    plain engine."""
+    import warnings
+
+    from runia_core_tpu_torch.llm import ContinuousBatchingEngine
+    from runia_core_tpu_torch.models import LlamaLM
+
+    model = _tiny_llama("f32")
+    other = LlamaLM(**{k: getattr(model, k) for k in ("vocab_size", "num_heads", "num_kv_heads", "d_model",
+                                                      "hidden_dim", "max_len")}, num_layers=1, device="cuda").eval()
+    other.init_weights(torch.Generator(device="cuda").manual_seed(9))
+    prompts = _serving_prompts(16, 12, 10, 150)
+    budgets = [12] * len(prompts)
+    kw = dict(num_slots=4, max_ctx=256, max_new_tokens=12, chunk_tokens=10, prefill_chunk=128, prefill_lanes=2)
+    engine = ContinuousBatchingEngine(model, draft_model=other, spec_min_acceptance=0.99, **kw)
+    with no_host_sync():
+        _served(engine, prompts, budgets)
+        assert engine.stats()["proposed"] >= engine._SPEC_EVIDENCE
+        with pytest.warns(UserWarning, match="speculative decoding disabled"):
+            got = _served(engine, prompts, budgets)
+        want = _served(ContinuousBatchingEngine(model, **kw), prompts, budgets)
+    assert engine.stats()["spec_disabled"] == 1 and engine._chunk_prog.graph is not None
+    _same_served(got, want, 1e-5)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        with no_host_sync():
+            _same_served(_served(engine, prompts, budgets), got, 1e-5)
+
+
+def test_generation_service_from_several_threads(gen):
+    """GenerationService's worker captures and replays the decode programs
+    while four threads submit: every result equals a direct generate_batch."""
+    import threading
+
+    from runia_core_tpu_torch.llm import GenerationService, TorchGenerator
+
+    generator = TorchGenerator(_tiny_llama("f32"), max_new_tokens=8)
+    prompts = _serving_prompts(17, 24, 5, 100)
+    service = GenerationService(generator, max_batch=8, max_wait_s=0.05, length_bucket=64)
+    futures = [None] * len(prompts)
+
+    def submit(part):
+        for i in range(part, len(prompts), 4):
+            futures[i] = service.submit(prompts[i])
+
+    threads = [threading.Thread(target=submit, args=(k,)) for k in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    try:
+        results = [f.result(timeout=300) for f in futures]
+    finally:
+        service.close()
+    for p, res in zip(prompts, results):
+        want = generator.generate_batch([p], output_scores=False)
+        np.testing.assert_array_equal(res["sequences"][0], want["sequences"][0])
+        np.testing.assert_allclose(res["log_probs"], want["log_probs"][0], atol=1e-4, rtol=0)
