@@ -19,6 +19,16 @@ kernel against its plain PyTorch version on the card. Then, through
   PCA-256 fitted on 512 images, LaREM. Both routes of the scorer run:
   ``fused=False`` (kernel 1, marginal entropy) and ``fused=True`` (kernel 2,
   fused channel means + entropy).
+* LaREx user flow (``image_flow_rn50``): ``bench.py``'s ResNet-50 @224 leg
+  (10 classes, random bf16 weights from a seed, channels_last, batches of
+  128, the (128, 7, 7, 2048) ``pre_pool`` tap) through the entry points a
+  user calls: ``extraction.tap_torch_model`` (a forward hook; the tap
+  equals ``build_tapped_forward``'s bit for bit), ``FastMCDSamplesExtractor``
+  over 384 fit images, ``get_dl_h_z`` (kernel 1), PCA-256, the five latent
+  scorers (MD, KDE, cMD, KNN, GMM) and their thresholds, then two
+  out-of-distribution batches through ``LaRExInference(mcd_sampler=)`` and
+  both scorer routes (kernels 1 and 2), ``MCDSamplesExtractor`` with 16
+  stochastic forwards, and the flow in f32 at batch 8 against the CPU.
 * LLM: the repository's production Llama (``bench.py`` ``_PROD_CFG``: 22
   layers, d_model 2048, 16/8 heads of 128, SwiGLU 5632, vocab 32000; random
   weights from a seed), bf16 with ``use_flash`` and its int8 + KV8 + fused
@@ -75,8 +85,9 @@ kernel against its plain PyTorch version on the card. Then, through
   ``bench.py:1048-1125``) and ``generation_service`` (32 requests from 4
   threads); ``spec_serve_check`` holds the round chunk, the spec lanes and
   both fused iterations against their eager programs, the card against the
-  CPU at 2 layers, spec greedy against plain and one fused lane against
-  ``generate_all``.
+  CPU at 2 layers, spec greedy against plain, one fused lane against
+  ``generate_all``, and, once the break-even guard has fired, the prefix
+  cache hitting slot 0 as often as the ``use_graph=False`` engine.
 
 Both paths run as the port runs them by default: the LaREx scorer and the
 decode steps as replays of CUDA graphs (``utils/graphs.py``; the JAX
@@ -100,10 +111,10 @@ of one sort and one window per column, whatever the kernel does). Kernels
 past the L2, so neither the host nor the cache is in the number. Where one PyTorch call computes the
 same function (``scaled_dot_product_attention`` for kernel 4), that call's
 time, which the port itself never uses. A kernel's launch count is what the
-main paths launched (the Llama slice, semantic entropy, speculative
-decoding, the two serving cells and the MoE slice, each counted from zero
-just before it runs), the kernels inside each graph
-replay included.
+main paths launched (the LaREx slice and user flow, the Llama slice,
+semantic entropy, speculative decoding, the two serving cells and the MoE
+slice, each counted from zero just before it runs), the kernels inside each
+graph replay included.
 
 Every phase prints one JSON line. Any failed check raises, so the script
 exits non-zero and never prints its last line, which on success is
@@ -141,6 +152,23 @@ SCORE_BATCHES = 4  # scored per scorer route in the counted main-path run
 ROUTE_PAIRS = 10  # timed windows of 30 scorer calls per route and mode (eager, graph)
 XCHECK_IMAGES = 8
 SEED = 0
+# The LaREx user flow at bench.py's larex_resnet50_224px width (bench.py:
+# 111-169, 1192-1198): ResNet-50, 10 classes, bf16, channels_last, 224 x 224
+# x 3 images in batches of 128, the (128, 7, 7, 2048) pre_pool tap, the
+# headline's S, p, block, k and PCA-256; 384 in-distribution images to fit
+# (the bench's n_fit), two out-of-distribution batches to score.
+RN50_IMG, RN50_BATCH, RN50_FIT, RN50_OOD = 224, 128, 384, 2
+FLOW_DETECTORS = ("MD", "KDE", "cMD", "KNN", "GMM")
+FLOW_WINDOWS, FLOW_CALLS = 6, 10  # timed windows of calls per variant, in turns
+# The scorer against LaRExInference.get_score with the same keep-weights,
+# relative to max|score|, on every route: the two-step routes run the same
+# f32 operations on the same device; the fused routes' entropies sum each
+# product in another order (within FUSED_RTOL / FUSED_ATOL of the two-step
+# ones), which PCA and the Mahalanobis score leave near 1e-6 (PERF.md §6).
+FLOW_SCORER_REL = 1e-5
+# The flow in f32 at batch 8, card (TF32 off) against CPU, with the card's
+# PCA and detector states: relative to the largest magnitude of each output.
+FLOW_XCHECK_IMAGES, FLOW_XCHECK_REL = 8, 1e-4
 
 # Kernel 1 selects the same f32 differences as the sorted-window plain
 # version; only the order of the final sum of n logs differs (the kernel's
@@ -474,6 +502,9 @@ def entropy_phase(device, gen) -> dict:
         # k taken at run time (any k but 5), in registers' reach and past it
         "n16_k3": (torch.randn((64, MC_SAMPLES, 300), generator=gen, device=device), 3),
         "n100_k99": (torch.randn((16, 100, 130), generator=gen, device=device), 99),
+        # the RN50 flow's get_dl_h_z over the fit set and its scorer's batch
+        "rn50_fit": (torch.randn((RN50_FIT, MC_SAMPLES, 2048), generator=gen, device=device), K),
+        "rn50_score": (torch.randn((RN50_BATCH, MC_SAMPLES, 2048), generator=gen, device=device), K),
     }
     errors = {}
     for name, (clouds, k) in cases.items():
@@ -490,7 +521,10 @@ def entropy_phase(device, gen) -> dict:
     # the longest column the kernel takes.
     timing = {}
     for name, (b, n, d) in {"headline": (BATCH, MC_SAMPLES, 512), "n32": (BATCH, 32, 512),
-                            "n64": (BATCH, 64, 512), "n512": (64, 512, 512)}.items():
+                            "n64": (BATCH, 64, 512), "n512": (64, 512, 512),
+                            # the RN50 flow's get_dl_h_z over the fit set and its scorer's batch
+                            "rn50_fit": (RN50_FIT, MC_SAMPLES, 2048),
+                            "rn50_score": (RN50_BATCH, MC_SAMPLES, 2048)}.items():
         clouds = torch.randn((b, n, d), generator=gen, device=device)
         copies = cold_copies((clouds,), clouds.numel() * 4)
         times = timed_cold(lambda x: marginal_entropy_cuda(x, K), lambda x: marginal_entropy_plain(x, K), copies)
@@ -513,7 +547,7 @@ def entropy_phase(device, gen) -> dict:
 
 
 def fused_phase(device, gen) -> dict:
-    from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda
+    from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda, marginal_entropy_plain
     from runia_core_tpu_torch.ops.mc_entropy_cuda import (
         fused_mc_entropy, fused_mc_entropy_plain, mc_dropblock_weights,
     )
@@ -550,6 +584,8 @@ def fused_phase(device, gen) -> dict:
     for name, (b, h, w, c, s_, dtype) in {
         "headline": (BATCH, 4, 4, 512, MC_SAMPLES, f32), "headline_bf16": (BATCH, 4, 4, 512, MC_SAMPLES, bf16),
         "rn50_224_b128": (128, 7, 7, 2048, MC_SAMPLES, f32), "headline_s64": (BATCH, 4, 4, 512, 64, f32),
+        # the RN50 flow's fused scorer: the bf16 tap as the forward leaves it
+        "rn50_224_b128_bf16": (RN50_BATCH, 7, 7, 2048, MC_SAMPLES, bf16),
     }.items():
         fmap = torch.rand((b, h, w, c), generator=gen, device=device).to(dtype)
         weights = mc_dropblock_weights(b, h, w, s_, BLOCK_SIZE, DROP_PROB, gen, device)
@@ -563,6 +599,22 @@ def fused_phase(device, gen) -> dict:
                         "copies": len(copies), **times, "read_GBps": read / (times["ms"] * 1e-3) / 1e9,
                         **with_share(bound, times["ms"])}
         require(timing[name]["share_of_bound"] <= 1.0, f"fused {name}: faster than its bound: {timing[name]}")
+        if name == "rn50_224_b128_bf16":
+            # Recorded, not required: on uniform maps at 262,144 columns a few
+            # dozen columns hold near-tied samples, and there both f32 routes
+            # stray from samples formed in f64 by up to a few 1e-3, the kernel
+            # no more than bmm. The bound is required on the flow's own tap
+            # (image_flow_rn50_phase).
+            wt, fm = copies[0]
+            got, plain = fused_mc_entropy(wt, fm, K), fused_mc_entropy_plain(wt, fm, K)
+            exact = marginal_entropy_plain(torch.bmm(wt.double(), fm.reshape(b, h * w, c).double()) / (h * w), K)
+            beyond = lambda x, ref: int(((x - ref).abs() > FUSED_ATOL + FUSED_RTOL * ref.abs()).sum())
+            timing[name]["conditioning"] = {
+                "columns": b * c, "kernel_vs_plain_max_abs_err": float((got - plain).abs().max()),
+                "columns_beyond_bound_vs_plain": beyond(got, plain),
+                "kernel_vs_f64_max_abs_err": float((got - exact).abs().max()),
+                "plain_vs_f64_max_abs_err": float((plain - exact).abs().max()),
+                "columns_beyond_bound_vs_f64": {"kernel": beyond(got, exact), "plain": beyond(plain, exact)}}
         if name == "headline":
             # The scorer's other route on the same inputs, timed the same way.
             def two_step(wt, fm):
@@ -789,6 +841,297 @@ def slice_phase(device, gen) -> dict:
                           for k, r in busy.items()},
           "stage_ms": stages})
     return launches
+
+
+def rn50_model(dtype, weights_of=None, device=None):
+    """bench.py's ResNet-50 (10 classes) with seeded random weights, built
+    where the port builds by default (the GPU); or, given such a model, a
+    copy of its weights in ``dtype`` on ``device``."""
+    from runia_core_tpu_torch.models import ResNet50
+
+    model = ResNet50(num_classes=NUM_CLASSES, dtype=dtype, device=device)
+    if weights_of is None:
+        model.init_weights(torch.Generator(device=model.head.weight.device).manual_seed(SEED + 50))
+    else:
+        model.load_state_dict({name: t.to(model.head.weight.device) for name, t in weights_of.state_dict().items()})
+    return model.to(memory_format=torch.channels_last).eval()
+
+
+def rn50_forward(model, device=None):
+    """``images -> (logits, {"pre_pool": NHWC tap})`` through
+    ``tap_torch_model``: a forward hook on the last bottleneck block
+    (NCHW in channels_last memory, so the NHWC view is contiguous)."""
+    from runia_core_tpu_torch.extraction import tap_torch_model
+
+    tapped = tap_torch_model(model, ("stage4_block2",), tap_aliases={"pre_pool": "stage4_block2"}, device=device)
+
+    def forward(images):
+        (logits, _), taps = tapped(images)
+        return logits, {"pre_pool": taps["pre_pool"].permute(0, 2, 3, 1)}
+
+    return forward
+
+
+def flow_category(name: str) -> str:
+    """``kernel_category`` with the two entropy kernels and the convolutions apart."""
+    for label, needle in (("marginal_entropy (kernel 1)", "marginal_entropy_kernel"),
+                          ("fused_mc_entropy (kernel 2)", "fused_mc_entropy_kernel"),
+                          ("convolution", "conv"), ("convolution", "fprop")):
+        if needle in name:
+            return label
+    return kernel_category(name)
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want| (got moved to want's device)."""
+    return float((got.to(want.device) - want).abs().max() / want.abs().max())
+
+
+def image_flow_rn50_phase(device, gen, smi: str) -> dict:
+    """The LaREx user flow at the RN50 @224 width, through the port's entry
+    points: (1) tap_torch_model's pre_pool equals build_tapped_forward's bit
+    for bit; (2) FastMCDSamplesExtractor over the 384 fit images ->
+    get_dl_h_z (kernel 1) -> PCA-256 -> MD, KDE, cMD, KNN and GMM ->
+    thresholds; (3) two OoD batches through LaRExInference(mcd_sampler=) under
+    each detector and build_larex_scorer on both routes, graph and eager
+    (kernel 1 and kernel 2), the scorer equal to get_score on injected
+    keep-weights; (4) MCDSamplesExtractor, 16 stochastic forwards; (5) the
+    flow in f32 at batch 8, card against CPU. Kernel launches are counted
+    over (2)-(3), then the times are taken."""
+    import warnings
+
+    from runia_core_tpu_torch.detectors import postprocessors_dict
+    from runia_core_tpu_torch.evaluation import get_dl_h_z
+    from runia_core_tpu_torch.extraction import FastMCDSamplesExtractor, Hook, MCDSamplesExtractor
+    from runia_core_tpu_torch.inference import LaRExInference, build_larex_scorer, get_baselines_thresholds
+    from runia_core_tpu_torch.models import build_tapped_forward
+    from runia_core_tpu_torch.ops.entropy import marginal_entropy
+    from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda, marginal_entropy_plain
+    from runia_core_tpu_torch.ops.mc_entropy_cuda import fused_mc_entropy, fused_mc_entropy_plain, mc_dropblock_weights
+    from runia_core_tpu_torch.reduction import apply_pca_ds_split, pca_transform
+    from runia_core_tpu_torch.sampling import MCSamplerModule, mc_dropblock_samples
+    from runia_core_tpu_torch.utils import CudaGraph, cuda_time_ms, device_profile
+
+    def images(n):
+        return torch.rand((n, RN50_IMG, RN50_IMG, 3), generator=gen, device=device)
+
+    side = RN50_IMG // 32  # the pre_pool tap's height and width
+    model = rn50_model(torch.bfloat16)
+    require(model.head.weight.device == device, f"the default device is the card: {model.head.weight.device}")
+    forward = rn50_forward(model)
+    record = {"card": smi}
+
+    # ---- (1) the tap ----
+    x = images(RN50_BATCH)
+    logits, taps = forward(x)
+    want_logits, want = build_tapped_forward(model)(x)
+    hook = Hook("pre_pool").capture(taps)
+    require(tuple(taps["pre_pool"].shape) == (RN50_BATCH, side, side, 2048),
+            f"the pre_pool tap {tuple(taps['pre_pool'].shape)}")
+    require(torch.equal(taps["pre_pool"], want["pre_pool"]) and torch.equal(logits, want_logits),
+            "tap_torch_model's pre_pool and logits equal build_tapped_forward's bit for bit")
+    require(torch.equal(hook.output, want["pre_pool"]) and hook.output.data_ptr() != taps["pre_pool"].data_ptr(),
+            "Hook.capture keeps a copy")
+    del hook, taps, want
+
+    # ---- (2) fit, counted from here ----
+    marginal_entropy_cuda.launches = fused_mc_entropy.launches = 0
+    fit_loader = [(images(RN50_BATCH), torch.randint(0, NUM_CLASSES, (RN50_BATCH,), generator=gen, device=device))
+                  for _ in range(RN50_FIT // RN50_BATCH)]
+    extractor = FastMCDSamplesExtractor(
+        forward, "Conv", "fullmean", mcd_nro_samples=MC_SAMPLES, dropblock_probs=DROP_PROB,
+        dropblock_sizes=BLOCK_SIZE, return_stds=True, return_raw_predictions=True, return_gt_labels=True,
+        generator=gen)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    samples = extractor.get_ls_samples(fit_loader)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - start
+    for key, shape in (("latent_space_means", (RN50_FIT * MC_SAMPLES, 2048)), ("stds", (RN50_FIT * MC_SAMPLES, 2048)),
+                       ("raw_preds", (RN50_FIT, NUM_CLASSES)), ("gt_labels", (RN50_FIT,))):
+        require(tuple(samples[key].shape) == shape and samples[key].device == device
+                and bool(torch.isfinite(samples[key].float()).all()), f"extractor {key}: finite {shape} on the card")
+    h_joint, h = get_dl_h_z(samples["latent_space_means"], MC_SAMPLES)
+    launches = {"marginal_entropy_get_dl_h_z": marginal_entropy_cuda.launches}
+    require(launches["marginal_entropy_get_dl_h_z"] > 0 and h.is_cuda, "get_dl_h_z runs kernel 1 on the card")
+    h_pca, pca_state = apply_pca_ds_split(h, PCA_DIMS)
+    labels = samples["raw_preds"].argmax(dim=1)
+    detectors = {}
+    with warnings.catch_warnings(record=True) as empty:  # classes no fit image was predicted as
+        warnings.simplefilter("always")
+        for name in FLOW_DETECTORS:
+            detectors[name] = postprocessors_dict[name]()
+            detectors[name].setup(h_pca, ind_train_labels=labels)
+    ind_scores = {name: det.postprocess(h_pca, pred_labels=labels) for name, det in detectors.items()}
+    thresholds = get_baselines_thresholds(["raw", *FLOW_DETECTORS], ind_scores)
+    for name, scores in ind_scores.items():
+        require(tuple(scores.shape) == (RN50_FIT,) and bool(torch.isfinite(scores).all()),
+                f"{name}: finite in-distribution scores")
+    record["fit"] = {"images": RN50_FIT, "extract_s": extract_s, "h_shape": list(h.shape),
+                     "h_joint_mean": float(h_joint.mean()), "pca_dims": PCA_DIMS,
+                     "class_counts": torch.bincount(labels, minlength=NUM_CLASSES).tolist(),
+                     "empty_class_warnings": len(empty), "gmm_jitter_rung": float(detectors["GMM"].gmm.jitter.max()),
+                     "thresholds": thresholds}
+
+    # ---- (3) score two OoD batches, each detector, both scorer routes ----
+    ood = [torch.randn((RN50_BATCH, RN50_IMG, RN50_IMG, 3), generator=gen, device=device).abs()
+           for _ in range(RN50_OOD)]
+    inference = {name: LaRExInference(forward, det, DROP_PROB, BLOCK_SIZE, MC_SAMPLES, mcd_sampler=MCSamplerModule,
+                                      pca_transform=pca_state, generator=gen)
+                 for name, det in detectors.items()}
+    flagged = {}
+    for name, inf in inference.items():
+        got = []
+        for batch in ood:
+            if name == "cMD":  # get_score passes no predicted labels (nor does JAX's): the pieces by hand
+                mc, _ = inf.get_layer_mc_samples(batch)
+                got.append(detectors[name].postprocess(pca_transform(pca_state, marginal_entropy(mc, K)),
+                                                       pred_labels=forward(batch)[0].argmax(dim=1)))
+            else:
+                got.append(inf.get_score(batch)[1])
+        scores = torch.cat(got)
+        require(tuple(scores.shape) == (RN50_OOD * RN50_BATCH,) and bool(torch.isfinite(scores).all()),
+                f"LaRExInference {name}: finite OoD scores")
+        flagged[name] = float((scores < thresholds[name]).float().mean())
+    launches["marginal_entropy_larex_inference"] = marginal_entropy_cuda.launches - launches[
+        "marginal_entropy_get_dl_h_z"]
+    scorers = {(mode, fused): build_larex_scorer(forward, pca_state, detectors["MD"].state, MC_SAMPLES, DROP_PROB,
+                                                 BLOCK_SIZE, fused=fused, use_graph=mode == "graph")
+               for mode in ("graph", "eager") for fused in (False, True)}
+    k1, k2 = marginal_entropy_cuda.launches, fused_mc_entropy.launches
+    for batch in ood:
+        for (mode, fused), scorer in scorers.items():
+            with no_host_sync() if mode == "graph" else contextlib.nullcontext():
+                out, scores = scorer(batch, generator=gen)
+            require(tuple(scores.shape) == (RN50_BATCH,) and bool(torch.isfinite(scores).all())
+                    and tuple(out.shape) == (RN50_BATCH, NUM_CLASSES), f"scorer {mode} fused={fused}: finite")
+    weights = mc_dropblock_weights(RN50_BATCH, side, side, MC_SAMPLES, BLOCK_SIZE, DROP_PROB, gen, device)
+    want = inference["MD"].get_score(ood[0], weights=weights)[1]
+    scorer_rel = {}
+    for (mode, fused), scorer in scorers.items():
+        with no_host_sync() if mode == "graph" else contextlib.nullcontext():
+            got = scorer(ood[0], weights=weights)[1]
+        scorer_rel[f"{mode}_{'fused' if fused else 'two_step'}"] = _rel(got, want)
+    for route in scorer_rel:
+        require(scorer_rel[route] <= FLOW_SCORER_REL,
+                f"{route} scorer vs LaRExInference.get_score: rel err {scorer_rel[route]} > {FLOW_SCORER_REL}")
+    launches["marginal_entropy_scorer"] = marginal_entropy_cuda.launches - k1
+    launches["fused_mc_entropy_scorer"] = fused_mc_entropy.launches - k2
+    totals = {"marginal_entropy": marginal_entropy_cuda.launches, "fused_mc_entropy": fused_mc_entropy.launches}
+    require(launches["marginal_entropy_scorer"] > 0 and launches["fused_mc_entropy_scorer"] > 0,
+            f"the scorer's routes launched kernels 1 and 2: {launches}")
+    # Outside the count: each kernel against its plain version on the flow's
+    # own inputs (the fit set's samples, an OoD batch's tap and keep-weights),
+    # and the routes' entropies against each other.
+    fit_clouds = samples["latent_space_means"].reshape(RN50_FIT, MC_SAMPLES, 2048)
+    _, batch_taps = forward(ood[0])
+    tap = batch_taps["pre_pool"].contiguous()
+    h_two_step = marginal_entropy(mc_dropblock_samples(tap.float(), MC_SAMPLES, BLOCK_SIZE, DROP_PROB, "Conv",
+                                                       channel_axis=3, weights=weights), K)
+    h_fused = fused_mc_entropy(weights, tap, K)
+    flow_errors = {
+        "marginal_entropy_fit_vs_plain": float((marginal_entropy_cuda(fit_clouds, K)
+                                                - marginal_entropy_plain(fit_clouds, K)).abs().max()),
+        "fused_mc_entropy_vs_plain": float((h_fused - fused_mc_entropy_plain(weights, tap, K)).abs().max()),
+        "fused_vs_two_step": float((h_fused - h_two_step).abs().max()),
+    }
+    require(flow_errors["marginal_entropy_fit_vs_plain"] <= ENTROPY_ATOL,
+            f"kernel 1 vs plain on the fit set's samples: {flow_errors}")
+    for plain, what in ((fused_mc_entropy_plain(weights, tap, K), "kernel 2 vs plain"),
+                        (h_two_step, "fused vs two-step entropies")):
+        within = (h_fused - plain).abs() <= FUSED_ATOL + FUSED_RTOL * plain.abs()
+        require(bool(within.all()), f"{what} on the RN50 tap: {flow_errors}")
+    record["score"] = {"ood_batches": RN50_OOD, "flagged_share": flagged, "scorer_vs_get_score_rel": scorer_rel,
+                       "bound_rel": FLOW_SCORER_REL, "kernel_max_abs_err": flow_errors, "launches": launches}
+    del h_two_step, h_fused, tap, batch_taps, fit_clouds
+
+    # ---- (4) classic MC dropout: 16 stochastic forwards of one batch ----
+    def stochastic(batch, generator):
+        return forward(batch + 0.01 * torch.randn(batch.shape, generator=generator, device=batch.device))
+
+    mcd = MCDSamplesExtractor(stochastic, "Conv", "fullmean", mcd_nro_samples=MC_SAMPLES,
+                              return_raw_predictions=True, generator=gen)
+    mcd_samples, mcd_raw = mcd.get_ls_samples([(ood[1], None)])
+    spread = mcd_samples.reshape(RN50_BATCH, MC_SAMPLES, -1).std(dim=1)
+    require(tuple(mcd_samples.shape) == (RN50_BATCH * MC_SAMPLES, 2048) and bool(torch.isfinite(mcd_samples).all())
+            and tuple(mcd_raw.shape) == (RN50_BATCH * MC_SAMPLES, NUM_CLASSES), "MCDSamplesExtractor: finite shapes")
+    require(bool((spread.amax(dim=1) > 0).all()), "MCDSamplesExtractor: every image's 16 samples differ")
+    record["mcd"] = {"forwards": MC_SAMPLES, "shape": list(mcd_samples.shape), "mean_std_across_samples":
+                     float(spread.mean())}
+    del mcd_samples, mcd_raw, spread
+
+    # ---- (5) the flow in f32 at batch 8: card against CPU ----
+    x8 = images(FLOW_XCHECK_IMAGES)
+    y8 = torch.zeros(FLOW_XCHECK_IMAGES, dtype=torch.int64, device=device)
+    w8 = mc_dropblock_weights(FLOW_XCHECK_IMAGES, side, side, MC_SAMPLES, BLOCK_SIZE, DROP_PROB, gen, device)
+    kw = dict(mcd_nro_samples=MC_SAMPLES, dropblock_probs=DROP_PROB, dropblock_sizes=BLOCK_SIZE, return_stds=True,
+              return_raw_predictions=True)
+    sides = {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        m32 = rn50_model(torch.float32, weights_of=model, device=dev)
+        out = FastMCDSamplesExtractor(rn50_forward(m32, device=dev), "Conv", "fullmean", device=dev, **kw)
+        got = out.get_ls_samples([(x8.to(dev), y8.to(dev))], draws=[[w8.to(dev)]])
+        h8 = get_dl_h_z(got["latent_space_means"], MC_SAMPLES)[1]
+        p8 = pca_transform(pca_state.to(dev), h8)
+        scores = {}
+        for name in ("MD", "KNN", "GMM"):
+            det = type(detectors[name])()
+            det.load_state({k: v.to(dev) if isinstance(v, torch.Tensor) else v
+                            for k, v in detectors[name].state.items()})
+            scores[name] = det.postprocess(p8)
+        sides[where] = {"samples": got["latent_space_means"], "stds": got["stds"], "logits": got["raw_preds"],
+                        "entropies": h8, **scores}
+        del m32
+    xcheck = {key: _rel(sides["card"][key], sides["cpu"][key]) for key in sides["cpu"]}
+    for key in ("MD", "KNN", "GMM"):
+        require(xcheck[key] <= FLOW_XCHECK_REL, f"flow card vs CPU, {key}: rel err {xcheck[key]} > {FLOW_XCHECK_REL}")
+    print(f"image_flow_rn50 card vs CPU (f32, batch {FLOW_XCHECK_IMAGES}): largest rel err "
+          f"{max(xcheck[k] for k in ('MD', 'KNN', 'GMM')):.3e}", flush=True)
+    record["xcheck_f32_cpu"] = {"images": FLOW_XCHECK_IMAGES, "max_rel_err": xcheck, "bound": FLOW_XCHECK_REL}
+    del sides
+
+    # ---- (6) times: extractor, get_score eager, the scorer's routes under the graph ----
+    x = ood[0]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    extractor.get_ls_samples(fit_loader)
+    torch.cuda.synchronize()
+    warm_extract_s = time.perf_counter() - start
+    variants = {
+        "graph_two_step": lambda i: scorers[("graph", False)](x, generator=torch.Generator(device=device).manual_seed(i)),
+        "graph_fused": lambda i: scorers[("graph", True)](x, generator=torch.Generator(device=device).manual_seed(i)),
+        "eager_get_score": lambda i: inference["MD"].get_score(x),
+    }
+    names = list(variants)
+    times = {name: [] for name in names}
+    captures = CudaGraph.captures
+    for window in range(FLOW_WINDOWS):
+        for name in names[window % 3:] + names[: window % 3]:
+            calls = itertools.count(window * 1000)
+            times[name].append(cuda_time_ms(lambda: variants[name](next(calls)), iters=FLOW_CALLS, warmup=2))
+    captures = CudaGraph.captures - captures
+    fresh = build_larex_scorer(forward, pca_state, detectors["MD"].state, MC_SAMPLES, DROP_PROB, BLOCK_SIZE)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    fresh(x, generator=gen)
+    torch.cuda.synchronize()
+    first_call_ms = (time.perf_counter() - start) * 1e3
+    busy = {name: device_profile(lambda name=name: [variants[name](i) for i in range(5)], 5, category=flow_category)
+            for name in names}
+    record["times"] = {
+        "card": smi, "extractor_img_per_s": {"first_pass": RN50_FIT / extract_s, "warm_pass": RN50_FIT / warm_extract_s},
+        "img_per_s_median": {name: RN50_BATCH / (statistics.median(ms) * 1e-3) for name, ms in times.items()},
+        "ms_per_call": times, "generator": "a new one per scorer call", "captures_in_timed_windows": captures,
+        "first_call_ms_graph_two_step": first_call_ms,
+        "device_busy": {name: {"share": r["device_busy_share"], "device_ms_per_call": r["device_busy_ms_per_unit"],
+                               "kernels_per_call": r["kernels_per_unit"],
+                               "ms_by_category": r["device_ms_per_unit_by_category"]}
+                        for name, r in busy.items()},
+    }
+    emit({"phase": "image_flow_rn50", "batch": RN50_BATCH, "img": RN50_IMG, **record})
+    del scorers, fresh, extractor, inference, detectors, model
+    torch.cuda.empty_cache()
+    return totals
 
 
 def quant_matmul_bound(rows: int, k: int, n: int, dtype) -> dict:
@@ -2246,15 +2589,15 @@ def serve_traffic(traffic: dict, vocab: int):
     return prompts, [int(b) for b in budgets]
 
 
-def build_serve7b(device, num_layers: int):
+def build_serve7b(device, num_layers: int, seed: int = SEED + 20):
     """Cell 1's model at depth ``num_layers``: int8 weights drawn uniformly
     from [-127, 127], every other tensor 0.01 + 0.005 N(0, 1) (bench.py:
-    384-418), made on the card from a seed."""
+    384-418), made on the card from ``seed``."""
     from runia_core_tpu_torch.models import LlamaLM
 
     model = LlamaLM(**dict(SERVE7B_CFG, num_layers=num_layers), dtype=torch.bfloat16, use_flash=True,
                     quantized=True, quantized_kv=True, fused_qkv=True).eval()
-    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    gen = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():
         for p in model.parameters():
             if p.dtype == torch.int8:
@@ -3015,6 +3358,49 @@ def generation_service_phase(device, dense) -> dict:
     return {}
 
 
+def guard_prefix_check(device, target) -> dict:
+    """The break-even guard fires at a drain boundary and captures the
+    draft-free lane programs on null lanes aimed at slot 0; slot 0's rows
+    must survive it. A draft of other random weights (acceptance near 0)
+    under a floor of 0.99 serves cell 1's traffic (no shared prefix), then
+    requests that share only slot 0's first prompt chunk: the graph engine's
+    prefix hits must equal the use_graph=False engine's, which never loses
+    the slot, and their tokens must agree."""
+    import warnings
+
+    from runia_core_tpu_torch.llm import ContinuousBatchingEngine
+
+    draft = build_serve7b(device, 1, seed=SEED + 33)
+    n, chunk = SERVE_CHECK_REQUESTS, SPEC7B_ENGINE["prefill_chunk"]
+    prompts, budgets = serve_traffic(SERVE7B_TRAFFIC, SERVE7B_CFG["vocab_size"])
+    prompts, budgets = prompts[:n], [min(b, SPEC7B_ENGINE["max_new_tokens"]) for b in budgets[:n]]
+    rng = np.random.RandomState(SEED + 34)
+    suffixes = [list(rng.randint(1, SERVE7B_CFG["vocab_size"], int(k))) for k in rng.randint(8, 65, 4)]
+    kw = dict(SPEC7B_ENGINE, draft_model=draft, gamma=SPEC_GAMMA, spec_min_acceptance=0.99)
+    runs = {}
+    for use_graph in (True, False):
+        engine = ContinuousBatchingEngine(target, **kw, use_graph=use_graph)
+        with no_host_sync() if use_graph else contextlib.nullcontext():
+            serve_pass(engine, prompts, budgets)
+            require(engine.stats()["proposed"] >= engine._SPEC_EVIDENCE, "guard check: enough proposals")
+            later = [list(engine._slot_prompt[0][:chunk]) + s for s in suffixes]
+            hits = engine.stats()["prefix_hits"]
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                served = serve_pass(engine, later, [4] * len(later))
+        require(any("speculative decoding disabled" in str(w.message) for w in caught),
+                f"guard check (use_graph={use_graph}): the guard fired")
+        runs[use_graph] = {"hits": engine.stats()["prefix_hits"] - hits, "served": served, "later": later,
+                           "acceptance": engine.stats()["acceptance"]}
+        del engine
+    require(runs[True]["later"] == runs[False]["later"], "guard check: the same prompt sits in slot 0")
+    require(runs[True]["hits"] == runs[False]["hits"] > 0,
+            f"guard check: prefix hits after the guard, graph {runs[True]['hits']} vs eager {runs[False]['hits']}")
+    err = _same_served(runs[True]["served"], runs[False]["served"], GRAPH_LOGPROB_ATOL, "guard check: replay vs eager")
+    return {"prefix_hits_after_guard": runs[True]["hits"], "eager_prefix_hits": runs[False]["hits"],
+            "acceptance": runs[True]["acceptance"], "max_abs_err_log_probs": err}
+
+
 def spec_serve_check_phase(device) -> dict:
     """Correctness of the new programs on the card, under sync-debug
     "error" (the flag reads are the only other waits). (a) Replays against
@@ -3025,7 +3411,8 @@ def spec_serve_check_phase(device) -> dict:
     fused drains (LLM_XCHECK_REL of max(1, |lp|)), int8 + KV8 too. (c) The
     spec engine's greedy tokens are the plain engine's (f32).
     (d) generate_all_fused(prefill_lanes=1) equals generate_all bit for
-    bit."""
+    bit. (e) ``guard_prefix_check``: after the break-even guard fires, the
+    prefix cache hits slot 0 as the use_graph=False engine does."""
     from runia_core_tpu_torch.llm import ContinuousBatchingEngine
     from runia_core_tpu_torch.models import LlamaLM, fuse_quantized_llama_params, quantize_llama_params
 
@@ -3069,6 +3456,7 @@ def spec_serve_check_phase(device) -> dict:
             _same_served(one, inter, 0.0, "spec_serve_check: fused lanes 1 vs generate_all, int8")
             record["fused_one_lane_vs_interactive"]["int8_kv8"] = True
         del graph, eager
+    record["guard_keeps_slot_0"] = guard_prefix_check(device, target)
     del small, target, draft
 
     cfg = dict(SERVE7B_CFG, num_layers=SPEC_CHECK_LAYERS)
@@ -3155,6 +3543,7 @@ def main() -> None:
     k3 = timed("kernel_quant_matmul", quant_matmul_phase, device, gen)
     k4 = timed("kernel_flash_prefix_attention", flash_phase, device, gen)
     launches = timed("slice", slice_phase, device, gen)
+    flow = timed("image_flow_rn50", image_flow_rn50_phase, device, gen, smi)
     dense, int8 = build_llms(device, LLM_CFG["num_layers"], torch.bfloat16)
     models = {"bf16": dense, "int8_kv8": int8}
     launches.update(timed("llm_slice", llm_slice_phase, device, models))
@@ -3186,7 +3575,7 @@ def main() -> None:
     moe = timed("moe_slice", moe_slice_phase, device)
     timed("gpt2_slice", family_slice_phase, device, "gpt2")
     timed("neox_slice", family_slice_phase, device, "neox")
-    for counts in (semantic, speculative, mixed, spec1b, serve7b, spec7b, fused7b, moe):
+    for counts in (flow, semantic, speculative, mixed, spec1b, serve7b, spec7b, fused7b, moe):
         for name, n in counts.items():
             if name in launches:
                 launches[name] += n

@@ -18,6 +18,7 @@ import torch
 __all__ = [
     "OodPostprocessor",
     "Postprocessor",
+    "get_baselines_thresholds",
     "get_method_threshold",
     "postprocessor_input_dict",
     "postprocessors_dict",
@@ -137,3 +138,14 @@ def get_method_threshold(scores, z_score_percentile: float) -> float:
     """mean - z * std (higher score = InD)."""
     scores = torch.as_tensor(scores, dtype=torch.float64)
     return float(scores.mean()) - z_score_percentile * float(scores.std(correction=0))
+
+
+def get_baselines_thresholds(
+    baselines_names: List[str], baselines_scores_dict: Dict[str, Any], z_score_percentile: float = 1.645
+) -> Dict[str, float]:
+    """Per-baseline thresholds (:func:`get_method_threshold`, numpy's ddof=0
+    std); 'raw' is pinned to 0.0 so that no prediction is corrected."""
+    return {
+        name: 0.0 if name == "raw" else get_method_threshold(baselines_scores_dict[name], z_score_percentile)
+        for name in baselines_names
+    }

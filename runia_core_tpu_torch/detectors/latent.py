@@ -1,9 +1,13 @@
-"""Latent-space postprocessors KDE (LaRED) and MD (LaREM), in PyTorch.
+"""Latent-space postprocessors KDE (LaRED), MD (LaREM), cMD, KNN (LaREK) and
+GMM (LaREG), in PyTorch.
 
-Counterpart of the LaRED and LaREM parts of
-``runia_core_tpu/detectors/latent.py``: the KDE log-density is a matmul
-distance program with a row-chunked logsumexp, the Mahalanobis score one
-quadratic form. cMD, KNN and GMM are not ported yet.
+Counterpart of ``runia_core_tpu/detectors/latent.py``: the KDE log-density
+is a matmul distance program with a row-chunked logsumexp, the Mahalanobis
+scores quadratic forms, the kNN score the negated squared distance to the
+K-th neighbour (faiss's IndexFlatL2 convention) and the GMM score the
+logsumexp of the per-class MVN log-densities. Each is registered under the
+JAX package's names. Scores come back as tensors on the fitted state's
+device.
 """
 
 from __future__ import annotations
@@ -14,15 +18,26 @@ from typing import Optional
 import torch
 
 from runia_core_tpu_torch.detectors.base import Postprocessor, register_postprocessor
-from runia_core_tpu_torch.ops.knn import squared_l2_distances
-from runia_core_tpu_torch.ops.linalg import empirical_precision, mahalanobis_quadform
+from runia_core_tpu_torch.detectors.funcs import GMMState, gmm_fit, normalizer
+from runia_core_tpu_torch.ops.knn import squared_l2_distances, squared_l2_kth_neighbor
+from runia_core_tpu_torch.ops.linalg import (
+    classwise_mahalanobis_max,
+    empirical_precision,
+    mahalanobis_quadform,
+    shared_class_precision,
+)
 
 __all__ = [
     "DetectorKDE",
+    "GMMLatentSpace",
     "KDELatentSpace",
+    "KNNLatentSpace",
     "LaREDPostprocessor",
+    "LaREGPostprocessor",
+    "LaREKPostprocessor",
     "LaREMPostprocessor",
     "MDLatentSpace",
+    "cMDLatentSpace",
     "kde_log_density",
     "md_score",
 ]
@@ -134,5 +149,93 @@ class MDLatentSpace(Postprocessor):
         return md_score(test, self.feats_mean, self.precision)
 
 
+@register_postprocessor("cMD", postprocessor_input=["latent_space_means"])
+class cMDLatentSpace(Postprocessor):
+    """Class-conditional LaREM: per-class means, one shared precision of the
+    class-centred data, the max-over-classes score (an empty class: -inf)."""
+
+    def __init__(self, cfg=None):
+        super().__init__(cfg)
+        self.num_classes = getattr(cfg, "num_classes", 10)
+        self.class_mean: Optional[torch.Tensor] = None
+        self.precision: Optional[torch.Tensor] = None
+
+    def setup(self, ind_train_data, **kwargs) -> None:
+        if "ind_train_labels" not in kwargs:
+            raise ValueError("id_labels not provided. Pass ID train labels as 'ind_train_labels' argument.")
+        _check_2d(ind_train_data, "ind_feats")
+        if self._warn_if_fitted("cMDPostprocessor"):
+            return
+        self.class_mean, self.precision = shared_class_precision(
+            torch.as_tensor(ind_train_data), kwargs["ind_train_labels"], self.num_classes,
+            warn_label="class (class-wise Mahalanobis)",
+        )
+        self._state = {"class_mean": self.class_mean, "precision": self.precision}
+        self._setup_flag = True
+
+    def postprocess(self, test_data, **kwargs) -> torch.Tensor:
+        if "pred_labels" not in kwargs:
+            raise ValueError("pred_logits not provided")
+        _check_2d(test_data, "test_feats")
+        test = torch.as_tensor(test_data, device=self.class_mean.device)
+        return classwise_mahalanobis_max(test, self.class_mean, self.precision)
+
+
+@register_postprocessor(["KNN", "LaREK"], postprocessor_input=["latent_space_means"])
+class KNNLatentSpace(Postprocessor):
+    """kNN in L2-normalised latent space: the score is the negated squared
+    distance to the K-th neighbour (K = 50 unless ``cfg.k_neighbors``)."""
+
+    def __init__(self, cfg=None):
+        super().__init__(cfg)
+        self.K = getattr(cfg, "k_neighbors", 50)
+        self.activation_log: Optional[torch.Tensor] = None
+
+    def setup(self, ind_train_data, **kwargs) -> None:
+        _check_2d(ind_train_data, "ind_train_feats")
+        if self._warn_if_fitted("KNNPostprocessor"):
+            return
+        self.activation_log = normalizer(torch.as_tensor(ind_train_data))
+        self._state = {"activation_log": self.activation_log, "K": self.K}
+        self._setup_flag = True
+
+    def postprocess(self, test_data, **kwargs) -> torch.Tensor:
+        _check_2d(test_data, "test_feats")
+        test = normalizer(torch.as_tensor(test_data, device=self.activation_log.device))
+        return -squared_l2_kth_neighbor(test, self.activation_log, self.K)
+
+
+@register_postprocessor(["GMM", "LaREG"], postprocessor_input=["latent_space_means"])
+class GMMLatentSpace(Postprocessor):
+    """LaREG: one MVN per class with the shared jitter ladder; the score is
+    the logsumexp of the per-class log-densities."""
+
+    def __init__(self, cfg=None):
+        super().__init__(cfg)
+        self.num_classes = getattr(cfg, "num_classes", 10)
+        self.gmm: Optional[GMMState] = None
+
+    def setup(self, ind_train_data, **kwargs) -> None:
+        _check_2d(ind_train_data, "ind_train_feats")
+        if self._warn_if_fitted("GMMPostprocessor"):
+            return
+        if "ind_train_labels" not in kwargs:
+            raise ValueError("id_labels not provided")
+        self.gmm, _ = gmm_fit(ind_train_data, kwargs["ind_train_labels"], self.num_classes)
+        self._state = {"means": self.gmm.means, "chols": self.gmm.chols}
+        self._setup_flag = True
+
+    def postprocess(self, test_data, **kwargs) -> torch.Tensor:
+        _check_2d(test_data, "test_feats")
+        return torch.logsumexp(self.gmm.log_prob(test_data), dim=1)
+
+    def _rehydrate(self) -> None:
+        means = torch.as_tensor(self._state["means"])
+        self.gmm = GMMState(means=means, chols=torch.as_tensor(self._state["chols"]),
+                            jitter=torch.zeros(means.shape[0], device=means.device))
+
+
 LaREDPostprocessor = KDELatentSpace
 LaREMPostprocessor = MDLatentSpace
+LaREKPostprocessor = KNNLatentSpace
+LaREGPostprocessor = GMMLatentSpace

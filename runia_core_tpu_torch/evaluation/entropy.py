@@ -1,7 +1,9 @@
 """Dataset-level entropy API: ``get_dl_h_z`` with the reference's signature.
 
 Counterpart of ``runia_core_tpu/evaluation/entropy.py``: the joint h(Z) and
-the per-dimension h(z_i) of every image are each one batched call.
+the per-dimension h(z_i) of every image are each one batched call. The
+marginal entropies go through kernel 1 (``ops/entropy_cuda.py``) for a
+tensor on the GPU, and the results stay on the samples' device.
 """
 
 from __future__ import annotations
@@ -12,12 +14,17 @@ import torch
 
 from runia_core_tpu_torch.ops.entropy import joint_entropy, marginal_entropy
 
-__all__ = ["get_dl_h_z", "neighbors_for"]
+__all__ = ["get_dl_h_z", "neighbors_for", "single_image_entropy_calculation"]
 
 
 def neighbors_for(mcd_samples_nro: int) -> int:
     """k = 5 if n > 5 else n - 1 (reference entropy.py:66)."""
     return 5 if mcd_samples_nro > 5 else mcd_samples_nro - 1
+
+
+def single_image_entropy_calculation(sample, neighbors: int) -> torch.Tensor:
+    """Per-dimension KL entropies (d,) of one (n, d) cloud."""
+    return marginal_entropy(torch.as_tensor(sample)[None], neighbors)[0]
 
 
 def get_dl_h_z(

@@ -3,7 +3,8 @@
 Counterpart of ``runia_core_tpu/inference/image_level.py``:
 
 * :class:`LaRExInference` / :class:`LaRDInference` keep the reference's
-  object API (model + postprocessor + optional PCA, ``get_score`` per batch);
+  object API (model + postprocessor + optional PCA, an MC sampler,
+  ``get_score`` per batch and its ``record_time`` timing twins);
 * :func:`build_larex_scorer` is the production scoring path: forward ->
   MC-DropBlock keep-weights -> per-dimension KL entropy -> PCA -> Mahalanobis
   or KDE score, with every stage on the model's device. As JAX runs it as
@@ -47,10 +48,12 @@ from runia_core_tpu_torch.ops.mc_entropy_cuda import (
     mc_dropblock_weights,
 )
 from runia_core_tpu_torch.reduction import PCAState, apply_pca_transform, pca_transform
-from runia_core_tpu_torch.sampling import mc_dropblock_samples
+from runia_core_tpu_torch.sampling import MCSamplerModule, mc_dropblock_samples
 from runia_core_tpu_torch.utils.graphs import CudaGraph, ProgramCache, drawing_from
 
-__all__ = ["InferenceModule", "LaRDInference", "LaRExInference", "build_larex_scorer"]
+__all__ = [
+    "InferenceModule", "LaRDInference", "LaRExInference", "ProbabilisticInferenceModule", "build_larex_scorer",
+]
 
 
 class InferenceModule:
@@ -65,12 +68,27 @@ class InferenceModule:
         raise NotImplementedError
 
 
+class ProbabilisticInferenceModule(InferenceModule):
+    """An inference module carrying the MC-dropout configuration."""
+
+    def __init__(self, model, postprocessor, drop_block_prob: float, drop_block_size: int, mcd_samples_nro: int):
+        super().__init__(model, postprocessor)
+        self.drop_block_prob = drop_block_prob
+        self.drop_block_size = drop_block_size
+        self.mcd_samples_nro = mcd_samples_nro
+
+
 class LaRExInference(InferenceModule):
     """LaREx online scoring: tap -> MC DropBlock -> entropy -> PCA -> density.
 
-    ``model`` is a tapped forward (``models.build_tapped_forward``);
-    ``layer_hook`` in ``get_score`` is the tap's name. Masks come from
-    ``generator``, which must live on the model's device.
+    ``model`` is a tapped forward (``models.build_tapped_forward`` or
+    ``extraction.tap_torch_model``); ``layer_hook`` in ``get_score`` is the
+    tap's name. ``mcd_sampler`` is built with the reference's keywords plus
+    ``channel_axis`` and ``generator`` (which must live on the model's
+    device) and kept as ``mc_sampler``; every score's MC samples come from
+    ``mc_sampler(tap, weights=weights)``, which returns (B, S, d), or (S, d)
+    for one image, and draws its masks unless keep-weights are injected. The
+    tap is sampled in f32, as :func:`build_larex_scorer` samples it.
     """
 
     def __init__(
@@ -80,6 +98,7 @@ class LaRExInference(InferenceModule):
         drop_block_prob: float,
         drop_block_size: int,
         mcd_samples_nro: int,
+        mcd_sampler=MCSamplerModule,
         pca_transform=None,
         layer_type: str = "Conv",
         channel_axis: int = 3,
@@ -92,17 +111,21 @@ class LaRExInference(InferenceModule):
         self.layer_type = layer_type
         self.channel_axis = channel_axis
         self.pca_transform = pca_transform
-        self.generator = generator
+        self.mc_sampler = mcd_sampler(
+            mc_samples=mcd_samples_nro, layer_type=layer_type, drop_prob=drop_block_prob, block_size=drop_block_size,
+            channel_axis=channel_axis, generator=generator,
+        )
+
+    def _mc_samples(self, taps: dict, layer_hook: str, weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        samples = self.mc_sampler(taps[layer_hook].to(torch.float32), weights=weights)
+        return samples if samples.ndim == 3 else samples[None]
 
     @torch.inference_mode()
     def get_score(self, input_image, layer_hook: str = "pre_pool", weights: Optional[torch.Tensor] = None):
         """Score a batch of images: (model outputs, per-image scores).
         ``weights`` (B, S, H*W) replaces the drawn keep-weights."""
         outputs, taps = self.model(input_image)
-        mc_samples = mc_dropblock_samples(
-            taps[layer_hook], self.mcd_samples_nro, self.drop_block_size, self.drop_block_prob,
-            self.layer_type, channel_axis=self.channel_axis, generator=self.generator, weights=weights,
-        )
+        mc_samples = self._mc_samples(taps, layer_hook, weights)
         sample_h_z = marginal_entropy(mc_samples, neighbors_for(self.mcd_samples_nro))
         if self.pca_transform is not None:
             sample_h_z = apply_pca_transform(sample_h_z, self.pca_transform)
@@ -112,6 +135,19 @@ class LaRExInference(InferenceModule):
     def test_time_inference(self, input_image, layer_hook: str = "pre_pool"):
         """get_score + wall-clock seconds."""
         return self.get_score(input_image, layer_hook)
+
+    @record_time
+    @torch.inference_mode()
+    def get_layer_mc_samples(self, input_image, layer_hook: str = "pre_pool"):
+        """Forward and MC sampling only, (B, S, d) + seconds."""
+        return self._mc_samples(self.model(input_image)[1], layer_hook)
+
+    @record_time
+    @torch.inference_mode()
+    def get_mc_samples_full_inference(self, input_image, layer_hook: str = "pre_pool"):
+        """The full-MCD baseline: ``mcd_samples_nro`` whole forwards, their
+        taps concatenated on the batch axis, + seconds."""
+        return torch.cat([self.model(input_image)[1][layer_hook] for _ in range(self.mcd_samples_nro)], dim=0)
 
 
 class LaRDInference(InferenceModule):

@@ -1252,15 +1252,20 @@ class ContinuousBatchingEngine:
             self._stats["spec_disabled"] = 1
             self._harvest_buffers(False)
             # The lane programs' warm-up runs on null lanes (all slot 0, write
-            # position 0): it writes garbage into slot 0's first rows, so slot
-            # 0's prompt is no longer resident for the prefix cache. The
-            # decode chunk's warm-up writes at each idle slot's clock, past
-            # its prompt, where the next owner rewrites before attending.
+            # position 0) and writes slot 0's first rows and scheduling
+            # entries; the decode chunk's warm-up writes at each idle slot's
+            # clock, past its prompt. Slot 0's rows and the scheduling state
+            # are put back after, so slot 0's prompt stays resident for the
+            # prefix cache, as in the JAX engine.
             for args in self._lane_args.values():
                 args.zero_()
+            rows = [buf for layer in self.cache["layers"] for buf in layer.values()]
+            saved = [buf[0].clone() for buf in rows]
+            state = self._state.clone()
             self._build_decode_programs()
-            if any(p.graph is not None for p in self._lane_progs.values()):
-                self._slot_prompt[0] = None
+            for buf, row in zip(rows, saved):
+                buf[0].copy_(row)
+            self._state.copy_(state)
 
     def stats(self) -> dict:
         """Serving counters (host-side): requests finished, tokens emitted,

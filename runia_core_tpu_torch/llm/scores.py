@@ -75,6 +75,8 @@ def normalized_entropy(log_probs) -> float:
     """Length-normalised negative log-likelihood averaged over the sampled
     sequences (Malinin & Gales 2021); -inf entries (after EOS) are left out."""
     lp = _host(log_probs)
+    if len(lp) == 0:  # the reference's Python division by the sequence count
+        raise ZeroDivisionError("float division by zero")
     per_sequence = [row[row != -np.inf].sum() / (row != -np.inf).sum() for row in lp]
     return float(-np.sum(per_sequence) / len(lp))
 

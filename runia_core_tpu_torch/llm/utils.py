@@ -153,8 +153,13 @@ def _semantic_clustering_batched(model_or_fn: Union[Callable[..., np.ndarray], o
 
 def _get_probability_distribution(logits) -> np.ndarray:
     """HF ``scores`` (tuple over steps of (1, V) logits) -> (steps, V)
-    probabilities of the first sequence."""
-    return np.stack([softmax(_host(step)[0], axis=-1) for step in logits])
+    probabilities of the first sequence. A step without the batch axis is
+    refused, as the reference fails on it."""
+    steps = [_host(step) for step in logits]
+    for step in steps:
+        if step.ndim < 2:
+            raise IndexError(f"a step of scores must be (batch, vocab); got shape {step.shape}")
+    return np.stack([softmax(step[0], axis=-1) for step in steps])
 
 
 def _construct_embedding_matrix(hidden_states, token_index: int = -1, layer_index: int = 15) -> np.ndarray:

@@ -1,4 +1,4 @@
-"""Functional DropBlock2D with the JAX package's semantics, in PyTorch.
+"""Functional DropBlock2D and Dropout with the JAX package's semantics, in PyTorch.
 
 Counterpart of ``runia_core_tpu/ops/dropblock.py``. The operation is split in
 two so that tests can feed both frameworks the same random draw:
@@ -12,7 +12,8 @@ two so that tests can feed both frameworks the same random draw:
   which couples an image's scores to its batchmates' masks).
 
 Given the same seed mask, the weights equal the JAX ones to within one ulp:
-the same f32 operations run in the same order.
+the same f32 operations run in the same order. :func:`dropout` likewise takes
+an injected keep mask in place of its Bernoulli draw.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-__all__ = ["dropblock2d", "dropblock_keep_weights", "dropblock_seed"]
+__all__ = ["dropblock2d", "dropblock_keep_weights", "dropblock_seed", "dropout"]
 
 
 def dropblock_seed(
@@ -82,3 +83,20 @@ def dropblock2d(
     if channel_axis == 1:
         return x * weights[:, None, :, :]
     return x * weights[:, :, :, None]
+
+
+def dropout(
+    x: torch.Tensor,
+    rate: float,
+    generator: Optional[torch.Generator] = None,
+    keep: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Inverted dropout as ``torch.nn.Dropout`` in train mode: each element
+    kept with probability ``1 - rate`` and scaled by ``1 / (1 - rate)``.
+    ``keep`` (boolean, ``x``'s shape) replaces the Bernoulli draw from
+    ``generator``. ``rate == 0`` is the identity."""
+    if rate == 0.0:
+        return x
+    if keep is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep.to(torch.bool), x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))

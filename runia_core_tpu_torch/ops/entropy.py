@@ -18,10 +18,11 @@ on the CPU.
 from __future__ import annotations
 
 import functools
+from typing import Tuple
 
 import torch
 
-__all__ = ["joint_entropy", "marginal_entropy"]
+__all__ = ["batched_cloud_entropies", "joint_entropy", "kl_entropy", "marginal_entropy"]
 
 _BIG = 1e30
 
@@ -43,6 +44,14 @@ def _digamma_const(k: int, n: int) -> float:
     from scipy.special import digamma
 
     return float(-digamma(float(k)) + digamma(float(n)))
+
+
+def kl_entropy(cloud: torch.Tensor, k: int, min_dist: float = 1e-5) -> torch.Tensor:
+    """KL entropy of one (n, d) sample cloud under the Chebyshev norm (0-d)."""
+    n, d = cloud.shape
+    pairwise = (cloud[:, None, :] - cloud[None, :, :]).abs().amax(dim=-1)
+    eps = torch.clamp_min(_kth_nn_distance(pairwise, k), min_dist)
+    return _digamma_const(k, n) + (d / n) * torch.log(2.0 * eps).sum()
 
 
 def joint_entropy(
@@ -123,3 +132,10 @@ def _marginal_entropy_xla(
         eps = torch.clamp_min(torch.sort(diffs, dim=2).values[:, :, k, :], min_dist)
         out.append(const + torch.log(2.0 * eps).sum(dim=1) / n)
     return torch.cat(out, dim=0)
+
+
+def batched_cloud_entropies(
+    clouds: torch.Tensor, k: int, min_dist: float = 1e-5
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(joint (B,), marginal (B, d)) entropies of a batch of MC clouds."""
+    return joint_entropy(clouds, k, min_dist), marginal_entropy(clouds, k, min_dist)

@@ -1,12 +1,20 @@
-"""Squared L2 distances as one matmul (counterpart of
-``runia_core_tpu/ops/knn.py::squared_l2_distances``; the kNN search itself is
-not ported yet)."""
+"""Brute-force k-nearest-neighbour search, in PyTorch.
+
+Counterpart of ``runia_core_tpu/ops/knn.py`` (which replaces faiss's
+IndexFlatL2): a matmul squared-distance matrix and ``torch.topk`` of the
+smallest entries. faiss reports *squared* L2 distances, and so does this.
+Test rows go through in chunks, so the distance matrix never exceeds
+(row_chunk, N_train). ``sharded_kth_neighbor``, the search over a bank
+sharded across devices, comes with the port's multi-device layer.
+"""
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
-__all__ = ["squared_l2_distances"]
+__all__ = ["knn_search", "squared_l2_distances", "squared_l2_kth_neighbor"]
 
 
 def squared_l2_distances(test: torch.Tensor, train: torch.Tensor) -> torch.Tensor:
@@ -15,3 +23,22 @@ def squared_l2_distances(test: torch.Tensor, train: torch.Tensor) -> torch.Tenso
     t_sq = (train * train).sum(dim=1)
     cross = test @ train.T
     return torch.clamp_min(x_sq - 2.0 * cross + t_sq[None, :], 0.0)
+
+
+def knn_search(
+    test: torch.Tensor, train: torch.Tensor, k: int, row_chunk: int = 1024
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k nearest neighbours: (squared distances (N, k) ascending, indices (N, k))."""
+    dists, idx = [], []
+    for chunk in torch.split(test, row_chunk):
+        d, i = torch.topk(squared_l2_distances(chunk, train), k, dim=1, largest=False, sorted=True)
+        dists.append(d)
+        idx.append(i)
+    return torch.cat(dists), torch.cat(idx)
+
+
+def squared_l2_kth_neighbor(
+    test: torch.Tensor, train: torch.Tensor, k: int, row_chunk: int = 1024
+) -> torch.Tensor:
+    """Squared distance to the k-th nearest neighbour (1-indexed), per test row."""
+    return knn_search(test, train, k, row_chunk=row_chunk)[0][:, -1]

@@ -987,3 +987,110 @@ def test_generation_service_from_several_threads(gen):
         want = generator.generate_batch([p], output_scores=False)
         np.testing.assert_array_equal(res["sequences"][0], want["sequences"][0])
         np.testing.assert_allclose(res["log_probs"], want["log_probs"][0], atol=1e-4, rtol=0)
+
+
+def test_spec_guard_keeps_slot_0_resident_for_the_prefix_cache(gen):
+    """The guard fires and captures the draft-free lanes on null lanes aimed
+    at slot 0; slot 0's rows are put back, so later requests that share only
+    slot 0's prompt prefix hit as often as in the use_graph=False engine
+    (the CPU engine's twin), and their tokens agree."""
+    from runia_core_tpu_torch.llm import ContinuousBatchingEngine
+    from runia_core_tpu_torch.models import LlamaLM
+
+    model = _tiny_llama("f32")
+    other = LlamaLM(**{k: getattr(model, k) for k in ("vocab_size", "num_heads", "num_kv_heads", "d_model",
+                                                      "hidden_dim", "max_len")}, num_layers=1, device="cuda").eval()
+    other.init_weights(torch.Generator(device="cuda").manual_seed(9))
+    first = _serving_prompts(17, 8, 130, 200)  # no shared prefix: each slot holds its own prompt
+    suffixes = _serving_prompts(18, 5, 10, 60)
+    kw = dict(num_slots=4, max_ctx=384, max_new_tokens=12, chunk_tokens=10, prefill_chunk=128, prefill_lanes=2,
+              prefix_cache=True)
+    engines = {g: ContinuousBatchingEngine(model, draft_model=other, spec_min_acceptance=0.99, use_graph=g, **kw)
+               for g in (True, False)}
+    hits, served, resident = {}, {}, {}
+    for use_graph, engine in engines.items():
+        with no_host_sync() if use_graph else contextlib.nullcontext():
+            _served(engine, first, [12] * len(first))
+            assert engine.stats()["proposed"] >= engine._SPEC_EVIDENCE
+            resident[use_graph] = list(engine._slot_prompt[0])
+            later = [resident[use_graph][:128] + s for s in suffixes]
+            before = engine.stats()["prefix_hits"]
+            with pytest.warns(UserWarning, match="speculative decoding disabled"):
+                served[use_graph] = _served(engine, later, [6] * len(later))
+        hits[use_graph] = engine.stats()["prefix_hits"] - before
+    assert resident[True] == resident[False]
+    assert engines[True]._lane_progs[1].graph is not None and engines[True].stats()["spec_disabled"] == 1
+    assert hits[True] == hits[False] > 0
+    _same_served(served[True], served[False], 1e-5)
+
+
+def _rn50(dtype, device="cuda", weights_of=None):
+    from runia_core_tpu_torch.models import ResNet50
+
+    model = ResNet50(num_classes=10, dtype=dtype, device=device)
+    if weights_of is None:
+        model.init_weights(torch.Generator(device=device).manual_seed(0))
+    else:
+        model.load_state_dict({k: v.to(device) for k, v in weights_of.state_dict().items()})
+    return model.to(memory_format=torch.channels_last).eval()
+
+
+def test_tapped_rn50_forward_replays_match_eager(gen):
+    """tap_torch_model's forward hooks under a CUDA-graph capture: the taps
+    are outputs of the captured function, so each replay returns the new
+    images' tap; a Hook filled from a replay keeps its copy after the next."""
+    from runia_core_tpu_torch.extraction import Hook, tap_torch_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    model = _rn50(torch.bfloat16)
+    tapped = tap_torch_model(model, ("stage4_block2",), tap_aliases={"pre_pool": "stage4_block2"})
+
+    def fn(images):
+        (logits, _), taps = tapped(images)
+        return logits, taps["pre_pool"]
+
+    batches = [torch.rand((16, 224, 224, 3), generator=gen, device="cuda") for _ in range(3)]
+    graph = CudaGraph(fn, {"images": batches[0]})
+    hooks = []
+    for x in batches:
+        graph.load(images=x)
+        with no_host_sync():
+            logits, tap = graph.replay()
+        want_logits, want_tap = fn(x)
+        torch.testing.assert_close(logits, want_logits, rtol=1e-6, atol=1e-6 * float(want_logits.abs().max()))
+        torch.testing.assert_close(tap, want_tap, rtol=1e-6, atol=1e-6 * float(want_tap.abs().max()))
+        assert tap.shape == (16, 2048, 7, 7)
+        hooks.append((Hook("pre_pool").capture({"pre_pool": tap}), want_tap))
+    for hook, want_tap in hooks:  # later replays overwrote the graph's buffer, not the copies
+        torch.testing.assert_close(hook.output, want_tap, rtol=1e-6, atol=1e-6 * float(want_tap.abs().max()))
+    assert all(not m._forward_hooks for m in model.modules())
+
+
+def test_extractor_on_the_card_matches_the_cpu(gen):
+    """FastMCDSamplesExtractor (return_stds, raw_preds) and get_dl_h_z on an
+    f32 RN50 at 224 px, batch 4, the same keep-weights: the card (TF32 off,
+    kernel 1) against the CPU (plain versions), relative to each output's
+    largest magnitude."""
+    from runia_core_tpu_torch.evaluation import get_dl_h_z
+    from runia_core_tpu_torch.extraction import FastMCDSamplesExtractor, tap_torch_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    card = _rn50(torch.float32)
+    x = torch.rand((4, 224, 224, 3), generator=gen, device="cuda")
+    weights = mc_dropblock_weights(4, 7, 7, 16, 3, 0.5, gen, "cuda")
+    out = {}
+    for device, model in (("cuda", card), ("cpu", _rn50(torch.float32, "cpu", weights_of=card))):
+        tapped = tap_torch_model(model, ("stage4_block2",), tap_aliases={"pre_pool": "stage4_block2"}, device=device)
+        extractor = FastMCDSamplesExtractor(
+            lambda images: (lambda o, t: (o[0], t))(*tapped(images)), "Conv", "fullmean", channel_axis=1,
+            mcd_nro_samples=16, dropblock_probs=0.5, dropblock_sizes=3, return_stds=True,
+            return_raw_predictions=True, device=device)
+        before = marginal_entropy_cuda.launches
+        got = extractor.get_ls_samples([(x.to(device), torch.zeros(4))], draws=[[weights.to(device)]])
+        got["entropies"] = get_dl_h_z(got["latent_space_means"], 16)[1]
+        assert (marginal_entropy_cuda.launches > before) == (device == "cuda")
+        out[device] = got
+    for key in ("latent_space_means", "stds", "raw_preds", "entropies"):
+        want = out["cpu"][key]
+        assert out["cuda"][key].is_cuda
+        torch.testing.assert_close(out["cuda"][key].cpu(), want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))

@@ -96,5 +96,10 @@ def test_sampler_module_squeezes_single_image_and_rejects_unported_paths():
                               generator=torch.Generator().manual_seed(3))
     assert sampler(torch.rand(1, 16, 6, 6)).shape == (8, 16)
     assert sampler(torch.rand(2, 16, 6, 6)).shape == (2, 8, 16)
-    with pytest.raises(NotImplementedError):
-        mc_dropblock_samples(torch.rand(2, 16, 6, 6), 8, 3, 0.5, layer_type="FC")
+    # FC / RPN and the Conv "mean" reduction are ported (tests/test_torch_reduction_ops.py);
+    # what stays refused is a reduction the reference has no path for.
+    assert mc_dropblock_samples(torch.rand(2, 16, 6, 6), 8, 3, 0.5, layer_type="FC").shape == (2, 8, 16 * 36)
+    with pytest.raises(ValueError, match="Unsupported reduction"):
+        mc_dropblock_samples(torch.rand(2, 16, 6, 6), 8, 3, 0.5, reduction="max")
+    with pytest.raises(ValueError):
+        MCSamplerModule(mc_samples=8, block_size=3, drop_prob=0.5, layer_type="Dense")

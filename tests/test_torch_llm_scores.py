@@ -100,6 +100,26 @@ def test_sequence_scores(inputs):
     _close(scores.generation_entropy(inputs["logits"]), jax_scores.generation_entropy(inputs["logits"]))
 
 
+@pytest.mark.parametrize("empty", [np.zeros((0, 4)), []], ids=["zeros_0x4", "list"])
+def test_normalized_entropy_of_no_sequences_raises_as_jax(empty):
+    with pytest.raises(ZeroDivisionError):
+        jax_scores.normalized_entropy(empty)
+    with pytest.raises(ZeroDivisionError):
+        scores.normalized_entropy(empty)
+
+
+def test_generation_entropy_refuses_steps_without_the_batch_axis():
+    rng = np.random.RandomState(3)
+    steps = [rng.randn(11).astype(np.float32) for _ in range(5)]
+    with pytest.raises(IndexError):
+        jax_scores.generation_entropy(steps)
+    with pytest.raises(IndexError):
+        scores.generation_entropy(steps)
+    batched = [s[None] for s in steps]
+    batched[2][0, 4] = -np.inf
+    assert scores.generation_entropy(batched) == jax_scores.generation_entropy(batched)
+
+
 @pytest.mark.parametrize("token", ["original", "mean_all_tokens"])
 @pytest.mark.parametrize("head", ["original", "mean_heads", "rollout"])
 @pytest.mark.parametrize("ablation", [False, True])

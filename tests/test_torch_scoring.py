@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from runia_core_tpu.detectors import KDELatentSpace as JaxKDE
@@ -17,6 +18,7 @@ from runia_core_tpu.detectors.latent import kde_log_density as jax_kde
 from runia_core_tpu.ops import linalg as jax_linalg
 from runia_core_tpu.ops.knn import squared_l2_distances as jax_sq_dists
 from runia_core_tpu.reduction import apply_pca_ds_split as jax_pca_split
+from runia_core_tpu.reduction import pca_fit as jax_pca_fit
 from runia_core_tpu.reduction import pca_transform as jax_pca_transform
 from runia_core_tpu_torch.detectors import (
     KDELatentSpace,
@@ -89,8 +91,12 @@ def test_pca_fit_and_transform_match_jax_with_signs(whiten):
     # The JAX state carried across gives the same projection.
     _close(apply_pca_transform(test, pca_state_from_arrays(want_state, device="cpu")).numpy(), want)
     assert got_state.n_components_ == 8
-    with pytest.raises(NotImplementedError):
-        pca_fit(x, 8, svd_solver="randomized")
+    # The randomized SVD is ported: given JAX's Gaussian test matrix it
+    # fits JAX's state (tests/test_torch_reduction_ops.py holds it wider).
+    omega = torch.tensor(np.asarray(jax.random.normal(jax.random.key(0), (20, 18), jnp.float32)))
+    got_r = pca_fit(torch.from_numpy(x), 8, whiten, svd_solver="randomized", omega=omega)[1]
+    want_r = jax_pca_fit(x, 8, whiten, svd_solver="randomized")[1]
+    _close(got_r.components.numpy(), np.asarray(want_r.components))
 
 
 def test_md_latent_space_matches_jax():
