@@ -29,6 +29,14 @@ kernel against its plain PyTorch version on the card. Then, through
   out-of-distribution batches through ``LaRExInference(mcd_sampler=)`` and
   both scorer routes (kernels 1 and 2), ``MCDSamplesExtractor`` with 16
   stochastic forwards, and the flow in f32 at batch 8 against the CPU.
+* Evaluation layer (``eval_rn50``), at the same width: features, logits and
+  16 MC samples of 4,096 train, 1,024 valid and two 1,024-image
+  out-of-distribution sets, ``get_dl_h_z`` (kernel 1) on each,
+  ``calculate_all_baselines`` with all twelve baselines (vim, msp, raw, knn,
+  energy, ash, gen, react, dice, dice_react, mdist, ddu) and pred_h / mi
+  from ``get_mcd_pred_uncertainty_score``, ``log_evaluate_larex`` (LaRED,
+  LaREM, LaREK at PCA 64 and 256), ``torch_auroc`` on the card against every
+  row's numpy AUROC, and every baseline card against CPU in f32.
 * LLM: the repository's production Llama (``bench.py`` ``_PROD_CFG``: 22
   layers, d_model 2048, 16/8 heads of 128, SwiGLU 5632, vocab 32000; random
   weights from a seed), bf16 with ``use_flash`` and its int8 + KV8 + fused
@@ -111,7 +119,7 @@ of one sort and one window per column, whatever the kernel does). Kernels
 past the L2, so neither the host nor the cache is in the number. Where one PyTorch call computes the
 same function (``scaled_dot_product_attention`` for kernel 4), that call's
 time, which the port itself never uses. A kernel's launch count is what the
-main paths launched (the LaREx slice and user flow, the Llama slice,
+main paths launched (the LaREx slice, user flow and evaluation layer, the Llama slice,
 semantic entropy, speculative decoding, the two serving cells and the MoE
 slice, each counted from zero just before it runs), the kernels inside each
 graph replay included.
@@ -169,6 +177,34 @@ FLOW_SCORER_REL = 1e-5
 # The flow in f32 at batch 8, card (TF32 off) against CPU, with the card's
 # PCA and detector states: relative to the largest magnitude of each output.
 FLOW_XCHECK_IMAGES, FLOW_XCHECK_REL = 8, 1e-4
+# The evaluation layer at the same width (eval_rn50): in-distribution train
+# and valid images (uniform in [0, 1)) and two out-of-distribution sets,
+# |N(0, 1)| and uniform in [0, 4), made at the flow's batch; every baseline
+# of calculate_all_baselines with the reference's hyperparameters, pred_h /
+# mi from MC_SAMPLES stochastic forwards, the LaRED / LaREM / LaREK sweep at
+# two PCA widths.
+EVAL_SPLITS = {"train": 4096, "valid": 1024, "noise_abs": 1024, "uniform_x4": 1024}
+EVAL_BASELINES = ("vim", "msp", "raw", "knn", "energy", "ash", "gen", "react", "dice", "dice_react", "mdist", "ddu")
+EVAL_CFG = dict(num_classes=NUM_CLASSES, k_neighbors=50, ash_percentile=85, gen_gamma=0.1, react_percentile=90,
+                dice_percentile=90, n_pca_components=[64, 256])
+EVAL_POSTPROCESSORS = ("LaRED", "LaREM", "LaREK")
+# Card (TF32 off) against CPU, both f32, relative to max(largest score, 1):
+# the logit and shaping scorers sum 10- and 2048-long products in other
+# orders; vim and ddu go through an eigenbasis or Cholesky factors of 2048 x
+# 2048 covariances from other solvers. mdist's scores are differences of
+# quadratic forms about 200 times larger than themselves (the precision's
+# kept eigenvalues span 410x): its rounding is that ratio times f32's eps,
+# several times over (PERF.md §6, eval_rn50).
+EVAL_XCHECK_REL = {"mdist": 1e-3, "vim": 1e-4, "ddu": 1e-4}
+EVAL_XCHECK_REL_DEFAULT = 1e-5
+# Where the random network's features leave the fit undetermined in f32
+# (ViM's subspace boundary among eigenvalues at 1e-8 of the largest, DDU's
+# jitter rung on singular class covariances; PERF.md §6), each side's own
+# fit is recorded, and what is held is the card's state scored on the CPU
+# and the parts of the fit the data determine (ViM's u, DDU's means).
+EVAL_STATE_SHARED = ("vim", "ddu")
+EVAL_MAIN_PATH_REL = 1e-6  # calculate_all_baselines against the same detector fitted alone, on the card
+AUROC_ATOL = 1e-6  # torch_auroc (float32 ranks) against the numpy curve's area
 
 # Kernel 1 selects the same f32 differences as the sorted-window plain
 # version; only the order of the final sum of n logs differs (the kernel's
@@ -505,6 +541,9 @@ def entropy_phase(device, gen) -> dict:
         # the RN50 flow's get_dl_h_z over the fit set and its scorer's batch
         "rn50_fit": (torch.randn((RN50_FIT, MC_SAMPLES, 2048), generator=gen, device=device), K),
         "rn50_score": (torch.randn((RN50_BATCH, MC_SAMPLES, 2048), generator=gen, device=device), K),
+        # eval_rn50's get_dl_h_z over its train split and each 1,024-image split
+        "eval_train": (torch.randn((EVAL_SPLITS["train"], MC_SAMPLES, 2048), generator=gen, device=device), K),
+        "eval_split": (torch.randn((EVAL_SPLITS["valid"], MC_SAMPLES, 2048), generator=gen, device=device), K),
     }
     errors = {}
     for name, (clouds, k) in cases.items():
@@ -524,7 +563,10 @@ def entropy_phase(device, gen) -> dict:
                             "n64": (BATCH, 64, 512), "n512": (64, 512, 512),
                             # the RN50 flow's get_dl_h_z over the fit set and its scorer's batch
                             "rn50_fit": (RN50_FIT, MC_SAMPLES, 2048),
-                            "rn50_score": (RN50_BATCH, MC_SAMPLES, 2048)}.items():
+                            "rn50_score": (RN50_BATCH, MC_SAMPLES, 2048),
+                            # eval_rn50's train split and each 1,024-image split
+                            "eval_train": (EVAL_SPLITS["train"], MC_SAMPLES, 2048),
+                            "eval_split": (EVAL_SPLITS["valid"], MC_SAMPLES, 2048)}.items():
         clouds = torch.randn((b, n, d), generator=gen, device=device)
         copies = cold_copies((clouds,), clouds.numel() * 4)
         times = timed_cold(lambda x: marginal_entropy_cuda(x, K), lambda x: marginal_entropy_plain(x, K), copies)
@@ -1132,6 +1174,304 @@ def image_flow_rn50_phase(device, gen, smi: str) -> dict:
     del scorers, fresh, extractor, inference, detectors, model
     torch.cuda.empty_cache()
     return totals
+
+
+def _baseline_fit(name: str, data: dict, fc: dict):
+    """One baseline detector fitted as ``calculate_all_baselines`` fits it
+    (None for 'raw', MSP with no detector)."""
+    from runia_core_tpu_torch import detectors
+
+    if name == "raw":
+        return None
+    det = {
+        "vim": lambda: detectors.ViM(), "msp": lambda: detectors.MSP(), "energy": lambda: detectors.Energy(),
+        "gen": lambda: detectors.GEN(gamma=EVAL_CFG["gen_gamma"], num_classes=NUM_CLASSES),
+        "knn": lambda: detectors.KNN(k_neighbors=EVAL_CFG["k_neighbors"]),
+        "ash": lambda: detectors.ASH(ash_percentile=EVAL_CFG["ash_percentile"]),
+        "react": lambda: detectors.ReAct(react_percentile=EVAL_CFG["react_percentile"]),
+        "dice": lambda: detectors.DICE(dice_percentile=EVAL_CFG["dice_percentile"], num_classes=NUM_CLASSES),
+        "dice_react": lambda: detectors.DICEReAct(dice_percentile=EVAL_CFG["dice_percentile"],
+                                                  react_percentile=EVAL_CFG["react_percentile"],
+                                                  num_classes=NUM_CLASSES),
+        "mdist": lambda: detectors.Mahalanobis(num_classes=NUM_CLASSES),
+        "ddu": lambda: detectors.DDU(num_classes=NUM_CLASSES),
+    }[name]()
+    train, valid = data["train"], data["valid"]
+    if name in ("msp", "energy", "gen"):
+        det.setup(train["logits"])
+        return det
+    kw = {"valid_feats": valid["features"]}
+    if name in ("mdist", "ddu"):
+        kw["train_labels"] = train["logits"].argmax(dim=1)
+    else:
+        kw["final_linear_layer_params"] = fc
+    if name == "vim":
+        kw.update(train_logits=train["logits"], valid_logits=valid["logits"])
+    det.setup(train["features"], **kw)
+    return det
+
+
+def _baseline_score(name: str, det, split: dict):
+    """A fitted baseline's scores of one split ({"features", "logits"})."""
+    from runia_core_tpu_torch.detectors.logits import msp_score
+
+    if name == "raw":
+        return msp_score(split["logits"])
+    if name in ("msp", "energy", "gen"):
+        return det.postprocess(split["logits"])
+    if name == "vim":
+        return det.postprocess(split["features"], logits=split["logits"])
+    return det.postprocess(split["features"])
+
+
+def _rel1(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max(max |want|, 1), over the finite entries of
+    want (got moved to want's device)."""
+    got, want = got.to(want.device).float(), want.float()
+    finite = torch.isfinite(want)
+    return float((got[finite] - want[finite]).abs().max() / want[finite].abs().max().clamp_min(1.0))
+
+
+def eval_rn50_phase(device, gen, smi: str) -> dict:
+    """The evaluation layer at the RN50 @224 width, through the port's entry
+    points: (1) features, logits and FastMCDSamplesExtractor's 16 samples
+    of every split, get_dl_h_z (kernel 1, held against its plain version on
+    the train and a 1,024-image split's samples); (2) calculate_all_baselines
+    with all twelve baselines and pred_h / mi from
+    get_mcd_pred_uncertainty_score; (3) log_evaluate_larex (LaRED, LaREM,
+    LaREK; PCA 64 and 256); (4) torch_auroc on the card against the numpy
+    AUROC of every row; (5) every baseline timed alone (setup, 1,024 rows
+    scored) and held against the same calls on CPU f32 copies. Kernel 1's
+    launches are counted over (1)-(3)."""
+    import types
+
+    import pandas
+
+    from runia_core_tpu_torch.detectors import get_mcd_pred_uncertainty_score, postprocessors_dict
+    from runia_core_tpu_torch.evaluation import (
+        calculate_all_baselines,
+        get_auroc_results,
+        get_dl_h_z,
+        log_evaluate_larex,
+        torch_auroc,
+    )
+    from runia_core_tpu_torch.extraction import FastMCDSamplesExtractor
+    from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda, marginal_entropy_plain
+    from runia_core_tpu_torch.ops.linalg import class_means, classwise_center, empirical_covariance
+    from runia_core_tpu_torch.reduction import apply_pca_ds_split, apply_pca_transform
+    from runia_core_tpu_torch.utils import cuda_time_ms
+
+    start_phase = time.perf_counter()
+    ood_names = [name for name in EVAL_SPLITS if name not in ("train", "valid")]
+    makers = {
+        "train": lambda n: torch.rand((n, RN50_IMG, RN50_IMG, 3), generator=gen, device=device),
+        "valid": lambda n: torch.rand((n, RN50_IMG, RN50_IMG, 3), generator=gen, device=device),
+        "noise_abs": lambda n: torch.randn((n, RN50_IMG, RN50_IMG, 3), generator=gen, device=device).abs(),
+        "uniform_x4": lambda n: 4.0 * torch.rand((n, RN50_IMG, RN50_IMG, 3), generator=gen, device=device),
+    }
+    model = rn50_model(torch.bfloat16)
+    forward = rn50_forward(model)
+    fc = {"weight": model.head.weight.detach().float(), "bias": model.head.bias.detach().float()}
+    cfg = types.SimpleNamespace(**EVAL_CFG, ood_datasets=ood_names, ind_dataset="rn50_random",
+                                mlflow_experiment_name="chip_smoke")
+    record = {"card": smi, "pandas": pandas.__version__, "splits": EVAL_SPLITS, "cfg": EVAL_CFG}
+
+    def stochastic(generator, batch):  # dropout stands in as input noise, as image_flow_rn50's
+        return forward(batch + 0.01 * torch.randn(batch.shape, generator=generator, device=batch.device))[0].float()
+
+    # ---- (1) features, logits, MC samples and entropies of every split; counted from here ----
+    marginal_entropy_cuda.launches = 0
+    extractor = FastMCDSamplesExtractor(forward, "Conv", "fullmean", mcd_nro_samples=MC_SAMPLES,
+                                        dropblock_probs=DROP_PROB, dropblock_sizes=BLOCK_SIZE, generator=gen)
+    data, entropies, predictive, kernel_errors, stage_s = {}, {}, {}, {}, {}
+    for split, n in EVAL_SPLITS.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batches = [makers[split](RN50_BATCH) for _ in range(n // RN50_BATCH)]
+        feats, logits = [], []
+        for batch in batches:
+            out, taps = forward(batch)
+            feats.append(taps["pre_pool"].float().mean(dim=(1, 2)))
+            logits.append(out.float())
+        samples = extractor.get_ls_samples([(batch, None) for batch in batches])
+        _, h = get_dl_h_z(samples["latent_space_means"], MC_SAMPLES)
+        data[split] = {"features": torch.cat(feats), "logits": torch.cat(logits)}
+        entropies[split] = h
+        if split in ("train", "valid"):  # outside the count: kernel 1 against plain on the split's own samples
+            k1 = marginal_entropy_cuda.launches
+            clouds = samples["latent_space_means"].reshape(n, MC_SAMPLES, -1)
+            kernel_errors[split] = float((marginal_entropy_cuda(clouds, K) - marginal_entropy_plain(clouds, K))
+                                         .abs().max())
+            marginal_entropy_cuda.launches = k1
+            del clouds
+        if split != "train":
+            mc = [get_mcd_pred_uncertainty_score(stochastic, batch, gen, MC_SAMPLES) for batch in batches]
+            predictive[split] = {"pred_h": torch.cat([m[1] for m in mc]), "mi": torch.cat([m[2] for m in mc])}
+        del batches, samples
+        torch.cuda.synchronize()
+        stage_s[f"extract_{split}"] = time.perf_counter() - t0
+        for key, shape in (("features", (n, 2048)), ("logits", (n, NUM_CLASSES))):
+            require(tuple(data[split][key].shape) == shape and bool(torch.isfinite(data[split][key]).all()),
+                    f"{split} {key}: finite {shape}")
+        require(tuple(h.shape) == (n, 2048) and h.is_cuda and bool(torch.isfinite(h).all()),
+                f"{split}: finite entropies on the card")
+    for split, err in kernel_errors.items():
+        require(err <= ENTROPY_ATOL, f"kernel 1 vs plain on the {split} split's samples: {kernel_errors}")
+
+    # ---- (2) every baseline ----
+    ind = {f"{split} {key}": data[split][key] for split in ("train", "valid") for key in ("features", "logits")}
+    ood = {f"{name} {key}": data[name][key] for name in ood_names for key in ("features", "logits")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ind, ood, scores = calculate_all_baselines(list(EVAL_BASELINES), ind, ood, fc, cfg, NUM_CLASSES)
+    torch.cuda.synchronize()
+    stage_s["calculate_all_baselines"] = time.perf_counter() - t0
+    ind["pred_h"], ind["mi"] = predictive["valid"]["pred_h"], predictive["valid"]["mi"]
+    for name in ood_names:
+        scores[f"{name} pred_h"], scores[f"{name} mi"] = predictive[name]["pred_h"], predictive[name]["mi"]
+    baselines = [*EVAL_BASELINES, "pred_h", "mi"]
+    for name in baselines:
+        for got in (ind[name], *(scores[f"{o} {name}"] for o in ood_names)):
+            require(got.is_cuda and tuple(got.shape) == (EVAL_SPLITS["valid"],) and bool(torch.isfinite(got).all()),
+                    f"baseline {name}: finite scores on the card")
+
+    # ---- (3) the LaREx sweep ----
+    for split, h in entropies.items():
+        (ind if split in ("train", "valid") else ood)[f"{split} latent_space_means"] = h
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table, best, thresholds, ood_out = log_evaluate_larex(
+        cfg, baselines, scores, ind, ood, mlflow_run_name="eval_rn50", mlflow_logging=False,
+        postprocessors=list(EVAL_POSTPROCESSORS))
+    torch.cuda.synchronize()
+    stage_s["log_evaluate_larex"] = time.perf_counter() - t0
+    launches = {"marginal_entropy": marginal_entropy_cuda.launches}
+    require(launches["marginal_entropy"] >= len(EVAL_SPLITS), f"get_dl_h_z ran kernel 1 on every split: {launches}")
+    rows = [f"{o} {b}" for b in baselines for o in ood_names]
+    rows += [f"{o} {p}{ext}" for ext in ["", *(f" PCA {n}" for n in EVAL_CFG["n_pca_components"])]
+             for o in ood_names for p in EVAL_POSTPROCESSORS]
+    require(sorted(table.index) == sorted(rows), f"log_evaluate_larex rows: {list(table.index)}")
+    for name in EVAL_POSTPROCESSORS:
+        config = best[name]["best_comp"]
+        require(config in thresholds and all(f"{o} {config}" in ood_out for o in ood_names),
+                f"{name}: best configuration {config} thresholded and scored")
+
+    # ---- (4) torch_auroc on the card against every row's numpy AUROC ----
+    row_scores = {}
+    for b in baselines:
+        sign = -1.0 if b in ("pred_h", "mi") else 1.0
+        for o in ood_names:
+            row_scores[f"{o} {b}"] = (sign * ind[b], sign * scores[f"{o} {b}"])
+    for n_comp in [None, *EVAL_CFG["n_pca_components"]]:
+        latent = {split: h for split, h in entropies.items()}
+        if n_comp is not None:
+            latent["train"], pca = apply_pca_ds_split(latent["train"], n_comp)
+            latent.update({split: apply_pca_transform(h, pca) for split, h in entropies.items() if split != "train"})
+        for p in EVAL_POSTPROCESSORS:
+            det = postprocessors_dict[p](cfg=cfg)
+            det.setup(latent["train"])
+            valid_scores = det.postprocess(latent["valid"])
+            for o in ood_names:
+                row_scores[f"{o} {p}{'' if n_comp is None else f' PCA {n_comp}'}"] = (valid_scores,
+                                                                                     det.postprocess(latent[o]))
+    auroc_err, table_err = {}, {}
+    for row, (ind_s, ood_s) in row_scores.items():
+        on_card = float(torch_auroc(ind_s, ood_s))
+        numpy_auroc = float(get_auroc_results(row, ind_s, ood_s).loc[row, "auroc"])
+        auroc_err[row] = abs(on_card - numpy_auroc)
+        table_err[row] = abs(on_card - float(table.loc[row, "auroc"]))
+    require(max(auroc_err.values()) <= AUROC_ATOL, f"torch_auroc vs the numpy AUROC: {auroc_err}")
+    record["sweep"] = {
+        "rows": len(table), "auroc": {row: float(table.loc[row, "auroc"]) for row in table.index},
+        "fpr95": {row: float(table.loc[row, "fpr@95"]) for row in table.index},
+        "best": {name: best[name] for name in EVAL_POSTPROCESSORS}, "thresholds": thresholds,
+        "torch_auroc_vs_numpy_max_abs": max(auroc_err.values()), "bound": AUROC_ATOL,
+        "torch_auroc_vs_table_max_abs": max(table_err.values()),
+    }
+    record["launches"] = launches
+    record["kernel1_vs_plain_max_abs_err"] = kernel_errors
+    record["stage_s"] = stage_s
+    record["main_path_s"] = time.perf_counter() - start_phase
+
+    # ---- (5) each baseline alone: times on the card, then the CPU's f32 copies ----
+    timing, xcheck, state = {}, {}, {}
+    cpu = {split: {key: t.cpu() for key, t in d.items()} for split, d in data.items()}
+    fc_cpu = {key: t.cpu() for key, t in fc.items()}
+    scored = ("valid", *ood_names)
+    for name in EVAL_BASELINES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det = _baseline_fit(name, data, fc)
+        torch.cuda.synchronize()
+        timing[name] = {"setup_ms": (time.perf_counter() - t0) * 1e3,
+                        "ms_per_1024_rows": cuda_time_ms(lambda: _baseline_score(name, det, data["valid"]), 5, 1)
+                        * 1024 / EVAL_SPLITS["valid"]}
+        card = {split: _baseline_score(name, det, data[split]) for split in scored}
+        main = dict(zip(scored, [ind[name], *(scores[f"{o} {name}"] for o in ood_names)]))
+        xcheck[f"{name}_main_path_vs_alone"] = max(_rel1(main[s], card[s]) for s in scored)
+        t0 = time.perf_counter()
+        cpu_det = _baseline_fit(name, cpu, fc_cpu)
+        xcheck[name] = max(_rel1(card[s], _baseline_score(name, cpu_det, cpu[s])) for s in scored)
+        timing[name]["cpu_s"] = time.perf_counter() - t0
+        if name in EVAL_STATE_SHARED:
+            # The card's fitted state scored on the CPU, and the parts of the
+            # fit the data determine in f32 (means, ViM's origin u).
+            shared = type(det)()
+            shared.load_state({k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in det.state.items()})
+            xcheck[f"{name}_state_shared"] = max(_rel1(card[s], _baseline_score(name, shared, cpu[s]))
+                                                 for s in scored)
+            determined = {"vim": lambda d: d.u, "ddu": lambda d: d.gmm.means}[name]
+            xcheck[f"{name}_fit_determined"] = _rel1(determined(det), determined(cpu_det))
+        if name == "mdist":
+            valid_x = data["valid"]["features"]
+            terms = ((valid_x @ det.precision) * valid_x).sum(dim=-1).max()
+            finite = torch.isfinite(det.class_mean).all(dim=1)
+            means = det.class_mean[finite]
+            terms = terms + ((means @ det.precision) * means).sum(dim=-1).max()
+            state["mdist_quadform_terms_over_score"] = float(terms / card["valid"].abs().max())
+        if name == "ddu":
+            state["ddu_jitter_rung"] = {"card": float(det.gmm.jitter.max()), "cpu": float(cpu_det.gmm.jitter.max())}
+            state["ddu_classes_kept"] = int(det.gmm.means.shape[0])
+    for name in EVAL_BASELINES:
+        checks = ([f"{name}_state_shared", f"{name}_fit_determined"] if name in EVAL_STATE_SHARED
+                  else [name]) + [f"{name}_main_path_vs_alone"]
+        for check in checks:
+            bound = (EVAL_MAIN_PATH_REL if check.endswith("main_path_vs_alone")
+                     else EVAL_XCHECK_REL.get(name, EVAL_XCHECK_REL_DEFAULT))
+            require(xcheck[check] <= bound, f"baseline {check}: rel err {xcheck[check]} > {bound}")
+    # ViM's boundary and eigh, mdist's pseudo-inverse cutoff: where card and CPU could part
+    x = data["train"]["features"]
+    vim = _baseline_fit("vim", data, fc)
+    covariance = empirical_covariance(x - vim.u, assume_centered=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eigvals = torch.linalg.eigh(covariance)[0]
+    torch.cuda.synchronize()
+    state["vim_eigh_ms"] = (time.perf_counter() - t0) * 1e3
+    boundary = x.shape[1] - vim.DIM  # the smallest principal eigenvalue's index (ascending)
+    state["vim_dim"] = vim.DIM
+    state["vim_boundary_eigvals"] = [float(eigvals[boundary - 1]), float(eigvals[boundary])]
+    state["vim_boundary_gap_rel"] = float((eigvals[boundary] - eigvals[boundary - 1]) / eigvals[boundary])
+    state["vim_boundary_over_largest"] = float(eigvals[boundary] / eigvals[-1])
+    labels = data["train"]["logits"].argmax(dim=1)
+    centred = classwise_center(x, labels, class_means(x, labels, NUM_CLASSES))
+    md_eig = torch.linalg.eigvalsh(empirical_covariance(centred))
+    cutoff = 10.0 * x.shape[1] * torch.finfo(torch.float32).eps * md_eig[-1]  # ops.linalg.pinvh's
+    state["mdist_class_counts"] = torch.bincount(labels, minlength=NUM_CLASSES).tolist()
+    state["mdist_pinv_cutoff"] = float(cutoff)
+    state["mdist_largest_eigval"] = float(md_eig[-1])
+    kept = md_eig > cutoff
+    state["mdist_eigvals_kept"] = int(kept.sum())
+    state["mdist_nearest_kept_over_cutoff"] = float(md_eig[kept].min() / cutoff)
+    state["mdist_cutoff_over_nearest_dropped"] = float(cutoff / md_eig[~kept].max()) if bool((~kept).any()) else None
+    record["baselines"] = {"timing": timing, "card_vs_cpu_rel": xcheck, "state_shared": list(EVAL_STATE_SHARED),
+                           "bounds": {name: EVAL_XCHECK_REL.get(name, EVAL_XCHECK_REL_DEFAULT)
+                                      for name in EVAL_BASELINES}, "state": state}
+    record["seconds"] = time.perf_counter() - start_phase
+    emit({"phase": "eval_rn50", "batch": RN50_BATCH, "img": RN50_IMG, **record})
+    del data, cpu, entropies, ind, ood, scores, model
+    torch.cuda.empty_cache()
+    return launches
 
 
 def quant_matmul_bound(rows: int, k: int, n: int, dtype) -> dict:
@@ -3544,6 +3884,7 @@ def main() -> None:
     k4 = timed("kernel_flash_prefix_attention", flash_phase, device, gen)
     launches = timed("slice", slice_phase, device, gen)
     flow = timed("image_flow_rn50", image_flow_rn50_phase, device, gen, smi)
+    evaluation = timed("eval_rn50", eval_rn50_phase, device, gen, smi)
     dense, int8 = build_llms(device, LLM_CFG["num_layers"], torch.bfloat16)
     models = {"bf16": dense, "int8_kv8": int8}
     launches.update(timed("llm_slice", llm_slice_phase, device, models))
@@ -3575,7 +3916,7 @@ def main() -> None:
     moe = timed("moe_slice", moe_slice_phase, device)
     timed("gpt2_slice", family_slice_phase, device, "gpt2")
     timed("neox_slice", family_slice_phase, device, "neox")
-    for counts in (flow, semantic, speculative, mixed, spec1b, serve7b, spec7b, fused7b, moe):
+    for counts in (flow, evaluation, semantic, speculative, mixed, spec1b, serve7b, spec7b, fused7b, moe):
         for name, n in counts.items():
             if name in launches:
                 launches[name] += n

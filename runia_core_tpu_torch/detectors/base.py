@@ -15,6 +15,8 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from runia_core_tpu_torch.utils.placement import as_tensor
+
 __all__ = [
     "OodPostprocessor",
     "Postprocessor",
@@ -85,10 +87,10 @@ class Postprocessor(ABC):
 
     def _rehydrate(self) -> None:
         """Rebuild attributes from :attr:`state`; by default every entry
-        becomes an attribute."""
+        becomes an attribute, an array as a tensor on the GPU."""
         for key, value in self._state.items():
             if not key.startswith("__"):
-                setattr(self, key, value)
+                setattr(self, key, as_tensor(value) if isinstance(value, np.ndarray) else value)
 
     @abstractmethod
     def setup(self, ind_train_data, **kwargs) -> None:

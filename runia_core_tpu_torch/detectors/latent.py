@@ -6,8 +6,8 @@ is a matmul distance program with a row-chunked logsumexp, the Mahalanobis
 scores quadratic forms, the kNN score the negated squared distance to the
 K-th neighbour (faiss's IndexFlatL2 convention) and the GMM score the
 logsumexp of the per-class MVN log-densities. Each is registered under the
-JAX package's names. Scores come back as tensors on the fitted state's
-device.
+JAX package's names. ``setup`` takes an array to the GPU (a tensor stays on
+its device); scores come back as tensors on the fitted state's device.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from runia_core_tpu_torch.detectors.base import Postprocessor, register_postprocessor
@@ -26,6 +27,7 @@ from runia_core_tpu_torch.ops.linalg import (
     mahalanobis_quadform,
     shared_class_precision,
 )
+from runia_core_tpu_torch.utils.placement import as_tensor
 
 __all__ = [
     "DetectorKDE",
@@ -76,7 +78,7 @@ class DetectorKDE:
             raise ValueError("Only the gaussian kernel is supported")
         self.kernel = kernel
         self.bandwidth = bandwidth
-        self.train_embeddings = torch.as_tensor(train_embeddings)
+        self.train_embeddings = as_tensor(train_embeddings)
         self.save_path = save_path
 
     def get_density_scores(self, test_embeddings) -> torch.Tensor:
@@ -85,7 +87,7 @@ class DetectorKDE:
 
 
 def _check_2d(data, what: str) -> None:
-    if torch.as_tensor(data).ndim != 2:
+    if np.ndim(data) != 2:
         raise ValueError(f"{what} must be 2 dimensional")
 
 
@@ -136,7 +138,7 @@ class MDLatentSpace(Postprocessor):
         _check_2d(ind_train_data, "ind_feats")
         if self._warn_if_fitted("MDPostprocessor"):
             return
-        x = torch.as_tensor(ind_train_data)
+        x = as_tensor(ind_train_data)
         self.feats_mean = x.mean(dim=0, keepdim=True)
         # assume_centered=False: the residual mean is subtracted again.
         self.precision = empirical_precision(x - self.feats_mean, assume_centered=False)
@@ -167,7 +169,7 @@ class cMDLatentSpace(Postprocessor):
         if self._warn_if_fitted("cMDPostprocessor"):
             return
         self.class_mean, self.precision = shared_class_precision(
-            torch.as_tensor(ind_train_data), kwargs["ind_train_labels"], self.num_classes,
+            as_tensor(ind_train_data), kwargs["ind_train_labels"], self.num_classes,
             warn_label="class (class-wise Mahalanobis)",
         )
         self._state = {"class_mean": self.class_mean, "precision": self.precision}
@@ -195,7 +197,7 @@ class KNNLatentSpace(Postprocessor):
         _check_2d(ind_train_data, "ind_train_feats")
         if self._warn_if_fitted("KNNPostprocessor"):
             return
-        self.activation_log = normalizer(torch.as_tensor(ind_train_data))
+        self.activation_log = normalizer(as_tensor(ind_train_data))
         self._state = {"activation_log": self.activation_log, "K": self.K}
         self._setup_flag = True
 
@@ -230,8 +232,8 @@ class GMMLatentSpace(Postprocessor):
         return torch.logsumexp(self.gmm.log_prob(test_data), dim=1)
 
     def _rehydrate(self) -> None:
-        means = torch.as_tensor(self._state["means"])
-        self.gmm = GMMState(means=means, chols=torch.as_tensor(self._state["chols"]),
+        means = as_tensor(self._state["means"])
+        self.gmm = GMMState(means=means, chols=torch.as_tensor(self._state["chols"], device=means.device),
                             jitter=torch.zeros(means.shape[0], device=means.device))
 
 

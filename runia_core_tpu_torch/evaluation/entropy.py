@@ -3,7 +3,8 @@
 Counterpart of ``runia_core_tpu/evaluation/entropy.py``: the joint h(Z) and
 the per-dimension h(z_i) of every image are each one batched call. The
 marginal entropies go through kernel 1 (``ops/entropy_cuda.py``) for a
-tensor on the GPU, and the results stay on the samples' device.
+tensor on the GPU, and the results stay on the samples' device; an array
+goes to ``device`` (None: the GPU) first.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Tuple
 import torch
 
 from runia_core_tpu_torch.ops.entropy import joint_entropy, marginal_entropy
+from runia_core_tpu_torch.utils.placement import as_tensor
 
 __all__ = ["get_dl_h_z", "neighbors_for", "single_image_entropy_calculation"]
 
@@ -22,13 +24,13 @@ def neighbors_for(mcd_samples_nro: int) -> int:
     return 5 if mcd_samples_nro > 5 else mcd_samples_nro - 1
 
 
-def single_image_entropy_calculation(sample, neighbors: int) -> torch.Tensor:
+def single_image_entropy_calculation(sample, neighbors: int, device=None) -> torch.Tensor:
     """Per-dimension KL entropies (d,) of one (n, d) cloud."""
-    return marginal_entropy(torch.as_tensor(sample)[None], neighbors)[0]
+    return marginal_entropy(as_tensor(sample, device)[None], neighbors)[0]
 
 
 def get_dl_h_z(
-    dl_z_samples, mcd_samples_nro: int = 32, parallel_run: bool = False
+    dl_z_samples, mcd_samples_nro: int = 32, parallel_run: bool = False, device=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Joint h(Z) (n_images, 1) and marginal h(z_i) (n_images, d) per image.
 
@@ -36,7 +38,7 @@ def get_dl_h_z(
     as a tensor or an array. ``parallel_run`` is accepted for API parity.
     """
     del parallel_run
-    samples = torch.as_tensor(dl_z_samples)
+    samples = as_tensor(dl_z_samples, device)
     total, d = samples.shape
     if total % mcd_samples_nro:
         raise ValueError("Sample count must be divisible by mcd_samples_nro")

@@ -7,7 +7,8 @@ loading is positive), so fits agree with the JAX package component by
 component. Inputs wider than 4096 take a randomized SVD (a Halko range
 finder) whose Gaussian test matrix comes from an explicit generator or is
 injected. PaCMAP (2-D visualisation) needs the optional ``pacmap`` package,
-as in the JAX package.
+as in the JAX package. A fit takes an array to ``device`` (None: the GPU); a
+transform takes its input to the fitted state's device.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from runia_core_tpu_torch.utils.placement import as_tensor
 
 __all__ = [
     "PCAState",
@@ -42,7 +45,7 @@ class PCAState:
     whiten: bool = True
 
     def transform(self, samples) -> torch.Tensor:
-        return pca_transform(self, torch.as_tensor(samples))
+        return pca_transform(self, torch.as_tensor(samples, device=self.mean.device))
 
     def to(self, device) -> "PCAState":
         return PCAState(
@@ -82,14 +85,14 @@ def _svd_flip(components: torch.Tensor) -> torch.Tensor:
 
 def pca_fit(
     samples, n_components: int, whiten: bool = True, svd_solver: str = "auto",
-    generator: Optional[torch.Generator] = None, omega: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None, omega: Optional[torch.Tensor] = None, device=None,
 ) -> Tuple[torch.Tensor, PCAState]:
     """Fit PCA and return (transformed samples, state), with sklearn's
     fit_transform semantics: explained_variance = S^2 / (n - 1), and whitened
     outputs have unit variance per component. ``svd_solver="randomized"``,
     or "auto" on inputs wider than 4096 with fewer than a fifth as many
     components, takes the randomized SVD (``generator``, ``omega``)."""
-    x = torch.as_tensor(samples)
+    x = as_tensor(samples, device)
     n, d = x.shape
     mean = x.mean(dim=0)
     if svd_solver == "randomized" or (svd_solver == "auto" and d > 4096 and n_components < 0.2 * d):
@@ -132,24 +135,24 @@ def pca_transform(state: PCAState, samples: torch.Tensor) -> torch.Tensor:
 
 
 def apply_pca_ds(
-    train_samples, test_samples, nro_components: int = 16, svd_solver: str = "auto", whiten: bool = True
+    train_samples, test_samples, nro_components: int = 16, svd_solver: str = "auto", whiten: bool = True,
+    device=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, PCAState]:
     """Fit on train, transform train and test (the reference's signature)."""
-    train_t, state = pca_fit(train_samples, nro_components, whiten, svd_solver=svd_solver)
-    return train_t, pca_transform(state, torch.as_tensor(test_samples, device=state.mean.device)), state
+    train_t, state = pca_fit(train_samples, nro_components, whiten, svd_solver=svd_solver, device=device)
+    return train_t, state.transform(test_samples), state
 
 
 def apply_pca_ds_split(
-    samples, nro_components: int = 16, svd_solver: str = "auto", whiten: bool = True
+    samples, nro_components: int = 16, svd_solver: str = "auto", whiten: bool = True, device=None
 ) -> Tuple[torch.Tensor, PCAState]:
     """Fit and transform one split (reference dimensionality_reduction.py:52-72)."""
-    return pca_fit(samples, nro_components, whiten, svd_solver=svd_solver)
+    return pca_fit(samples, nro_components, whiten, svd_solver=svd_solver, device=device)
 
 
 def apply_pca_transform(samples, pca_transform_state) -> torch.Tensor:
-    """Transform new samples with a PCAState or any object with ``.transform``."""
-    if isinstance(pca_transform_state, PCAState):
-        return pca_transform(pca_transform_state, torch.as_tensor(samples))
+    """Transform new samples with a PCAState (an array goes to the state's
+    device) or any object with ``.transform``."""
     return pca_transform_state.transform(samples)
 
 

@@ -106,10 +106,10 @@ def test_get_dl_h_z_matches_jax():
     rng = np.random.RandomState(4)
     samples = rng.randn(6 * 16, 24).astype(np.float32)
     samples[:16, :5] = 0.0
-    joint, marginal = get_dl_h_z(samples, 16)
+    joint, marginal = get_dl_h_z(torch.from_numpy(samples), 16)
     want_joint, want_marginal = jax_get_dl_h_z(samples, 16)
     assert joint.shape == (6, 1) and marginal.shape == (6, 24)
     np.testing.assert_allclose(joint.numpy(), want_joint, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(marginal.numpy(), want_marginal, **TOL)
     with pytest.raises(ValueError):
-        get_dl_h_z(samples[:-1], 16)
+        get_dl_h_z(torch.from_numpy(samples[:-1]), 16)

@@ -55,8 +55,24 @@ def test_import_loads_no_jax_or_flax():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120, check=True
     )
     assert len(modules) >= 25
-    assert {"runia_core_tpu_torch.llm.scores", "runia_core_tpu_torch.models.llama"} <= set(modules)
+    assert {"runia_core_tpu_torch.llm.scores", "runia_core_tpu_torch.models.llama",
+            "runia_core_tpu_torch.detectors.features", "runia_core_tpu_torch.detectors.logits",
+            "runia_core_tpu_torch.evaluation.metrics", "runia_core_tpu_torch.evaluation.baselines",
+            "runia_core_tpu_torch.evaluation.latent_space"} <= set(modules)
     assert out.stdout.strip() == "[]"
+
+
+def test_evaluation_exports_every_jax_name_but_subset_boxes_without_jax():
+    jax_init = (REPO / "runia_core_tpu" / "evaluation" / "__init__.py").read_text()
+    jax_names = set(re.findall(r'^\s+"(\w+)",$', jax_init.split("__all__")[1], re.M))
+    code = ("import sys, runia_core_tpu_torch.evaluation as e\n"
+            "print(sorted(e.__all__))\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'runia_core_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+                         check=True).stdout.splitlines()
+    assert len(jax_names) == 16 and "subset_boxes" in jax_names
+    assert jax_names - {"subset_boxes"} <= set(eval(out[0]))
+    assert out[1] == "[]"
 
 
 def test_sources_never_import_jax_flax_or_the_jax_package():
@@ -218,3 +234,87 @@ def test_chip_smoke_imports_no_jax_and_passes_no_device_to_the_models():
     source = (REPO / "chip_smoke.py").read_text()
     assert not re.search(r"^\s*(import|from)\s+(jax|flax|runia_core_tpu)(\.|\s|$)", source, re.M)
     assert "with torch.device(" not in source
+
+
+def _placement_cases():
+    """Entry point -> a call of it on its inputs made by ``make`` (numpy
+    arrays, or CPU tensors)."""
+    from runia_core_tpu_torch.detectors import DDU, MDLatentSpace, ViM, postprocessors_dict
+    from runia_core_tpu_torch.evaluation import calculate_all_baselines, get_dl_h_z, torch_auroc
+    from runia_core_tpu_torch.evaluation.entropy import single_image_entropy_calculation
+    from runia_core_tpu_torch.reduction import apply_pca_ds, apply_pca_ds_split
+
+    class Cfg:
+        ood_datasets, k_neighbors, ash_percentile, gen_gamma = ["o"], 3, 85, 0.1
+        react_percentile = dice_percentile = 90
+
+    rng = np.random.RandomState(0)
+    x, labels, w = rng.randn(40, 6).astype(np.float32), rng.randint(0, 3, 40), rng.randn(3, 6).astype(np.float32)
+
+    def baselines(make):
+        ind = {"train features": make(x), "valid features": make(x[:20]), "train logits": make(x @ w.T),
+               "valid logits": make(x[:20] @ w.T)}
+        ood = {"o features": make(x[20:]), "o logits": make(x[20:] @ w.T)}
+        fc = {"weight": make(w), "bias": make(np.zeros(3, np.float32))}
+        return calculate_all_baselines(["vim", "msp", "knn", "ddu", "mdist", "dice"], ind, ood, fc, Cfg(), 3)[2]
+
+    return {
+        "get_dl_h_z": lambda make: get_dl_h_z(make(x), 8)[1],
+        "single_image_entropy_calculation": lambda make: single_image_entropy_calculation(make(x[:8]), 5),
+        "apply_pca_ds_split": lambda make: apply_pca_ds_split(make(x), 3)[0],
+        "apply_pca_ds": lambda make: apply_pca_ds(make(x), make(x[:5]), 3)[1],
+        "MD_setup": lambda make: _fitted(MDLatentSpace(), make(x)).feats_mean,
+        "every_latent_setup": lambda make: [
+            _fitted(postprocessors_dict[name](), make(x), ind_train_labels=labels).state
+            for name in ("KDE", "cMD", "KNN", "GMM")],
+        "DDU_setup": lambda make: _fitted(DDU(num_classes=3), make(x), train_labels=make(labels),
+                                          valid_feats=make(x)).gmm.means,
+        "ViM_setup": lambda make: _fitted(ViM(), make(x), train_logits=make(x @ w.T), valid_feats=make(x),
+                                          valid_logits=make(x @ w.T),
+                                          final_linear_layer_params={"weight": make(w), "bias": make(w[:, 0])}).NS,
+        "calculate_all_baselines": lambda make: baselines(make),
+        "torch_auroc": lambda make: torch_auroc(make(x[:, 0]), make(x[:, 1])),
+    }
+
+
+def _fitted(detector, data, **kwargs):
+    detector.setup(data, **kwargs)
+    return detector
+
+
+def _devices(out):
+    if isinstance(out, torch.Tensor):
+        return {out.device.type}
+    values = out.values() if isinstance(out, dict) else out
+    return set().union(*(_devices(v) for v in values)) if isinstance(out, (dict, list)) else set()
+
+
+@pytest.mark.parametrize("name", sorted(_placement_cases()))
+def test_numpy_inputs_go_to_the_default_device_and_tensors_stay(monkeypatch, name):
+    """A numpy input is placed on ``default_device()`` (patched here to
+    record the request and answer the CPU); a tensor stays on its device
+    and asks for none."""
+    asked = []
+
+    def recording_default_device():
+        asked.append(True)
+        return torch.device("cpu")
+
+    call = _placement_cases()[name]
+    monkeypatch.setattr(runia_core_tpu_torch, "default_device", recording_default_device)
+    out = call(lambda a: np.asarray(a))
+    assert asked and _devices(out) == {"cpu"}
+    asked.clear()
+    out = call(lambda a: torch.from_numpy(np.array(a)))
+    assert not asked and _devices(out) == {"cpu"}
+
+
+def test_a_numpy_input_is_not_computed_on_the_cpu_without_a_gpu():
+    """Unpatched, a numpy input goes to the GPU: on this host that raises
+    instead of quietly computing on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the CPU-only host")
+    from runia_core_tpu_torch.evaluation import get_dl_h_z
+
+    with pytest.raises((RuntimeError, AssertionError)):
+        get_dl_h_z(np.zeros((16, 4), np.float32), 8)

@@ -151,7 +151,7 @@ def test_batched_cloud_entropies_match_jax():
 @pytest.mark.parametrize("n,k", [(16, 5), (4, 3)])
 def test_single_image_entropy_calculation_matches_jax(n, k):
     cloud = _clouds(9, b=1, n=n, d=11)[0]
-    got = single_image_entropy_calculation(cloud, k)
+    got = single_image_entropy_calculation(torch.from_numpy(cloud), k)
     assert got.shape == (11,)
     _close(got, jax_single_entropy(cloud, k))
 

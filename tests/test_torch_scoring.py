@@ -89,7 +89,7 @@ def test_pca_fit_and_transform_match_jax_with_signs(whiten):
     want = np.asarray(jax_pca_transform(want_state, jnp.asarray(test)))
     _close(pca_transform(got_state, torch.from_numpy(test)).numpy(), want)
     # The JAX state carried across gives the same projection.
-    _close(apply_pca_transform(test, pca_state_from_arrays(want_state, device="cpu")).numpy(), want)
+    _close(apply_pca_transform(torch.from_numpy(test), pca_state_from_arrays(want_state, device="cpu")).numpy(), want)
     assert got_state.n_components_ == 8
     # The randomized SVD is ported: given JAX's Gaussian test matrix it
     # fits JAX's state (tests/test_torch_reduction_ops.py holds it wider).
@@ -102,7 +102,7 @@ def test_pca_fit_and_transform_match_jax_with_signs(whiten):
 def test_md_latent_space_matches_jax():
     train, test = _data(seed=5), _data(n=16, seed=6)
     md, jmd = LaREMPostprocessor(), JaxMD()
-    md.setup(train)
+    md.setup(torch.from_numpy(train))
     jmd.setup(train)
     np.testing.assert_allclose(md.feats_mean.numpy(), np.asarray(jmd.feats_mean), **TOL)
     want = jmd.postprocess(test)
@@ -112,13 +112,13 @@ def test_md_latent_space_matches_jax():
     np.testing.assert_allclose(loaded.postprocess(test).numpy(), want, rtol=1e-4, atol=1e-3)
     assert postprocessors_dict["LaREM"] is MDLatentSpace
     with pytest.warns(UserWarning):
-        md.setup(train)
+        md.setup(torch.from_numpy(train))
 
 
 def test_kde_latent_space_matches_jax():
     train, test = _data(n=48, d=6, seed=7) / 4, _data(n=20, d=6, seed=8) / 4
     kde, jkde = LaREDPostprocessor(), JaxKDE()
-    kde.setup(train)
+    kde.setup(torch.from_numpy(train))
     jkde.setup(train)
     want = jkde.postprocess(test)
     np.testing.assert_allclose(kde.postprocess(test).numpy(), want, rtol=1e-5, atol=1e-4)
