@@ -97,6 +97,20 @@ kernel against its plain PyTorch version on the card. Then, through
   ``generate_all``, and, once the break-even guard has fired, the prefix
   cache hitting slot 0 as often as the ``use_graph=False`` engine.
 
+* Image level C (``int8_rn18``, ``vit_b16``, ``train_rn18``): the int8 PTQ
+  leg of ``bench.py`` (``larex_resnet18_32px_int8``: the headline ResNet-18
+  at batch 512 with weights and statistics randomised from the seed,
+  ``quantize_resnet_params`` on 256 images on the card and on the CPU, the
+  int32 sums, logits and taps card against CPU, the fit on 512 images
+  through the int8 forward, both scorer routes under the graph,
+  ``save_larex_pipeline`` and the qparams reloaded into a fresh scorer
+  equal bit for bit, int8 against the f32 forward, and the int8, bf16 and
+  f32 forwards and scorers timed in turns with the int8 call's kernels by
+  category); LaREx on a ViT-B/16 @224 at batch 64 (the (64, 14, 14, 768)
+  ``encoder_tokens`` tap, both routes); ``fit_classifier`` on the headline
+  ResNet-18 (40 Adam steps at batch 128, one SGD step card against CPU,
+  then train -> tap -> LaREx).
+
 Both paths run as the port runs them by default: the LaREx scorer and the
 decode steps as replays of CUDA graphs (``utils/graphs.py``; the JAX
 package's compiled programs), every replay under
@@ -119,7 +133,8 @@ of one sort and one window per column, whatever the kernel does). Kernels
 past the L2, so neither the host nor the cache is in the number. Where one PyTorch call computes the
 same function (``scaled_dot_product_attention`` for kernel 4), that call's
 time, which the port itself never uses. A kernel's launch count is what the
-main paths launched (the LaREx slice, user flow and evaluation layer, the Llama slice,
+main paths launched (the LaREx slice, user flow and evaluation layer, the int8 leg, the
+ViT and the trained model's LaREx, the Llama slice,
 semantic entropy, speculative decoding, the two serving cells and the MoE
 slice, each counted from zero just before it runs), the kernels inside each
 graph replay included.
@@ -205,6 +220,38 @@ EVAL_XCHECK_REL_DEFAULT = 1e-5
 EVAL_STATE_SHARED = ("vim", "ddu")
 EVAL_MAIN_PATH_REL = 1e-6  # calculate_all_baselines against the same detector fitted alone, on the card
 AUROC_ATOL = 1e-6  # torch_auroc (float32 ranks) against the numpy curve's area
+# The int8 PTQ leg (bench.py:1182-1190, larex_resnet18_32px_int8): the
+# headline ResNet-18 at batch 512, weights and statistics randomised from
+# the seed, calibrated on 256 images at the 99.9th percentile, fitted on the
+# bench's n_fit = 512 images. Card against CPU: w_q, w_scale and bias bit
+# for bit; x_scale equal at the stem (its input is the images) and within
+# INT8_XSCALE_REL elsewhere (the f32 mirror's convolutions sum in other
+# orders, about 1e-6 relative a layer); on the same qparams the int32 sums
+# are exact on both devices and the elementwise passes the same IEEE f32
+# operations, so only the mean pool and the head sum in other orders:
+# logits and taps within INT8_XCHECK_REL of their largest magnitude. The
+# int8-vs-f32 bars are tests/test_quant_vision.py's: the pre_pool taps'
+# correlation > 0.99 (:110) and AUROC within 0.05 (:136-137). The LaREM
+# scores' correlation is recorded beside it, not held to 0.99: whitening 256
+# entropy dimensions magnifies the codes' rounding (0.96 on an H100 80GB
+# HBM3 at 700 W, where the taps correlate to 0.996).
+INT8_CALIB, INT8_FIT, INT8_QUANTILE, INT8_XCHECK = 256, 512, 99.9, 32
+INT8_XSCALE_REL, INT8_XCHECK_REL, INT8_CORR, INT8_AUROC_DELTA = 1e-5, 1e-5, 0.99, 0.05
+INT8_WINDOWS, INT8_CALLS = 6, 20  # scorer windows per variant (in turns) and calls a window
+# ViT-B/16 @224 (google/vit-base-patch16-224's config.json: hidden 768, 12
+# layers, 12 heads, patch 16, 1,000 labels, layer_norm_eps 1e-12, exact
+# GELU, CLS pooling), batch 64, 512 images to fit PCA-256 and LaREM.
+VIT_CFG = dict(num_classes=1000, patch_size=16, d_model=768, num_layers=12, num_heads=12, use_cls_token=True,
+               pool="cls", exact_gelu=True, ln_eps=1e-12)
+VIT_IMG, VIT_BATCH, VIT_FIT = 224, 64, 512
+# Training: fit_classifier on the headline ResNet-18, one fixed batch of
+# 128, Adam 1e-3, 20 steps then 20 more; one SGD step card against CPU on 32
+# images (f32, TF32 off): the loss to 1e-5 relative; every gradient to 1e-3
+# of its tensor's largest magnitude (cuDNN's backward algorithms and
+# BatchNorm's backward, which subtracts two near-equal sums over 32 x 32 x
+# 32 values, in other orders); the running statistics to 1e-5 absolute.
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_XCHECK, TRAIN_PCA = 128, 20, 32, 64
+TRAIN_XCHECK_REL = {"loss": 1e-5, "grads": 1e-3, "stats_abs": 1e-5}
 
 # Kernel 1 selects the same f32 differences as the sorted-window plain
 # version; only the order of the final sum of n logs differs (the kernel's
@@ -566,7 +613,9 @@ def entropy_phase(device, gen) -> dict:
                             "rn50_score": (RN50_BATCH, MC_SAMPLES, 2048),
                             # eval_rn50's train split and each 1,024-image split
                             "eval_train": (EVAL_SPLITS["train"], MC_SAMPLES, 2048),
-                            "eval_split": (EVAL_SPLITS["valid"], MC_SAMPLES, 2048)}.items():
+                            "eval_split": (EVAL_SPLITS["valid"], MC_SAMPLES, 2048),
+                            # vit_b16's encoder_tokens (the int8 leg's fit and scorer are the headline's shape)
+                            "vit_b16": (VIT_BATCH, MC_SAMPLES, VIT_CFG["d_model"])}.items():
         clouds = torch.randn((b, n, d), generator=gen, device=device)
         copies = cold_copies((clouds,), clouds.numel() * 4)
         times = timed_cold(lambda x: marginal_entropy_cuda(x, K), lambda x: marginal_entropy_plain(x, K), copies)
@@ -628,6 +677,8 @@ def fused_phase(device, gen) -> dict:
         "rn50_224_b128": (128, 7, 7, 2048, MC_SAMPLES, f32), "headline_s64": (BATCH, 4, 4, 512, 64, f32),
         # the RN50 flow's fused scorer: the bf16 tap as the forward leaves it
         "rn50_224_b128_bf16": (RN50_BATCH, 7, 7, 2048, MC_SAMPLES, bf16),
+        # vit_b16's fused scorer on the f32 (64, 14, 14, 768) encoder_tokens
+        "vit_b16": (VIT_BATCH, VIT_IMG // 16, VIT_IMG // 16, VIT_CFG["d_model"], MC_SAMPLES, f32),
     }.items():
         fmap = torch.rand((b, h, w, c), generator=gen, device=device).to(dtype)
         weights = mc_dropblock_weights(b, h, w, s_, BLOCK_SIZE, DROP_PROB, gen, device)
@@ -3855,6 +3906,491 @@ def spec_serve_check_phase(device) -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# Image level C: the int8 PTQ leg, ViT-B/16, training
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def randomize_resnet(model, generator: torch.Generator):
+    """tests/test_torch_resnet.py's randomisation on a port ResNet: kernels
+    plus 0.05 N(0, 1), BatchNorm scales and variances uniform in [0.5, 1.5),
+    shifts, means and the head bias 0.1 N(0, 1). (A fresh init puts every
+    block's last BatchNorm scale at 0, which folds those convs to zero
+    codes.)"""
+    def noise(t):
+        return torch.randn(t.shape, generator=generator, device=t.device)
+
+    def uniform(t):
+        return torch.rand(t.shape, generator=generator, device=t.device) + 0.5
+
+    for name, t in model.state_dict().items():
+        if name.endswith(".weight") and t.ndim > 1:
+            t.add_(0.05 * noise(t))
+        elif name.endswith((".running_var", ".weight")):
+            t.copy_(uniform(t))
+        else:
+            t.copy_(0.1 * noise(t))
+    return model
+
+
+def int8_category(name: str) -> str:
+    """An int8 call's kernels: the integer GEMM, the patch gathers (copies,
+    zero fills, pads), the quantize / rescale / bias / ReLU / residual
+    passes, kernels 1-2, the rest."""
+    low = name.lower()
+    for label, needle in (("marginal_entropy (kernel 1)", "marginal_entropy_kernel"),
+                          ("fused_mc_entropy (kernel 2)", "fused_mc_entropy_kernel")):
+        if needle in name:
+            return label
+    if any(k in low for k in ("gemm", "xmma", "cutlass", "imma", "nvjet", "gemv")):
+        return "int8 GEMM" if any(k in low for k in ("i8", "s8", "imma", "int8", "i32")) else "f32 GEMM"
+    if any(k in low for k in ("copy", "memcpy", "memset", "fill", "pad", "cat", "gather")):
+        return "patch copies, pads, zero fills"
+    if any(k in low for k in ("elementwise", "vectorized", "unrolled", "round", "clamp")):
+        return "quantize, rescale, bias, ReLU, residual passes"
+    return kernel_category(name)
+
+
+def _flatten_qparams(qparams: dict) -> dict:
+    return {f"{site}:{field}": value for site, fields in qparams.items() for field, value in fields.items()}
+
+
+def _unflatten_qparams(state: dict) -> dict:
+    out: dict = {}
+    for key, value in state.items():
+        site, field = key.rsplit(":", 1)
+        out.setdefault(site, {})[field] = value
+    return out
+
+
+def _corr(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(np.corrcoef(a.double().cpu().numpy().ravel(), b.double().cpu().numpy().ravel())[0, 1])
+
+
+def int8_rn18_phase(device, gen, smi: str) -> dict:
+    """The int8 PTQ LaREx leg (bench.py:1182-1190, larex_resnet18_32px_int8)
+    through the port's entry points at full width: ResNet-18 with the CIFAR
+    stem, 64 filters, 32 px, batch 512, weights and statistics randomised
+    from the seed. (1) quantize_resnet_params on the card from 256 images,
+    against the same calibration on the CPU (calib_device="cpu"); (2) the
+    int32 sums of a stem, a 3x3 and a 1x1 projection conv, logits and taps,
+    card against CPU on the same qparams; (3) counted: the fit (512 images
+    through the int8 forward, 16 DropBlock samples, kernel 1, PCA-256, LaREM)
+    and both scorer routes under the graph; (4) save_larex_pipeline + the
+    qparams by save_state_dict -> load_larex_scorer, equal bit for bit; (5)
+    int8 against the f32 forward (scores' correlation, AUROC on
+    rand * 2.5 - 0.75); (6) kernels 1-2 against plain on this path's inputs;
+    (7) forward ms (int8, bf16, f32) and scorer img/s, in turns."""
+    import tempfile
+
+    from runia_core_tpu_torch.checkpoint import load_larex_scorer, load_state_dict, save_larex_pipeline, save_state_dict
+    from runia_core_tpu_torch.detectors import MDLatentSpace
+    from runia_core_tpu_torch.evaluation import torch_auroc
+    from runia_core_tpu_torch.inference import build_larex_scorer
+    from runia_core_tpu_torch.models import ResNet18, build_tapped_forward, quantize_resnet, quantize_resnet_params
+    from runia_core_tpu_torch.models.quant_vision import _conv_padding, _conv_sites, _site_key, _weight_matrix, int8_conv
+    from runia_core_tpu_torch.models.resnet import BatchNorm
+    from runia_core_tpu_torch.ops.entropy import marginal_entropy
+    from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda, marginal_entropy_plain
+    from runia_core_tpu_torch.ops.mc_entropy_cuda import fused_mc_entropy, fused_mc_entropy_plain, mc_dropblock_weights
+    from runia_core_tpu_torch.reduction import apply_pca_ds_split
+    from runia_core_tpu_torch.sampling import mc_dropblock_samples
+    from runia_core_tpu_torch.utils import cuda_graph_time_ms, cuda_time_ms, device_profile
+
+    def images(n):
+        return torch.rand((n, IMG, IMG, 3), generator=gen, device=device)
+
+    cfg = dict(num_classes=NUM_CLASSES, cifar_stem=True, num_filters=NUM_FILTERS)
+    model = ResNet18(**cfg)
+    require(model.head.weight.device == device, f"int8_rn18: the default device is the card: {model.head.weight.device}")
+    randomize_resnet(model, torch.Generator(device=device).manual_seed(SEED + 13))
+    model_cpu = ResNet18(**cfg, device="cpu")
+    model_cpu.load_state_dict({name: t.cpu() for name, t in model.state_dict().items()})
+    record = {"card": smi, "calib_images": INT8_CALIB, "fit_images": INT8_FIT, "act_quantile": INT8_QUANTILE}
+
+    # ---- (1) calibration on the card, and on the CPU ----
+    calib = images(INT8_CALIB)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    qparams = quantize_resnet_params(model, calib, act_quantile=INT8_QUANTILE)
+    calib_s = time.perf_counter() - start
+    start = time.perf_counter()
+    qparams_cpu = quantize_resnet_params(model, calib, act_quantile=INT8_QUANTILE, calib_device="cpu")
+    calib_cpu_s = time.perf_counter() - start
+    require(sorted(qparams) == sorted(qparams_cpu) and len(qparams) == 20, f"int8_rn18: 20 conv sites: {sorted(qparams)}")
+    scale_ulps, scale_rel = {}, {}
+    for site in qparams:
+        card, cpu = qparams[site], qparams_cpu[site]
+        require(np.array_equal(card["w_q"], cpu["w_q"]), f"int8_rn18 {site}: w_q card = CPU bit for bit")
+        require(np.array_equal(card["w_scale"], cpu["w_scale"]) and np.array_equal(card["bias"], cpu["bias"]),
+                f"int8_rn18 {site}: w_scale and bias card = CPU bit for bit")
+        scale_ulps[site] = abs(int(card["x_scale"].view(np.int32)) - int(cpu["x_scale"].view(np.int32)))
+        scale_rel[site] = abs(float(card["x_scale"]) - float(cpu["x_scale"])) / float(cpu["x_scale"])
+    require(scale_ulps["conv_init"] == 0, "int8_rn18: the stem's x_scale (the images' own percentile) card = CPU")
+    require(max(scale_rel.values()) <= INT8_XSCALE_REL,
+            f"int8_rn18: x_scale card vs CPU within {INT8_XSCALE_REL}: {scale_rel}")
+    print(f"int8_rn18 calibration: {calib_s:.3f} s on the card, {calib_cpu_s:.3f} s on the CPU; x_scale card vs "
+          f"CPU at most {max(scale_ulps.values())} ulps", flush=True)
+    # Recorded: BatchNorm's g = scale / sqrt(var + eps) in torch on the card
+    # against numpy on the host, the reason the port folds on the host.
+    fold = {"channels": 0, "differing": 0}
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, BatchNorm):
+                card = (module.weight / torch.sqrt(module.running_var + 1e-5)).cpu().numpy()
+                host = module.weight.cpu().numpy() / np.sqrt(module.running_var.cpu().numpy() + np.float32(1e-5))
+                fold["channels"] += card.size
+                fold["differing"] += int((card != host).sum())
+    record["calibration"] = {"card_s": calib_s, "cpu_s": calib_cpu_s, "x_scale_ulps_card_vs_cpu": scale_ulps,
+                             "x_scale_max_rel": max(scale_rel.values()), "bound_rel": INT8_XSCALE_REL,
+                             "w_q_equal": True, "bn_scale_torch_on_card_vs_numpy": fold}
+
+    # ---- (2) card against CPU on the same qparams: int32 sums, logits, taps ----
+    qforward = quantize_resnet(model, None, taps=("pre_pool", "penultimate", "stem"), qparams=qparams)
+    qforward_cpu = quantize_resnet(model_cpu, None, taps=("pre_pool", "penultimate", "stem"), qparams=qparams)
+    sites = {_site_key(s): s for s in _conv_sites(model)}
+    x_small = images(INT8_XCHECK)
+    shapes = {"conv_init": (IMG, 3), "stage2_block1/Conv_0": (IMG // 2, 2 * NUM_FILTERS),
+              "stage3_block0/conv_proj": (IMG // 2, 2 * NUM_FILTERS)}
+    sums = {}
+    for key, (side, channels) in shapes.items():
+        w_q = torch.from_numpy(qparams[key]["w_q"])
+        xq = torch.randint(-127, 128, (INT8_XCHECK, side, side, channels), generator=gen, device=device,
+                           dtype=torch.int8)
+        pad = _conv_padding(model, sites[key], tuple(w_q.shape[:2]), (side, side))
+        args = (tuple(w_q.shape[:2]), int(w_q.shape[-1]), sites[key]["stride"], pad)
+        got = int8_conv(xq, _weight_matrix(w_q.to(device)), *args)
+        want = int8_conv(xq.cpu(), _weight_matrix(w_q), *args)
+        require(got.dtype == torch.int32 and torch.equal(got.cpu(), want),
+                f"int8_rn18 {key}: int32 sums card = CPU bit for bit")
+        sums[key] = {"shape": list(got.shape), "max_abs_sum": int(want.abs().max()), "equal": True}
+    logits, taps = qforward(x_small)
+    logits_cpu, taps_cpu = qforward_cpu(x_small.cpu())
+    xcheck = {"logits": {"equal": bool(torch.equal(logits.cpu(), logits_cpu)), "rel": _rel(logits, logits_cpu)}}
+    for tap in taps_cpu:
+        xcheck[tap] = {"equal": bool(torch.equal(taps[tap].cpu(), taps_cpu[tap])), "rel": _rel(taps[tap], taps_cpu[tap])}
+    for name, r in xcheck.items():
+        require(r["rel"] <= INT8_XCHECK_REL, f"int8_rn18 card vs CPU {name}: rel err {r['rel']} > {INT8_XCHECK_REL}")
+    record["xcheck_cpu"] = {"images": INT8_XCHECK, "int32_sums": sums, "outputs": xcheck, "bound_rel": INT8_XCHECK_REL}
+    del model_cpu, qforward_cpu
+
+    # ---- (3) the main path, counted: fit on the int8 forward, both scorer routes ----
+    marginal_entropy_cuda.launches = fused_mc_entropy.launches = 0
+    fit = images(INT8_FIT)
+    _, taps = qforward(fit)
+    fit_latent = taps["pre_pool"]
+    require(fit_latent.dtype == torch.float32 and tuple(fit_latent.shape) == (INT8_FIT, 4, 4, 8 * NUM_FILTERS),
+            f"int8_rn18: the f32 pre_pool tap {tuple(fit_latent.shape)}")
+    fit_mc = mc_dropblock_samples(fit_latent, MC_SAMPLES, BLOCK_SIZE, DROP_PROB, "Conv", channel_axis=3, generator=gen)
+    h_fit = marginal_entropy(fit_mc, K)
+    h_pca, pca_state = apply_pca_ds_split(h_fit, nro_components=PCA_DIMS)
+    larem = MDLatentSpace()
+    larem.setup(h_pca)
+    scorers = {fused: build_larex_scorer(qforward, pca_state, larem.state, MC_SAMPLES, DROP_PROB, BLOCK_SIZE,
+                                         fused=fused) for fused in (False, True)}
+    x = images(BATCH)
+    for fused, scorer in scorers.items():
+        for _ in range(SCORE_BATCHES):
+            with no_host_sync():
+                out, scores = scorer(images(BATCH), generator=gen)
+            torch.cuda.synchronize()
+            require(tuple(scores.shape) == (BATCH,) and bool(torch.isfinite(scores).all())
+                    and tuple(out.shape) == (BATCH, NUM_CLASSES), f"int8_rn18 fused={fused}: finite scores")
+    launches = {"marginal_entropy": marginal_entropy_cuda.launches, "fused_mc_entropy": fused_mc_entropy.launches}
+    require(all(n > 0 for n in launches.values()), f"int8_rn18: kernels 1 and 2 launched on the main path: {launches}")
+    print(f"int8_rn18 launches on the main path: {launches}", flush=True)
+    record["launches"] = launches
+
+    # ---- (4) persistence: pipeline + qparams saved, a fresh scorer rebuilt ----
+    with tempfile.TemporaryDirectory() as tmp:
+        save_larex_pipeline(f"{tmp}/larex.npz", pca_state, larem.state, MC_SAMPLES, DROP_PROB, BLOCK_SIZE)
+        save_state_dict(f"{tmp}/qparams.npz", _flatten_qparams(qparams))
+        loaded = _unflatten_qparams(load_state_dict(f"{tmp}/qparams.npz"))
+        reloaded = {fused: load_larex_scorer(f"{tmp}/larex.npz", quantize_resnet(model, None, qparams=loaded),
+                                             fused=fused) for fused in (False, True)}
+    reload_equal = {}
+    for fused in (False, True):
+        outs = []
+        for scorer in (scorers[fused], reloaded[fused]):
+            with no_host_sync():
+                outs.append(scorer(x, generator=torch.Generator(device=device).manual_seed(SEED + 14)))
+        reload_equal[fused] = bool(torch.equal(outs[0][1], outs[1][1]) and torch.equal(outs[0][0], outs[1][0]))
+        require(reload_equal[fused], f"int8_rn18: the reloaded scorer (fused={fused}) equals the original bit for bit")
+    record["reload_bit_identical"] = {"two_step": reload_equal[False], "fused": reload_equal[True]}
+
+    # ---- (5) int8 against the f32 forward ----
+    model32 = ResNet18(**cfg)
+    model32.load_state_dict(model.state_dict())
+    model32 = model32.to(memory_format=torch.channels_last).eval()
+    fforward = build_tapped_forward(model32, ("pre_pool", "penultimate"))
+    weights = mc_dropblock_weights(BATCH, 4, 4, MC_SAMPLES, BLOCK_SIZE, DROP_PROB, gen, device)
+    eager = {name: build_larex_scorer(fw, pca_state, larem.state, MC_SAMPLES, DROP_PROB, BLOCK_SIZE, use_graph=False)
+             for name, fw in (("int8", qforward), ("f32", fforward))}
+    s_int8, s_f32 = eager["int8"](x, weights=weights)[1], eager["f32"](x, weights=weights)[1]
+    tap_int8, tap_f32 = qforward(x)[1]["pre_pool"], fforward(x)[1]["pre_pool"]
+    fidelity = {"scores_corr": _corr(s_int8, s_f32), "pre_pool_corr": _corr(tap_int8, tap_f32),
+                "argmax_agree": float((qforward(x)[0].argmax(-1) == fforward(x)[0].argmax(-1)).float().mean())}
+    require(fidelity["pre_pool_corr"] > INT8_CORR, f"int8_rn18: int8 vs f32 pre_pool correlation: {fidelity}")
+    ood = torch.rand((BATCH, IMG, IMG, 3), generator=gen, device=device) * 2.5 - 0.75
+    aurocs = {}
+    for name, fw in (("int8", qforward), ("f32", fforward)):
+        _, fit_taps = fw(fit)
+        mc = mc_dropblock_samples(fit_taps["pre_pool"].float(), MC_SAMPLES, BLOCK_SIZE, DROP_PROB, "Conv",
+                                  channel_axis=3, weights=mc_dropblock_weights(INT8_FIT, 4, 4, MC_SAMPLES, BLOCK_SIZE,
+                                                                               DROP_PROB, gen, device))
+        h_pca_own, pca_own = apply_pca_ds_split(marginal_entropy_plain(mc, K), nro_components=PCA_DIMS)
+        md = MDLatentSpace()
+        md.setup(h_pca_own)
+        own = build_larex_scorer(fw, pca_own, md.state, MC_SAMPLES, DROP_PROB, BLOCK_SIZE, use_graph=False)
+        aurocs[name] = float(torch_auroc(own(x, weights=weights)[1], own(ood, weights=weights)[1]))
+    fidelity["auroc"] = aurocs
+    require(abs(aurocs["f32"] - aurocs["int8"]) < INT8_AUROC_DELTA, f"int8_rn18: AUROC f32 vs int8: {aurocs}")
+    print(f"int8_rn18 int8 vs f32: scores corr {fidelity['scores_corr']:.5f}, AUROC {aurocs}", flush=True)
+    record["int8_vs_f32"] = {**fidelity, "bounds": {"corr": INT8_CORR, "auroc_delta": INT8_AUROC_DELTA},
+                             "ood": "rand * 2.5 - 0.75"}
+
+    # ---- (6) kernels 1-2 against plain on this path's inputs ----
+    tap = taps["pre_pool"].contiguous()
+    fit_weights = mc_dropblock_weights(INT8_FIT, 4, 4, MC_SAMPLES, BLOCK_SIZE, DROP_PROB, gen, device)
+    k1_err = float((marginal_entropy_cuda(fit_mc, K) - marginal_entropy_plain(fit_mc, K)).abs().max())
+    got, want = fused_mc_entropy(fit_weights, tap, K), fused_mc_entropy_plain(fit_weights, tap, K)
+    k2_err = float((got - want).abs().max())
+    require(k1_err <= ENTROPY_ATOL, f"int8_rn18: kernel 1 vs plain on the fit's samples: {k1_err}")
+    require(bool(((got - want).abs() <= FUSED_ATOL + FUSED_RTOL * want.abs()).all()),
+            f"int8_rn18: kernel 2 vs plain on the int8 tap: {k2_err}")
+    record["kernel_max_abs_err"] = {"marginal_entropy": k1_err, "fused_mc_entropy": k2_err}
+
+    # ---- (7) times: forwards (int8, bf16, f32) replayed in graphs, scorer img/s ----
+    model16 = ResNet18(**cfg, dtype=torch.bfloat16)
+    model16.load_state_dict(model.state_dict())
+    model16 = model16.to(memory_format=torch.channels_last).eval()
+    bforward = build_tapped_forward(model16)
+    forwards = {"int8": qforward, "bf16": bforward, "f32": fforward}
+    fwd_ms = {name: [] for name in forwards}
+    for name in ("int8", "bf16", "f32", "f32", "bf16", "int8"):
+        fwd_ms[name].append(cuda_graph_time_ms(lambda: forwards[name](x), 10))
+    fwd_ms = {name: statistics.mean(v) for name, v in fwd_ms.items()}
+    bscorers = {fused: build_larex_scorer(bforward, pca_state, larem.state, MC_SAMPLES, DROP_PROB, BLOCK_SIZE,
+                                          fused=fused) for fused in (False, True)}
+    variants = {f"{p}_{'fused' if f else 'two_step'}": (s[f]) for p, s in (("int8", scorers), ("bf16", bscorers))
+                for f in (False, True)}
+    names = list(variants)
+    times = {name: [] for name in names}
+    for window in range(INT8_WINDOWS):
+        for name in names[window % 4:] + names[: window % 4]:
+            seeds = itertools.count(window * 1000)
+            times[name].append(cuda_time_ms(
+                lambda: variants[name](x, generator=torch.Generator(device=device).manual_seed(next(seeds))),
+                iters=INT8_CALLS, warmup=2))
+    ips = {name: BATCH / (statistics.median(ms) * 1e-3) for name, ms in times.items()}
+    prof = {"forward_int8": device_profile(lambda: [qforward(x) for _ in range(5)], 5, category=int8_category),
+            "scorer_int8_two_step": device_profile(lambda: [scorers[False](x, generator=gen) for _ in range(5)], 5,
+                                                   category=int8_category),
+            "scorer_int8_fused": device_profile(lambda: [scorers[True](x, generator=gen) for _ in range(5)], 5,
+                                                category=int8_category)}
+    print(f"int8_rn18 forward ms (graph replays, batch {BATCH}): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in fwd_ms.items()) + f"; scorer img/s: " + ", ".join(
+        f"{k} {v:.0f}" for k, v in ips.items()), flush=True)
+    record["times"] = {
+        "card": smi, "forward_ms_graph": fwd_ms, "int8_over_bf16": fwd_ms["bf16"] / fwd_ms["int8"],
+        "int8_over_f32": fwd_ms["f32"] / fwd_ms["int8"], "scorer_img_per_s_median": ips, "scorer_ms": times,
+        "device_profile": {k: {"share": r["device_busy_share"], "device_ms_per_call": r["device_busy_ms_per_unit"],
+                               "kernels_per_call": r["kernels_per_unit"],
+                               "ms_by_category": r["device_ms_per_unit_by_category"],
+                               "kernels_by_category": r["kernels_per_unit_by_category"]} for k, r in prof.items()},
+    }
+    emit({"phase": "int8_rn18", "batch": BATCH, **record})
+    del scorers, bscorers, reloaded, eager, model, model16, model32
+    torch.cuda.empty_cache()
+    return launches
+
+
+def vit_b16_phase(device, gen, smi: str) -> dict:
+    """LaREx on a ViT-B/16 @224 (google/vit-base-patch16-224's geometry: d
+    768, 12 layers, 12 heads, patch 16, CLS token and pool, exact GELU, LN
+    eps 1e-12; seeded random weights, built directly: no download) at batch
+    64: the (64, 14, 14, 768) encoder_tokens tap, PCA-256 and LaREM fitted on
+    512 images through the two-step route's pieces, then both scorer routes
+    under the graph (counted), kernels 1-2 against plain on this path's
+    inputs, scorer img/s in turns."""
+    from runia_core_tpu_torch.detectors import MDLatentSpace
+    from runia_core_tpu_torch.inference import build_larex_scorer
+    from runia_core_tpu_torch.models import ViT, build_tapped_forward
+    from runia_core_tpu_torch.ops.entropy import marginal_entropy
+    from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda, marginal_entropy_plain
+    from runia_core_tpu_torch.ops.mc_entropy_cuda import fused_mc_entropy, fused_mc_entropy_plain, mc_dropblock_weights
+    from runia_core_tpu_torch.reduction import apply_pca_ds_split
+    from runia_core_tpu_torch.sampling import mc_dropblock_samples
+    from runia_core_tpu_torch.utils import cuda_graph_time_ms, cuda_time_ms, device_profile
+
+    def images(n):
+        return torch.rand((n, VIT_IMG, VIT_IMG, 3), generator=gen, device=device)
+
+    side = VIT_IMG // VIT_CFG["patch_size"]
+    model = ViT(**VIT_CFG, image_size=VIT_IMG)
+    require(model.head.weight.device == device, f"vit_b16: the default device is the card: {model.head.weight.device}")
+    model.init_weights(torch.Generator(device=device).manual_seed(SEED + 16))
+    forward = build_tapped_forward(model, ("encoder_tokens",))
+
+    marginal_entropy_cuda.launches = fused_mc_entropy.launches = 0
+    h_fit = []
+    for _ in range(VIT_FIT // VIT_BATCH):
+        _, taps = forward(images(VIT_BATCH))
+        mc = mc_dropblock_samples(taps["encoder_tokens"], MC_SAMPLES, BLOCK_SIZE, DROP_PROB, "Conv", channel_axis=3,
+                                  generator=gen)
+        h_fit.append(marginal_entropy(mc, K))
+    require(tuple(taps["encoder_tokens"].shape) == (VIT_BATCH, side, side, VIT_CFG["d_model"]),
+            f"vit_b16: the encoder_tokens tap {tuple(taps['encoder_tokens'].shape)}")
+    h_pca, pca_state = apply_pca_ds_split(torch.cat(h_fit), nro_components=PCA_DIMS)
+    larem = MDLatentSpace()
+    larem.setup(h_pca)
+    scorers = {fused: build_larex_scorer(forward, pca_state, larem.state, MC_SAMPLES, DROP_PROB, BLOCK_SIZE,
+                                         tap="encoder_tokens", channel_axis=3, fused=fused) for fused in (False, True)}
+    x = images(VIT_BATCH)
+    for fused, scorer in scorers.items():
+        for _ in range(2):
+            with no_host_sync():
+                out, scores = scorer(x, generator=gen)
+            torch.cuda.synchronize()
+            require(tuple(scores.shape) == (VIT_BATCH,) and bool(torch.isfinite(scores).all())
+                    and tuple(out.shape) == (VIT_BATCH, VIT_CFG["num_classes"]), f"vit_b16 fused={fused}: finite")
+    launches = {"marginal_entropy": marginal_entropy_cuda.launches, "fused_mc_entropy": fused_mc_entropy.launches}
+    require(all(n > 0 for n in launches.values()), f"vit_b16: kernels 1 and 2 launched: {launches}")
+
+    _, taps = forward(x)
+    tap = taps["encoder_tokens"].contiguous()
+    weights = mc_dropblock_weights(VIT_BATCH, side, side, MC_SAMPLES, BLOCK_SIZE, DROP_PROB, gen, device)
+    mc = mc_dropblock_samples(tap, MC_SAMPLES, BLOCK_SIZE, DROP_PROB, "Conv", channel_axis=3, weights=weights)
+    k1_err = float((marginal_entropy_cuda(mc, K) - marginal_entropy_plain(mc, K)).abs().max())
+    got, want = fused_mc_entropy(weights, tap, K), fused_mc_entropy_plain(weights, tap, K)
+    require(k1_err <= ENTROPY_ATOL, f"vit_b16: kernel 1 vs plain on the tap's samples: {k1_err}")
+    require(bool(((got - want).abs() <= FUSED_ATOL + FUSED_RTOL * want.abs()).all()),
+            f"vit_b16: kernel 2 vs plain on the tap: {float((got - want).abs().max())}")
+    k_ms = {"marginal_entropy": cuda_graph_time_ms(lambda: marginal_entropy_cuda(mc, K), 20),
+            "fused_mc_entropy": cuda_graph_time_ms(lambda: fused_mc_entropy(weights, tap, K), 20),
+            "forward": cuda_graph_time_ms(lambda: forward(x), 3)}
+    names = ["two_step", "fused"]
+    times = {name: [] for name in names}
+    for window in range(4):
+        for name in names[window % 2:] + names[: window % 2]:
+            seeds = itertools.count(window * 1000)
+            times[name].append(cuda_time_ms(lambda: scorers[name == "fused"](
+                x, generator=torch.Generator(device=device).manual_seed(next(seeds))), iters=5, warmup=1))
+    ips = {name: VIT_BATCH / (statistics.median(ms) * 1e-3) for name, ms in times.items()}
+    busy = device_profile(lambda: [scorers[False](x, generator=gen) for _ in range(3)], 3, category=flow_category)
+    print(f"vit_b16 scorer img/s: {ips}; kernel 1 {k_ms['marginal_entropy']:.4f} ms, kernel 2 "
+          f"{k_ms['fused_mc_entropy']:.4f} ms at ({VIT_BATCH}, {side}, {side}, {VIT_CFG['d_model']})", flush=True)
+    emit({"phase": "vit_b16", "card": smi, "batch": VIT_BATCH, "cfg": VIT_CFG, "launches": launches,
+          "kernel_max_abs_err": {"marginal_entropy": k1_err, "fused_mc_entropy": float((got - want).abs().max())},
+          "ms_graph": k_ms, "scorer_img_per_s_median": ips, "scorer_ms": times,
+          "device_busy": {"share": busy["device_busy_share"], "device_ms_per_call": busy["device_busy_ms_per_unit"],
+                          "ms_by_category": busy["device_ms_per_unit_by_category"]}})
+    del scorers, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_rn18_phase(device, gen, smi: str) -> dict:
+    """training.fit_classifier on the headline ResNet-18 (CIFAR stem, 64
+    filters, f32, the seeded init) for 20 steps of Adam on one fixed batch
+    of 128 CIFAR-shaped images (labels from a seeded rule), then 20 more
+    timed; the loss falls and stays finite, BatchNorm's running statistics
+    move; one SGD step card against CPU on 32 images; then train -> tap ->
+    LaREx (kernel 1 on the fit, both scorer routes, counted)."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from runia_core_tpu_torch.detectors import MDLatentSpace
+    from runia_core_tpu_torch.inference import build_larex_scorer
+    from runia_core_tpu_torch.models import ResNet18, build_tapped_forward
+    from runia_core_tpu_torch.ops.entropy import marginal_entropy
+    from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda
+    from runia_core_tpu_torch.ops.mc_entropy_cuda import fused_mc_entropy
+    from runia_core_tpu_torch.reduction import apply_pca_ds_split
+    from runia_core_tpu_torch.sampling import mc_dropblock_samples
+    from runia_core_tpu_torch.training import create_train_state, fit_classifier, make_train_step
+
+    cfg = dict(num_classes=NUM_CLASSES, cifar_stem=True, num_filters=NUM_FILTERS)
+    model = ResNet18(**cfg)
+    model.init_weights(torch.Generator(device=device).manual_seed(SEED + 18))
+    x = torch.rand((TRAIN_BATCH, IMG, IMG, 3), generator=gen, device=device)
+    y = (x[:, :16, :16].mean(dim=(1, 2, 3)) * 40).long() % NUM_CLASSES  # a function of the pixels to learn
+    start_state = copy.deepcopy(model.state_dict())
+    probe = copy.deepcopy(model).train()
+    with torch.no_grad():
+        loss0 = float(F.cross_entropy(probe(x)[0], y))
+    del probe
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    model, metrics = fit_classifier(model, [(x, y)] * TRAIN_STEPS)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - start
+    start = time.perf_counter()
+    model, metrics2 = fit_classifier(model, [(x, y)] * TRAIN_STEPS)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - start
+    moved = {name: float((model.state_dict()[name] - start_state[name]).abs().max())
+             for name in start_state if "running" in name}
+    require(np.isfinite(metrics["loss"]) and np.isfinite(metrics2["loss"]), f"train_rn18: finite loss {metrics}")
+    require(metrics["loss"] < loss0 and metrics2["loss"] < metrics["loss"],
+            f"train_rn18: the loss falls: {loss0} -> {metrics['loss']} -> {metrics2['loss']}")
+    require(all(v > 0 for v in moved.values()), "train_rn18: every BatchNorm running statistic moved")
+    require(not model.training, "train_rn18: fit_classifier leaves the model in eval mode")
+
+    # ---- one SGD step, card against CPU (f32, TF32 off), 32 images ----
+    sides = {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        m = ResNet18(**cfg, device=dev)
+        m.load_state_dict({k: v.to(dev) for k, v in start_state.items()})
+        state, _ = create_train_state(m, tx=lambda p: torch.optim.SGD(p, lr=0.05))
+        _, step_metrics = make_train_step(m)(state, x[:TRAIN_XCHECK].to(dev), y[:TRAIN_XCHECK].to(dev))
+        sides[where] = {"loss": float(step_metrics["loss"]),
+                        "grads": {n: p.grad.detach().cpu() for n, p in m.named_parameters()},
+                        "stats": {n: t.cpu() for n, t in m.state_dict().items() if "running" in n}}
+    loss_rel = abs(sides["card"]["loss"] - sides["cpu"]["loss"]) / abs(sides["cpu"]["loss"])
+    grad_rel = max(_rel(sides["card"]["grads"][n], sides["cpu"]["grads"][n]) for n in sides["cpu"]["grads"]
+                   if float(sides["cpu"]["grads"][n].abs().max()) > 0)
+    stat_abs = max(float((sides["card"]["stats"][n] - sides["cpu"]["stats"][n]).abs().max())
+                   for n in sides["cpu"]["stats"])
+    require(loss_rel <= TRAIN_XCHECK_REL["loss"] and grad_rel <= TRAIN_XCHECK_REL["grads"]
+            and stat_abs <= TRAIN_XCHECK_REL["stats_abs"],
+            f"train_rn18 one step card vs CPU: loss {loss_rel}, grads {grad_rel}, stats {stat_abs}")
+
+    # ---- train -> tap -> LaREx, counted ----
+    marginal_entropy_cuda.launches = fused_mc_entropy.launches = 0
+    forward = build_tapped_forward(model)
+    _, taps = forward(x)
+    mc = mc_dropblock_samples(taps["pre_pool"], MC_SAMPLES, BLOCK_SIZE, DROP_PROB, "Conv", channel_axis=3,
+                              generator=gen)
+    h_pca, pca_state = apply_pca_ds_split(marginal_entropy(mc, K), nro_components=TRAIN_PCA)
+    larem = MDLatentSpace()
+    larem.setup(h_pca)
+    for fused in (False, True):
+        scorer = build_larex_scorer(forward, pca_state, larem.state, MC_SAMPLES, DROP_PROB, BLOCK_SIZE, fused=fused)
+        with no_host_sync():
+            _, scores = scorer(x, generator=gen)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(scores).all()), f"train_rn18: finite LaREx scores (fused={fused})")
+    launches = {"marginal_entropy": marginal_entropy_cuda.launches, "fused_mc_entropy": fused_mc_entropy.launches}
+    require(all(n > 0 for n in launches.values()), f"train_rn18: kernels 1 and 2 launched: {launches}")
+    ms_step = {"first_20_steps": first_s / TRAIN_STEPS * 1e3, "next_20_steps": warm_s / TRAIN_STEPS * 1e3}
+    print(f"train_rn18: loss {loss0:.4f} -> {metrics['loss']:.4f} -> {metrics2['loss']:.4f}; ms a step "
+          f"{ms_step}; one step card vs CPU: loss {loss_rel:.2e}, grads {grad_rel:.2e}", flush=True)
+    emit({"phase": "train_rn18", "card": smi, "batch": TRAIN_BATCH, "steps": 2 * TRAIN_STEPS, "optimizer": "Adam 1e-3",
+          "loss": {"start": loss0, "after_20": metrics["loss"], "after_40": metrics2["loss"]},
+          "accuracy_after_40": metrics2["accuracy"], "running_stats_max_move": max(moved.values()),
+          "ms_per_step_host_clock": ms_step,
+          "xcheck_cpu_one_sgd_step": {"images": TRAIN_XCHECK, "loss_rel": loss_rel, "grads_rel_of_max": grad_rel,
+                                      "running_stats_abs": stat_abs, "bounds": TRAIN_XCHECK_REL},
+          "launches": launches})
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _drop_programs() -> None:
     """Forget every cached decode program (their buffers and graphs)."""
     from runia_core_tpu_torch.llm.generate import _PROGRAM_CACHE
@@ -3916,7 +4452,11 @@ def main() -> None:
     moe = timed("moe_slice", moe_slice_phase, device)
     timed("gpt2_slice", family_slice_phase, device, "gpt2")
     timed("neox_slice", family_slice_phase, device, "neox")
-    for counts in (flow, evaluation, semantic, speculative, mixed, spec1b, serve7b, spec7b, fused7b, moe):
+    int8_rn18 = timed("int8_rn18", int8_rn18_phase, device, gen, smi)
+    vit_b16 = timed("vit_b16", vit_b16_phase, device, gen, smi)
+    train_rn18 = timed("train_rn18", train_rn18_phase, device, gen, smi)
+    for counts in (flow, evaluation, semantic, speculative, mixed, spec1b, serve7b, spec7b, fused7b, moe, int8_rn18,
+                   vit_b16, train_rn18):
         for name, n in counts.items():
             if name in launches:
                 launches[name] += n

@@ -21,7 +21,7 @@ GPU, unless the caller names another device (the CPU tests pass
 
 import torch
 
-__version__ = "0.1.0"
+from runia_core_tpu_torch.version import __version__
 
 __all__ = ["default_device"]
 

@@ -1,4 +1,5 @@
-"""Models of the PyTorch port: ResNets returning (logits, taps), the
+"""Models of the PyTorch port: ResNets and ViTs returning (logits, taps),
+their int8 PTQ (``quant_vision``) and torchvision / HF converters, the
 decoder LMs with their KV cache and HF converters (the Llama family, dense or
 sparse-MoE; GPT-2's ``CausalLM``; GPT-NeoX / Pythia's ``NeoXLM``), and the
 DeBERTa-v2 NLI classifier."""
@@ -11,6 +12,7 @@ from runia_core_tpu_torch.models.convert import (
     neox_from_flax,
     pca_state_from_arrays,
     resnet_from_flax,
+    vit_from_flax,
 )
 from runia_core_tpu_torch.models.deberta import DebertaV2Classifier, convert_hf_deberta, wrap_torch_nli
 from runia_core_tpu_torch.models.llama import (
@@ -23,14 +25,20 @@ from runia_core_tpu_torch.models.llama import (
     quantize_llama_params,
 )
 from runia_core_tpu_torch.models.neox import NeoXLM, convert_hf_gpt_neox
+from runia_core_tpu_torch.models.quant_vision import quantize_resnet, quantize_resnet_params
 from runia_core_tpu_torch.models.resnet import (
     ResNet,
     ResNet18,
     ResNet34,
     ResNet50,
+    SimpleConvNet,
     build_tapped_forward,
+    space_to_depth_2x2,
+    stem_to_s2d,
 )
+from runia_core_tpu_torch.models.torch_convert import convert_hf_vit, convert_torch_resnet
 from runia_core_tpu_torch.models.transformer import CausalLM, convert_hf_gpt2, init_cache
+from runia_core_tpu_torch.models.vit import ViT
 
 __all__ = [
     "CausalLM",
@@ -42,6 +50,8 @@ __all__ = [
     "ResNet18",
     "ResNet34",
     "ResNet50",
+    "SimpleConvNet",
+    "ViT",
     "build_tapped_forward",
     "causal_lm_from_flax",
     "convert_hf_deberta",
@@ -50,6 +60,8 @@ __all__ = [
     "convert_hf_gpt_neox",
     "convert_hf_llama",
     "convert_hf_mixtral",
+    "convert_hf_vit",
+    "convert_torch_resnet",
     "deberta_from_flax",
     "detector_state_from_arrays",
     "fuse_quantized_llama_params",
@@ -58,6 +70,11 @@ __all__ = [
     "neox_from_flax",
     "pca_state_from_arrays",
     "quantize_llama_params",
+    "quantize_resnet",
+    "quantize_resnet_params",
     "resnet_from_flax",
+    "space_to_depth_2x2",
+    "stem_to_s2d",
+    "vit_from_flax",
     "wrap_torch_nli",
 ]

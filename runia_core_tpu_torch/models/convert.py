@@ -8,7 +8,8 @@ flax ResNet ``{"params", "batch_stats"}`` tree onto the ``state_dict`` of
 ``neox_from_flax`` do the same for a JAX ``LlamaLM``,
 ``DebertaV2Classifier``, ``CausalLM`` (GPT-2) and ``NeoXLM`` and their
 counterparts in ``models/llama.py``, ``models/deberta.py``,
-``models/transformer.py`` and ``models/neox.py``. The other two helpers turn a
+``models/transformer.py`` and ``models/neox.py``; ``vit_from_flax`` for a
+flax ``ViT`` and ``models/vit.py``. The other two helpers turn a
 JAX ``PCAState`` and an MD/KDE detector state into the port's. Nothing here imports JAX:
 leaves only need ``np.asarray``. Every helper makes its tensors on
 ``device``; None is ``runia_core_tpu_torch.default_device()``, the GPU.
@@ -26,7 +27,7 @@ from runia_core_tpu_torch.reduction import PCAState
 
 __all__ = [
     "causal_lm_from_flax", "deberta_from_flax", "detector_state_from_arrays", "llama_from_flax", "neox_from_flax",
-    "pca_state_from_arrays", "resnet_from_flax",
+    "pca_state_from_arrays", "resnet_from_flax", "vit_from_flax",
 ]
 
 
@@ -66,6 +67,34 @@ def resnet_from_flax(variables: Mapping[str, Any], device=None) -> Dict[str, tor
                 state[f"{module}.weight"] = _tensor(array, device)
             else:
                 state[f"{module}.{renames[name]}"] = _tensor(array, device)
+    return state
+
+
+def vit_from_flax(variables: Mapping[str, Any], device=None) -> Dict[str, torch.Tensor]:
+    """A flax ``ViT`` ``{"params": ...}`` tree (numpy leaves) -> the state_dict
+    of ``models/vit.py::ViT``.
+
+    The patch conv (p, p, in, D) -> (D, in, p, p); dense kernels (in, out) ->
+    (out, in); LayerNorm ``scale`` -> ``weight``; the attention's
+    ``MultiHeadDotProductAttention_0`` becomes ``attn``, its query / key /
+    value kernels (D, heads, head_dim) -> (D, D).T with biases flattened, its
+    out kernel (heads, head_dim, D) -> (D, D).T."""
+    params = variables["params"]
+    state: Dict[str, torch.Tensor] = {}
+    for path, leaf in _walk(params):
+        array = np.asarray(leaf, dtype=np.float32)
+        module, name = path.rsplit(".", 1) if "." in path else ("", path)
+        if module.endswith("MultiHeadDotProductAttention_0.out") and name == "kernel":
+            array = array.reshape(-1, array.shape[-1]).T
+        elif ".MultiHeadDotProductAttention_0." in f".{module}." and name == "kernel":
+            array = array.reshape(array.shape[0], -1).T
+        elif ".MultiHeadDotProductAttention_0." in f".{module}." and name == "bias":
+            array = array.reshape(-1)
+        elif name == "kernel":
+            array = array.transpose(3, 2, 0, 1) if array.ndim == 4 else array.T
+        module = module.replace("MultiHeadDotProductAttention_0", "attn")
+        key = {"kernel": "weight", "scale": "weight"}.get(name, name)
+        state[f"{module}.{key}" if module else key] = _tensor(array, device)
     return state
 
 

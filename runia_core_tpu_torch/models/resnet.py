@@ -18,18 +18,28 @@ keeps the symmetric k//2 padding of torchvision checkpoints.
 Module and parameter names match the flax tree (``conv_init``, ``bn_init``,
 ``stage{i}_block{j}.Conv_c`` / ``BatchNorm_c`` / ``conv_proj`` /
 ``norm_proj``, ``head``), so ``models/convert.py`` maps one onto the other.
-``s2d_stem``, ``output_stride`` and ``remat`` are not ported yet.
+
+As in the JAX package: ``s2d_stem`` runs the 7x7/2 stem as a 4x4/1 conv
+over the space-to-depth input (convert a 7x7 state with
+:func:`stem_to_s2d`); ``output_stride`` trades the later stages' stride 2
+for dilation (dilated backbones); ``remat`` recomputes each block in the
+backward pass (``torch.utils.checkpoint``). In training mode
+(``model.train()``) :class:`BatchNorm` is flax's: it normalises with the
+batch's biased variance and moves the running statistics as
+``0.9 * running + 0.1 * batch``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from functools import partial
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from runia_core_tpu_torch import default_device
 
@@ -42,8 +52,11 @@ __all__ = [
     "ResNet34",
     "ResNet50",
     "ResNetBlock",
+    "SimpleConvNet",
     "build_tapped_forward",
     "same_padding",
+    "space_to_depth_2x2",
+    "stem_to_s2d",
 ]
 
 
@@ -54,19 +67,48 @@ def same_padding(size: int, kernel: int, stride: int, dilation: int = 1) -> Tupl
     return total // 2, total - total // 2
 
 
+def space_to_depth_2x2(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H/2, W/2, 4C): each 2x2 pixel block becomes one
+    position whose channels are ordered (row parity, column parity,
+    channel), the layout :func:`stem_to_s2d`'s kernel contracts against."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // 2, 2, w // 2, 2, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h // 2, w // 2, 4 * c)
+
+
+def stem_to_s2d(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A 7x7/2-stem state_dict in the ``s2d_stem=True`` layout: the (O, C, 7,
+    7) kernel zero-padded to 8x8 at the leading row and column and regrouped
+    into (O, 4C, 4, 4), input channels in :func:`space_to_depth_2x2`'s order.
+    The converted model's outputs equal the original's up to the order of
+    the sums. Every other entry is passed through."""
+    w = state_dict["conv_init.weight"]
+    cout, cin, kh, kw = w.shape
+    if (kh, kw) != (7, 7):
+        raise ValueError(f"expected a 7x7 stem kernel, got {tuple(w.shape)}")
+    w = F.pad(w.permute(2, 3, 1, 0), (0, 0, 0, 0, 1, 0, 1, 0))  # HWIO, (8, 8, C, O)
+    w = w.reshape(4, 2, 4, 2, cin, cout).permute(0, 2, 1, 3, 4, 5).reshape(4, 4, 4 * cin, cout)
+    return {**state_dict, "conv_init.weight": w.permute(3, 2, 0, 1).contiguous()}
+
+
 class Conv(nn.Conv2d):
-    """Bias-free convolution with XLA "SAME" padding (``padding="SAME"``) or
-    a fixed symmetric padding (an int). Computes in the input's dtype."""
+    """Bias-free convolution with XLA "SAME" padding (``padding="SAME"``), a
+    fixed symmetric padding (an int) or explicit ``((top, bottom), (left,
+    right))``. Computes in the input's dtype."""
 
     def __init__(self, in_features: int, features: int, kernel: int, stride: int = 1,
                  dilation: int = 1, padding="SAME"):
         super().__init__(in_features, features, kernel, stride, padding=0, dilation=dilation, bias=False)
         self.same = padding == "SAME"
-        self.fixed_padding = 0 if self.same else int(padding)
+        self.explicit = None if self.same or isinstance(padding, int) else tuple(map(tuple, padding))
+        self.fixed_padding = padding if isinstance(padding, int) else 0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         padding = self.fixed_padding
-        if self.same:
+        if self.explicit is not None:
+            (h_lo, h_hi), (w_lo, w_hi) = self.explicit
+            x = F.pad(x, (w_lo, w_hi, h_lo, h_hi))
+        elif self.same:
             (h_lo, h_hi), (w_lo, w_hi) = (
                 same_padding(size, self.kernel_size[0], self.stride[0], self.dilation[0])
                 for size in x.shape[2:]
@@ -79,40 +121,81 @@ class Conv(nn.Conv2d):
         return F.conv2d(x, self.weight.to(x.dtype), None, self.stride, padding, self.dilation)
 
 
-def _padding_rule(torch_padding: bool) -> Callable[[int], object]:
-    """kernel size -> the ``padding`` argument of :class:`Conv`."""
-    return (lambda k: k // 2) if torch_padding else (lambda k: "SAME")
+def _padding_rule(torch_padding: bool) -> Callable[..., object]:
+    """(kernel size, dilation) -> the ``padding`` argument of :class:`Conv`."""
+    return (lambda k, d=1: d * (k // 2)) if torch_padding else (lambda k, d=1: "SAME")
 
 
 class BatchNorm(nn.Module):
-    """Inference-mode batch norm, ``x * s + (bias - mean * s)`` with
-    ``s = scale * rsqrt(var + eps)`` folded in f32: one elementwise pass."""
+    """flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW.
+
+    Inference (``eval()``): ``x * s + (bias - mean * s)`` with
+    ``s = scale * rsqrt(var + eps)`` folded in f32, one elementwise pass.
+    Training (``train()``): the batch's f32 mean and biased variance
+    (``E[x^2] - E[x]^2`` clipped at 0, flax's fast variance) normalise, and
+    the running statistics become ``0.9 * running + 0.1 * batch``, the
+    biased variance included; ``F.batch_norm`` would store the unbiased one
+    with weight 0.1 on the old value. ``frozen`` keeps the running
+    statistics as they are (a block recomputed for its backward pass)."""
+
+    momentum = 0.9
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.frozen = False
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return self._train_forward(x)
         scale = torch.rsqrt(self.running_var + self.eps) * self.weight
         shift = self.bias - self.running_mean * scale
         return torch.addcmul(shift.to(x.dtype)[:, None, None], x, scale.to(x.dtype)[:, None, None])
 
+    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.to(torch.float32)
+        mean = x32.mean(dim=(0, 2, 3))
+        var = ((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        if not self.frozen:
+            with torch.no_grad():
+                self.running_mean.copy_(self.momentum * self.running_mean + (1 - self.momentum) * mean)
+                self.running_var.copy_(self.momentum * self.running_var + (1 - self.momentum) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def _frozen_statistics(module: nn.Module):
+    """Every BatchNorm in ``module`` keeps its running statistics inside the
+    block: a recomputation for the backward pass moves them no second time
+    (flax's ``nn.remat`` recomputes without writing ``batch_stats``)."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for norm in norms:
+        norm.frozen = True
+    try:
+        yield
+    finally:
+        for norm in norms:
+            norm.frozen = False
+
 
 class ResNetBlock(nn.Module):
-    """Basic residual block (two 3x3 convs)."""
+    """Basic residual block (two 3x3 convs, both dilated by ``dilation``)."""
 
     expansion = 1
 
-    def __init__(self, in_features: int, filters: int, stride: int = 1, torch_padding: bool = False):
+    def __init__(self, in_features: int, filters: int, stride: int = 1, torch_padding: bool = False,
+                 dilation: int = 1):
         super().__init__()
         pad = _padding_rule(torch_padding)
-        self.Conv_0 = Conv(in_features, filters, 3, stride, padding=pad(3))
+        self.Conv_0 = Conv(in_features, filters, 3, stride, dilation, padding=pad(3, dilation))
         self.BatchNorm_0 = BatchNorm(filters)
-        self.Conv_1 = Conv(filters, filters, 3, padding=pad(3))
+        self.Conv_1 = Conv(filters, filters, 3, dilation=dilation, padding=pad(3, dilation))
         self.BatchNorm_1 = BatchNorm(filters)
         self.has_proj = stride != 1 or in_features != filters
         if self.has_proj:
@@ -127,16 +210,18 @@ class ResNetBlock(nn.Module):
 
 
 class BottleneckResNetBlock(nn.Module):
-    """Bottleneck residual block (1x1 -> 3x3 -> 1x1), stride on the 3x3."""
+    """Bottleneck residual block (1x1 -> 3x3 -> 1x1), stride and dilation on
+    the 3x3."""
 
     expansion = 4
 
-    def __init__(self, in_features: int, filters: int, stride: int = 1, torch_padding: bool = False):
+    def __init__(self, in_features: int, filters: int, stride: int = 1, torch_padding: bool = False,
+                 dilation: int = 1):
         super().__init__()
         pad = _padding_rule(torch_padding)
         self.Conv_0 = Conv(in_features, filters, 1, padding=pad(1))
         self.BatchNorm_0 = BatchNorm(filters)
-        self.Conv_1 = Conv(filters, filters, 3, stride, padding=pad(3))
+        self.Conv_1 = Conv(filters, filters, 3, stride, dilation, padding=pad(3, dilation))
         self.BatchNorm_1 = BatchNorm(filters)
         self.Conv_2 = Conv(filters, filters * 4, 1, padding=pad(1))
         self.BatchNorm_2 = BatchNorm(filters * 4)
@@ -157,7 +242,17 @@ class ResNet(nn.Module):
     """ResNet with taps; NHWC in and out; computes in ``dtype`` while the
     parameters stay f32 (as flax's ``dtype`` / ``param_dtype``). They are
     made on ``device``: None is ``runia_core_tpu_torch.default_device()``,
-    the GPU. ``ResNet18``, ``ResNet34`` and ``ResNet50`` pass it through."""
+    the GPU. ``ResNet18``, ``ResNet34`` and ``ResNet50`` pass it through.
+
+    ``output_stride`` (None: stride 32, or 8 with the CIFAR stem): once the
+    stride reached it, a stage's first block keeps the resolution at the
+    running dilation and its later blocks run at twice that (torchvision's
+    rule, as the JAX package). ``s2d_stem`` (ignored with ``cifar_stem``):
+    the 7x7/2 stem as a 4x4/1 conv with (2, 1) padding over
+    :func:`space_to_depth_2x2` of the input. ``remat``: while gradients are
+    recorded, each block runs under ``torch.utils.checkpoint`` and is
+    recomputed in the backward pass, its batch-norm statistics moved once.
+    A new model is in ``eval()`` mode; ``train()`` selects batch statistics."""
 
     def __init__(
         self,
@@ -167,34 +262,51 @@ class ResNet(nn.Module):
         num_filters: int = 64,
         cifar_stem: bool = False,
         dtype: torch.dtype = torch.float32,
+        remat: bool = False,
+        output_stride: Optional[int] = None,
         include_head: bool = True,
         torch_padding: bool = False,
+        s2d_stem: bool = False,
         in_channels: int = 3,
         device=None,
     ):
         super().__init__()
         self.dtype = dtype
         self.cifar_stem = cifar_stem
+        self.remat = remat
+        self.output_stride = output_stride
         self.include_head = include_head
         self.torch_padding = torch_padding
+        self.s2d_stem = s2d_stem and not cifar_stem
         self.stage_sizes = tuple(stage_sizes)
+        self.block_cls = block_cls
+        pad = _padding_rule(torch_padding)
         # Every parameter and buffer is made on ``device`` (None: the GPU).
         with torch.device(default_device() if device is None else device):
             if cifar_stem:
-                self.conv_init = Conv(in_channels, num_filters, 3, padding=_padding_rule(torch_padding)(3))
+                self.conv_init = Conv(in_channels, num_filters, 3, padding=pad(3))
+            elif self.s2d_stem:
+                self.conv_init = Conv(4 * in_channels, num_filters, 4, padding=((2, 1), (2, 1)))
             else:
                 self.conv_init = Conv(in_channels, num_filters, 7, 2, padding=3)
             self.bn_init = BatchNorm(num_filters)
             features = num_filters
+            cum_stride, dilation = (1 if cifar_stem else 4), 1
             for i, size in enumerate(self.stage_sizes):
                 for j in range(size):
-                    stride = 2 if i > 0 and j == 0 else 1
+                    stride, block_dilation = 1, dilation
+                    if i > 0 and j == 0:
+                        if output_stride is not None and cum_stride >= output_stride:
+                            dilation *= 2
+                        else:
+                            stride, cum_stride = 2, cum_stride * 2
                     filters = num_filters * 2**i
-                    block = block_cls(features, filters, stride, torch_padding)
+                    block = block_cls(features, filters, stride, torch_padding, block_dilation)
                     self.add_module(f"stage{i + 1}_block{j}", block)
                     features = filters * block_cls.expansion
             if include_head:
                 self.head = nn.Linear(features, num_classes)
+        self.eval()  # flax's default call is train=False: running statistics
 
     def _max_pool(self, x: torch.Tensor) -> torch.Tensor:
         if self.torch_padding:
@@ -202,8 +314,17 @@ class ResNet(nn.Module):
         (h_lo, h_hi), (w_lo, w_hi) = (same_padding(size, 3, 2) for size in x.shape[2:])
         return F.max_pool2d(F.pad(x, (w_lo, w_hi, h_lo, h_hi), value=-math.inf), 3, 2)
 
+    def _block(self, block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, x, use_reentrant=False,
+                              context_fn=lambda: (contextlib.nullcontext(), _frozen_statistics(block)))
+        return block(x)
+
     def forward(self, images: torch.Tensor) -> Tuple[Optional[torch.Tensor], Dict[str, torch.Tensor]]:
-        x = images.to(self.dtype).permute(0, 3, 1, 2)  # NHWC -> NCHW view
+        images = images.to(self.dtype)
+        if self.s2d_stem:
+            images = space_to_depth_2x2(images)
+        x = images.permute(0, 3, 1, 2)  # NHWC -> NCHW view
         taps: Dict[str, torch.Tensor] = {}
         x = torch.relu(self.bn_init(self.conv_init(x)))
         if not self.cifar_stem:
@@ -211,7 +332,7 @@ class ResNet(nn.Module):
         taps["stem"] = x.permute(0, 2, 3, 1)
         for i, size in enumerate(self.stage_sizes):
             for j in range(size):
-                x = getattr(self, f"stage{i + 1}_block{j}")(x)
+                x = self._block(getattr(self, f"stage{i + 1}_block{j}"), x)
             taps[f"block{i + 1}"] = x.permute(0, 2, 3, 1)
         taps["pre_pool"] = taps[f"block{len(self.stage_sizes)}"]
         x = x.mean(dim=(2, 3))
@@ -252,6 +373,39 @@ class ResNet(nn.Module):
 ResNet18 = partial(ResNet, stage_sizes=(2, 2, 2, 2), block_cls=ResNetBlock)
 ResNet34 = partial(ResNet, stage_sizes=(3, 4, 6, 3), block_cls=ResNetBlock)
 ResNet50 = partial(ResNet, stage_sizes=(3, 4, 6, 3), block_cls=BottleneckResNetBlock)
+
+
+class SimpleConvNet(nn.Module):
+    """Two-conv classifier with taps, the JAX package's ``SimpleConvNet``
+    (the reference's MNIST test fixture): 3x3 "SAME" convs with bias, ReLU,
+    2x2 max-pools; NHWC in, ``pre_pool`` and ``penultimate`` taps. Module
+    names follow the flax tree (``Conv_0``, ``Conv_1``, ``head``)."""
+
+    def __init__(self, num_classes: int = 10, features: int = 32, in_channels: int = 3, device=None):
+        super().__init__()
+        with torch.device(default_device() if device is None else device):
+            self.Conv_0 = nn.Conv2d(in_channels, features, 3, padding=1)
+            self.Conv_1 = nn.Conv2d(features, features * 2, 3, padding=1)
+            self.head = nn.Linear(features * 2, num_classes)
+
+    def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        x = images.to(torch.float32).permute(0, 3, 1, 2)
+        x = F.max_pool2d(torch.relu(self.Conv_0(x)), 2)
+        x = F.max_pool2d(torch.relu(self.Conv_1(x)), 2)
+        taps = {"pre_pool": x.permute(0, 2, 3, 1)}
+        x = x.mean(dim=(2, 3))
+        taps["penultimate"] = x
+        return self.head(x), taps
+
+    @torch.no_grad()
+    def init_weights(self, generator: Optional[torch.Generator] = None) -> "SimpleConvNet":
+        """Seeded init after flax's: lecun-normal kernels (std 1/sqrt(fan_in),
+        untruncated), zero biases."""
+        for module in (self.Conv_0, self.Conv_1, self.head):
+            noise = torch.randn(module.weight.shape, generator=generator, device=module.weight.device)
+            module.weight.copy_(noise / math.sqrt(module.weight[0].numel()))
+            module.bias.zero_()
+        return self
 
 
 def build_tapped_forward(

@@ -1094,3 +1094,98 @@ def test_extractor_on_the_card_matches_the_cpu(gen):
         want = out["cpu"][key]
         assert out["cuda"][key].is_cuda
         torch.testing.assert_close(out["cuda"][key].cpu(), want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("b,h,cin,cout,k,stride,pad", [
+    (2, 32, 3, 64, 3, 1, 1),  # the CIFAR stem: depth 27 padded to 32
+    (1, 4, 16, 12, 3, 2, 1),  # 4 rows (< 17) and 12 outputs padded to 16
+    (8, 16, 128, 256, 1, 2, 0),  # a strided 1x1 projection
+    (4, 8, 512, 512, 3, 1, 1),  # |sums| past 2^24 possible
+])
+def test_int8_conv_on_the_card_is_exact(gen, b, h, cin, cout, k, stride, pad):
+    """quant_vision.int8_conv (patches + torch._int_mm) on the card against
+    the same call on the CPU: int32 sums bit for bit."""
+    from runia_core_tpu_torch.models.quant_vision import _weight_matrix, int8_conv
+
+    xq = torch.randint(-127, 128, (b, h, h, cin), generator=gen, device="cuda", dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (k, k, cin, cout), generator=gen, device="cuda", dtype=torch.int8)
+    args = ((k, k), cout, stride, ((pad, pad), (pad, pad)))
+    got = int8_conv(xq, _weight_matrix(w_q), *args)
+    want = int8_conv(xq.cpu(), _weight_matrix(w_q.cpu()), *args)
+    assert got.is_cuda and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+
+
+def test_int8_forward_replays_and_matches_the_cpu(gen):
+    """quantize_resnet's forward captured in a CUDA graph equals the eager
+    forward bit for bit under sync-debug "error", and equals the CPU's on
+    the same qparams: the pre_pool tap bit for bit (exact int32 sums, the
+    same IEEE f32 elementwise operations), logits within 1e-5 of max (the
+    mean pool and the head sum in other orders)."""
+    from runia_core_tpu_torch.models import ResNet18, quantize_resnet, quantize_resnet_params
+
+    torch.backends.cudnn.allow_tf32 = False
+    model = ResNet18(num_classes=10, cifar_stem=True, num_filters=16)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if name.endswith(("running_var", "weight")) and t.ndim == 1:
+                t.uniform_(0.5, 1.5, generator=gen)
+    calib = torch.rand((32, 32, 32, 3), generator=gen, device="cuda")
+    qparams = quantize_resnet_params(model, calib)
+    forward = quantize_resnet(model, None, taps=("pre_pool",), qparams=qparams)
+    x = torch.rand((20, 32, 32, 3), generator=gen, device="cuda")
+    def logits_and_tap(images):
+        logits, taps = forward(images)
+        return logits, taps["pre_pool"]
+
+    graph = CudaGraph(logits_and_tap, {"images": x})
+    graph.load(images=x)
+    with no_host_sync():
+        logits, tap = graph.replay()
+    want_logits, want_taps = forward(x)
+    assert torch.equal(logits, want_logits) and torch.equal(tap, want_taps["pre_pool"])
+    cpu = ResNet18(num_classes=10, cifar_stem=True, num_filters=16, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_logits, cpu_taps = quantize_resnet(cpu, None, taps=("pre_pool",), qparams=qparams)(x.cpu())
+    assert torch.equal(want_taps["pre_pool"].cpu(), cpu_taps["pre_pool"])
+    torch.testing.assert_close(want_logits.cpu(), cpu_logits, rtol=1e-5, atol=1e-5 * float(cpu_logits.abs().max()))
+
+
+def test_train_step_and_vit_on_the_card_match_the_cpu(gen):
+    """One SGD step of a small ResNet (BatchNorm in train mode) and a small
+    ViT's forward, card (TF32 off) against CPU: loss 1e-5 relative,
+    gradients 1e-3 of each tensor's largest magnitude, running statistics
+    1e-5; ViT logits and taps 1e-4 of max."""
+    from runia_core_tpu_torch.models import ResNet, ViT, build_tapped_forward
+    from runia_core_tpu_torch.models.resnet import ResNetBlock
+    from runia_core_tpu_torch.training import create_train_state, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.rand((16, 16, 16, 3), generator=gen, device="cuda")
+    y = torch.randint(0, 4, (16,), generator=gen, device="cuda")
+    models = {"cuda": ResNet((1, 1), ResNetBlock, 4, num_filters=8, cifar_stem=True)}
+    models["cuda"].init_weights(torch.Generator(device="cuda").manual_seed(1))
+    models["cpu"] = ResNet((1, 1), ResNetBlock, 4, num_filters=8, cifar_stem=True, device="cpu")
+    models["cpu"].load_state_dict({k: v.cpu() for k, v in models["cuda"].state_dict().items()})
+    losses = {}
+    for device, model in models.items():
+        state, _ = create_train_state(model, tx=lambda p: torch.optim.SGD(p, lr=0.05))
+        losses[device] = float(make_train_step(model)(state, x.to(device), y.to(device))[1]["loss"])
+    assert losses["cuda"] == pytest.approx(losses["cpu"], rel=1e-5)
+    for (name, p), q in zip(models["cpu"].named_parameters(), models["cuda"].parameters()):
+        scale = float(p.grad.abs().max())
+        assert float((q.grad.cpu() - p.grad).abs().max()) <= 1e-3 * max(scale, 1e-30), name
+    for name, t in models["cpu"].state_dict().items():
+        if "running" in name:
+            assert float((models["cuda"].state_dict()[name].cpu() - t).abs().max()) <= 1e-5, name
+
+    vit = ViT(num_classes=5, patch_size=4, d_model=32, num_layers=2, num_heads=2, use_cls_token=True, pool="cls",
+              exact_gelu=True, image_size=16).init_weights(torch.Generator(device="cuda").manual_seed(2))
+    vit_cpu = ViT(num_classes=5, patch_size=4, d_model=32, num_layers=2, num_heads=2, use_cls_token=True, pool="cls",
+                  exact_gelu=True, image_size=16, device="cpu")
+    vit_cpu.load_state_dict({k: v.cpu() for k, v in vit.state_dict().items()})
+    taps = ("encoder_tokens", "pre_head")
+    got, want = build_tapped_forward(vit, taps)(x), build_tapped_forward(vit_cpu, taps)(x.cpu())
+    for a, b in ((got[0], want[0]), *((got[1][t], want[1][t]) for t in taps)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))

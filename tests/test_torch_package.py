@@ -14,6 +14,12 @@ import torch
 import runia_core_tpu_torch
 from runia_core_tpu_torch import _kernels, default_device
 from runia_core_tpu_torch.models import (
+    SimpleConvNet,
+    ViT,
+    convert_hf_vit,
+    convert_torch_resnet,
+    quantize_resnet,
+    vit_from_flax,
     CausalLM,
     LlamaLM,
     NeoXLM,
@@ -37,6 +43,7 @@ from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda
 from runia_core_tpu_torch.ops.flash_prefill import flash_prefix_attention
 from runia_core_tpu_torch.ops.mc_entropy_cuda import fused_mc_entropy, mc_dropblock_weights
 from runia_core_tpu_torch.ops.quant_matmul import quant_matmul
+from runia_core_tpu_torch.training import fit_classifier
 
 torch.set_num_threads(1)
 
@@ -49,7 +56,8 @@ def test_import_loads_no_jax_or_flax():
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}: importlib.import_module(name)\n"
-        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'runia_core_tpu')))"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', "
+        "'runia_core_tpu')))"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120, check=True
@@ -58,7 +66,10 @@ def test_import_loads_no_jax_or_flax():
     assert {"runia_core_tpu_torch.llm.scores", "runia_core_tpu_torch.models.llama",
             "runia_core_tpu_torch.detectors.features", "runia_core_tpu_torch.detectors.logits",
             "runia_core_tpu_torch.evaluation.metrics", "runia_core_tpu_torch.evaluation.baselines",
-            "runia_core_tpu_torch.evaluation.latent_space"} <= set(modules)
+            "runia_core_tpu_torch.evaluation.latent_space", "runia_core_tpu_torch.models.quant_vision",
+            "runia_core_tpu_torch.checkpoint", "runia_core_tpu_torch.models.torch_convert",
+            "runia_core_tpu_torch.models.vit", "runia_core_tpu_torch.training", "runia_core_tpu_torch.config",
+            "runia_core_tpu_torch.version", "runia_core_tpu_torch.import_helper_functions"} <= set(modules)
     assert out.stdout.strip() == "[]"
 
 
@@ -76,7 +87,7 @@ def test_evaluation_exports_every_jax_name_but_subset_boxes_without_jax():
 
 
 def test_sources_never_import_jax_flax_or_the_jax_package():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|runia_core_tpu)(\.|\s|$)", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|runia_core_tpu)(\.|\s|$)", re.M)
     offenders = [
         str(path.relative_to(REPO))
         for path in PACKAGE.rglob("*.py")
@@ -111,7 +122,26 @@ def test_cpu_calls_take_the_plain_versions_and_launch_nothing():
 
 
 def test_package_exposes_its_version():
-    assert runia_core_tpu_torch.__version__
+    from runia_core_tpu_torch.version import __version__
+
+    assert runia_core_tpu_torch.__version__ == __version__ == (REPO / "runia_core_tpu" / "version.py").read_text(
+    ).split('"')[1]
+
+
+def test_config_and_module_exists_are_the_jax_packages():
+    from runia_core_tpu_torch.config import Config, default_config
+    from runia_core_tpu_torch.import_helper_functions import module_exists
+
+    cfg = default_config(k_neighbors=7)
+    assert cfg.k_neighbors == 7 and cfg.num_classes == 10 and "ash_percentile" in cfg
+    cfg.sub = {"x": 1}
+    cfg.sub.x = 5
+    assert cfg.to_dict()["sub"] == {"x": 5} and isinstance(cfg, Config)
+    with pytest.raises(AttributeError):
+        cfg.missing
+    assert module_exists("json").__name__ == "json" and module_exists("no_such_module_xyz") is None
+    with pytest.raises(ImportError):
+        module_exists("no_such_module_xyz", error="raise")
 
 
 def test_default_device_is_cuda_and_does_not_probe():
@@ -145,6 +175,38 @@ def _hf_neox():
 
 class _PCA:
     mean, components, explained_variance, whiten = np.zeros(3), np.eye(3)[:2], np.ones(2), True
+
+
+def _torchvision_sd():
+    """A torchvision-layout ResNet-18 state_dict of width 4 (random)."""
+    model = ResNet18(num_classes=3, num_filters=4, torch_padding=True, device="cpu")
+    renames = {"conv_init": "conv1", "bn_init": "bn1", "head": "fc", "conv_proj": "downsample.0",
+               "norm_proj": "downsample.1"}
+    sd = {}
+    for key, value in model.state_dict().items():
+        for mine, theirs in renames.items():
+            key = key.replace(mine, theirs)
+        key = re.sub(r"stage(\d)_block(\d)", lambda m: f"layer{m[1]}.{m[2]}", key)
+        key = re.sub(r"Conv_(\d)", lambda m: f"conv{int(m[1]) + 1}", key)
+        key = re.sub(r"BatchNorm_(\d)", lambda m: f"bn{int(m[1]) + 1}", key)
+        sd[key] = value
+    return sd
+
+
+def _hf_vit():
+    transformers = pytest.importorskip("transformers")
+    return transformers.ViTForImageClassification(transformers.ViTConfig(
+        image_size=8, patch_size=4, hidden_size=8, num_hidden_layers=1, num_attention_heads=2, intermediate_size=32,
+        num_labels=2))
+
+
+def _saved_pca(tmp):
+    from runia_core_tpu_torch import checkpoint
+    from runia_core_tpu_torch.reduction import PCAState
+
+    path = Path(tmp) / "pca.npz"
+    checkpoint.save_pca(path, PCAState(torch.zeros(3), torch.eye(3)[:2], torch.ones(2)))
+    return path
 
 
 _ON_CPU = {
@@ -185,7 +247,26 @@ _ON_CPU = {
         {"params": {"pos_embed": {"embedding": np.zeros((8, 8), np.float32)}}}, device="cpu").values()),
     "neox_from_flax": lambda: list(neox_from_flax(
         {"params": {"block_0": {"qkv": {"kernel": np.zeros((8, 24), np.float32)}}}}, device="cpu").values()),
+    "SimpleConvNet": lambda: list(SimpleConvNet(num_classes=2, features=2, device="cpu").parameters()),
+    "ViT": lambda: list(ViT(num_classes=2, d_model=8, num_layers=1, num_heads=2, device="cpu").parameters()),
+    "vit_from_flax": lambda: list(vit_from_flax({"params": {"pos_embed": np.zeros((1, 4, 8))}},
+                                                device="cpu").values()),
+    "convert_torch_resnet": lambda: list(convert_torch_resnet(_torchvision_sd(), device="cpu").state_dict().values()),
+    "convert_hf_vit": lambda: list(convert_hf_vit(_hf_vit(), device="cpu").parameters()),
+    "quantize_resnet": lambda: list(quantize_resnet(
+        ResNet18(num_classes=3, num_filters=4, cifar_stem=True, device="cpu"), torch.rand(2, 8, 8, 3))(
+        torch.rand(1, 8, 8, 3))[1].values()),
+    "load_pca": lambda: [checkpoint_load_pca(device="cpu").mean],
 }
+
+
+def checkpoint_load_pca(device=None):
+    import tempfile
+
+    from runia_core_tpu_torch import checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        return checkpoint.load_pca(_saved_pca(tmp), device=device)
 
 
 @pytest.mark.parametrize("name", sorted(_ON_CPU))
@@ -196,7 +277,9 @@ def test_constructors_and_converters_land_on_the_cpu_when_asked(name):
 
 @pytest.mark.parametrize("name", ["LlamaLM", "ResNet18", "init_cache", "pca_state_from_arrays",
                                   "detector_state_from_arrays", "resnet_from_flax", "llama_from_flax", "CausalLM",
-                                  "NeoXLM", "convert_hf_gpt2", "convert_hf_gpt_neox", "neox_from_flax"])
+                                  "NeoXLM", "convert_hf_gpt2", "convert_hf_gpt_neox", "neox_from_flax",
+                                  "SimpleConvNet", "ViT", "vit_from_flax", "convert_torch_resnet", "convert_hf_vit",
+                                  "load_pca"])
 def test_the_default_device_is_the_card_and_nothing_falls_back(name):
     """With no ``device`` the constructors and converters go to the GPU: on a
     host without one the first allocation raises; nothing carries on on the
@@ -216,9 +299,26 @@ def test_the_default_device_is_the_card_and_nothing_falls_back(name):
         "convert_hf_gpt2": lambda: convert_hf_gpt2(_hf_gpt2()),
         "convert_hf_gpt_neox": lambda: convert_hf_gpt_neox(_hf_neox()),
         "neox_from_flax": lambda: neox_from_flax({"params": {"norm_f": {"scale": np.ones(2, np.float32)}}}),
+        "SimpleConvNet": lambda: SimpleConvNet(num_classes=2, features=2),
+        "ViT": lambda: ViT(num_classes=2, d_model=8, num_layers=1, num_heads=2),
+        "vit_from_flax": lambda: vit_from_flax({"params": {"pos_embed": np.zeros((1, 4, 8))}}),
+        "convert_torch_resnet": lambda: convert_torch_resnet(_torchvision_sd()),
+        "convert_hf_vit": lambda: convert_hf_vit(_hf_vit()),
+        "load_pca": lambda: checkpoint_load_pca(),
     }
     with pytest.raises((RuntimeError, AssertionError)):
         calls[name]()
+
+
+def test_training_and_quantization_follow_the_models_device():
+    """``fit_classifier`` and ``quantize_resnet`` send numpy batches to the
+    model's device (here the CPU, as the model was built there)."""
+    model = SimpleConvNet(num_classes=2, features=2, device="cpu")
+    _, metrics = fit_classifier(model, [(np.zeros((2, 4, 4, 3), np.float32), np.zeros(2, np.int64))])
+    assert np.isfinite(metrics["loss"])
+    resnet = ResNet18(num_classes=3, num_filters=4, cifar_stem=True, device="cpu")
+    logits, _ = quantize_resnet(resnet, np.random.rand(2, 8, 8, 3).astype(np.float32))(np.zeros((1, 8, 8, 3)))
+    assert logits.device.type == "cpu"
 
 
 def test_no_entry_point_tests_for_a_gpu():

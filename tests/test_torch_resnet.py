@@ -96,3 +96,94 @@ def test_channel_first_taps_and_bf16_compute():
     assert logits.dtype == torch.bfloat16 and taps["pre_pool"].dtype == torch.bfloat16
     assert port.conv_init.weight.dtype == torch.float32  # parameters stay f32
     assert bool(torch.isfinite(logits).all())
+
+
+def _carried(flax_kw, torch_kw, size, seed=0):
+    """A randomised flax ResNet of 8 filters, its port twin, and images."""
+    rng = np.random.RandomState(seed)
+    images = rng.rand(2, size, size, 3).astype(np.float32)
+    model = jax_resnet.ResNet(num_classes=10, num_filters=8, **flax_kw)
+    init = model.init(jax.random.key(0), jnp.asarray(images))
+    variables = {name: randomize(init[name], rng) for name in ("params", "batch_stats")}
+    port = torch_resnet.ResNet(num_classes=10, num_filters=8, device="cpu", **torch_kw)
+    port.load_state_dict(resnet_from_flax(variables, device="cpu"), strict=True)
+    return model, variables, port, images
+
+
+@pytest.mark.parametrize("output_stride", [8, 16])
+@pytest.mark.parametrize("block", ["basic", "bottleneck"])
+def test_output_stride_dilates_like_flax(output_stride, block):
+    blocks = {"basic": (jax_resnet.ResNetBlock, torch_resnet.ResNetBlock),
+              "bottleneck": (jax_resnet.BottleneckResNetBlock, torch_resnet.BottleneckResNetBlock)}[block]
+    kw = dict(stage_sizes=(1, 2, 2, 1), output_stride=output_stride)
+    model, variables, port, images = _carried(dict(kw, block_cls=blocks[0]), dict(kw, block_cls=blocks[1]), 32)
+    want_logits, want_taps = model.apply(variables, jnp.asarray(images))
+    logits, taps = build_tapped_forward(port, TAPS)(torch.from_numpy(images))
+    assert taps["pre_pool"].shape[1] == 32 // output_stride
+    _close(logits.numpy(), np.asarray(want_logits))
+    for name in TAPS:
+        assert taps[name].shape == want_taps[name].shape, name
+        _close(taps[name].numpy(), np.asarray(want_taps[name]))
+
+
+def test_s2d_stem_matches_flax_and_the_7x7_stem():
+    kw = dict(stage_sizes=(1, 1), torch_padding=True)
+    model, variables, port, images = _carried(dict(kw, block_cls=jax_resnet.ResNetBlock),
+                                              dict(kw, block_cls=torch_resnet.ResNetBlock), 32)
+    s2d_variables = jax_resnet.stem_to_s2d(variables)
+    s2d_model = jax_resnet.ResNet(num_classes=10, num_filters=8, s2d_stem=True, block_cls=jax_resnet.ResNetBlock, **kw)
+    want_logits, want_taps = s2d_model.apply(s2d_variables, jnp.asarray(images))
+
+    s2d_port = torch_resnet.ResNet(num_classes=10, num_filters=8, s2d_stem=True, block_cls=torch_resnet.ResNetBlock,
+                                   device="cpu", **kw)
+    converted = torch_resnet.stem_to_s2d(port.state_dict())
+    carried = resnet_from_flax(s2d_variables, device="cpu")
+    assert torch.equal(converted["conv_init.weight"], carried["conv_init.weight"])
+    s2d_port.load_state_dict(converted, strict=True)
+    logits, taps = build_tapped_forward(s2d_port, ("stem", "pre_pool"))(torch.from_numpy(images))
+    plain_logits, _ = build_tapped_forward(port)(torch.from_numpy(images))
+    _close(logits.numpy(), np.asarray(want_logits))
+    _close(taps["stem"].numpy(), np.asarray(want_taps["stem"]))
+    _close(logits.numpy(), plain_logits.numpy())
+
+
+def test_space_to_depth_matches_flax_and_stem_to_s2d_refuses_other_kernels():
+    x = np.random.RandomState(3).rand(2, 6, 4, 3).astype(np.float32)
+    np.testing.assert_array_equal(torch_resnet.space_to_depth_2x2(torch.from_numpy(x)).numpy(),
+                                  np.asarray(jax_resnet.space_to_depth_2x2(jnp.asarray(x))))
+    with pytest.raises(ValueError, match="7x7"):
+        torch_resnet.stem_to_s2d({"conv_init.weight": torch.zeros(8, 3, 3, 3)})
+
+
+def test_simple_conv_net_matches_flax():
+    rng = np.random.RandomState(4)
+    images = rng.rand(3, 12, 12, 1).astype(np.float32)
+    model = jax_resnet.SimpleConvNet(num_classes=4, features=6)
+    variables = {"params": randomize(model.init(jax.random.key(0), jnp.asarray(images))["params"], rng)}
+    port = torch_resnet.SimpleConvNet(num_classes=4, features=6, in_channels=1, device="cpu")
+    port.load_state_dict(resnet_from_flax(variables, device="cpu"), strict=True)
+    want_logits, want_taps = model.apply(variables, jnp.asarray(images))
+    logits, taps = build_tapped_forward(port, ("pre_pool", "penultimate"))(torch.from_numpy(images))
+    _close(logits.numpy(), np.asarray(want_logits))
+    for name in ("pre_pool", "penultimate"):
+        _close(taps[name].numpy(), np.asarray(want_taps[name]))
+
+
+def test_training_batch_norm_is_flax_batch_norm():
+    """``train()`` mode: outputs normalised by the batch's biased variance
+    and running statistics moved as flax's momentum 0.9 moves them (1e-6)."""
+    model, variables, port, images = _carried(
+        dict(stage_sizes=(1, 1), block_cls=jax_resnet.ResNetBlock, cifar_stem=True),
+        dict(stage_sizes=(1, 1), block_cls=torch_resnet.ResNetBlock, cifar_stem=True), 8)
+    assert not port.training  # a new model runs on its running statistics
+    (want_logits, _), updates = model.apply(variables, jnp.asarray(images), train=True, mutable=["batch_stats"])
+    port.train()
+    with torch.no_grad():
+        logits, _ = port(torch.from_numpy(images))
+    _close(logits.numpy(), np.asarray(want_logits))
+    moved = resnet_from_flax({"params": {}, "batch_stats": jax.tree_util.tree_map(np.asarray,
+                                                                                  updates["batch_stats"])},
+                             device="cpu")
+    state = port.state_dict()
+    for name, value in moved.items():
+        np.testing.assert_allclose(state[name].numpy(), value.numpy(), rtol=1e-6, atol=1e-6, err_msg=name)
