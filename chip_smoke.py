@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one NVIDIA GPU: LaREx image
 scoring, the Llama LLM-uncertainty slice with semantic entropy on a DeBERTa
-NLI judge, and the Mixtral sparse-MoE LlamaLM.
+NLI judge, the Mixtral sparse-MoE LlamaLM, and object-level scoring.
 
 Run from the root of a checkout, with no arguments:
 
@@ -110,6 +110,19 @@ kernel against its plain PyTorch version on the card. Then, through
   ``encoder_tokens`` tap, both routes); ``fit_classifier`` on the headline
   ResNet-18 (40 Adam steps at batch 128, one SGD step card against CPU,
   then train -> tap -> LaREx).
+* Object level (``kernel_nms``, ``kernel_roi_align``, ``object_scorer_rn18``,
+  ``yolov8m_flow``): the NMS kernel against its plain version at N = 1,000,
+  8,400 and 30,000 (keep masks identical) and the ROIAlign kernel at the
+  scorer's and YOLOv8m's maps, both modes, f32 and bf16; the bench leg
+  ``object_scorer_256px_20det`` (ResNet-18 with the ImageNet stem, bf16,
+  256 px, batch 128, 20 detections an image, ``build_object_scorer`` under
+  its graph, graph = eager bit for bit, f32 card against CPU); YOLOv8m @640
+  (ultralytics' yolov8m.yaml widths, 80 classes, seeded weights and
+  BatchNorm statistics): ``YoloV8JaxAdapter`` (its forward, selection and
+  NMS kernel one graph replay an image) -> ``BoxFeaturesExtractor`` on
+  ``backbone_p5`` (ROIAlign kernel) over 32 images -> ``MDLatentSpace`` ->
+  ``ObjectLevelInference`` and ``BoxInferenceYolo`` on 16 in-distribution
+  and 16 noise images -> the MC-DropBlock route (kernel 1) on 8.
 
 Both paths run as the port runs them by default: the LaREx scorer and the
 decode steps as replays of CUDA graphs (``utils/graphs.py``; the JAX
@@ -134,7 +147,7 @@ past the L2, so neither the host nor the cache is in the number. Where one PyTor
 same function (``scaled_dot_product_attention`` for kernel 4), that call's
 time, which the port itself never uses. A kernel's launch count is what the
 main paths launched (the LaREx slice, user flow and evaluation layer, the int8 leg, the
-ViT and the trained model's LaREx, the Llama slice,
+ViT and the trained model's LaREx, the object scorer and the YOLOv8m flow, the Llama slice,
 semantic entropy, speculative decoding, the two serving cells and the MoE
 slice, each counted from zero just before it runs), the kernels inside each
 graph replay included.
@@ -252,6 +265,32 @@ VIT_IMG, VIT_BATCH, VIT_FIT = 224, 64, 512
 # 32 values, in other orders); the running statistics to 1e-5 absolute.
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_XCHECK, TRAIN_PCA = 128, 20, 32, 64
 TRAIN_XCHECK_REL = {"loss": 1e-5, "grads": 1e-3, "stats_abs": 1e-5}
+# The object level (object_scorer_rn18, bench.py:197-238, the leg
+# object_scorer_256px_20det): ResNet-18 with the ImageNet stem, 10 classes,
+# bf16, channels_last, 256 px images in batches of 128, 20 detections an
+# image made as bench.py's make_dets makes them, MDLatentSpace on 1,024 x 512
+# seeded rows, ROIAlign out 7 on the (128, 8, 8, 512) pre_pool tap. The f32
+# scorer at batch 4, card (TF32 off) against CPU: OBJ_XCHECK_REL of the
+# largest |score| (the convolutions sum in other orders).
+OBJ_IMG, OBJ_BATCH, OBJ_MAX_DET, OBJ_FIT, OBJ_XCHECK = 256, 128, 20, 1024, 4
+OBJ_XCHECK_REL = 1e-4
+OBJ_WINDOWS, OBJ_CALLS = 5, 10  # timed windows of scorer calls, graph and eager in turns
+# YOLOv8m at 640 px (ultralytics' yolov8m.yaml: widths 48 / 96 / 192 / 384 /
+# 576, repeats 2 / 4, 80 classes, 8,400 anchors), seeded weights and
+# randomised BatchNorm statistics: the adapter's NMS (iou 0.7, max_det 300,
+# ultralytics' defaults) at predict_conf 0.25, ROIAlign out 7 on backbone_p5,
+# 32 fit images, 16 in-distribution and 16 noise images scored, the MC route
+# (S = 16, DropBlock p 0.5, block 3) on 8 images. One image's f32 forward,
+# card (TF32 off) against CPU, within YOLO_XCHECK_REL of the largest value.
+YOLO_IMG, YOLO_FIT, YOLO_SCORE, YOLO_MC, YOLO_CONF = 640, 32, 16, 8, 0.25
+YOLO_XCHECK_REL = 1e-4
+# NMS kernel against plain: random boxes at 640 px, sides 8-200 px.
+NMS_SIZES, NMS_THRESHOLDS = (1000, 8400, 30000), (0.45, 0.7)
+NMS_IOU_OPERATIONS = 13  # f32 operations an IoU and its compare (csrc/nms.cu)
+# ROIAlign kernel against plain: f32 within 1e-5 of max |feature|; bf16
+# within ROI_BF16_REL of it (the plain form rounds its weights and its
+# intermediate to bf16, the kernel sums f32 products of the bf16 map).
+ROI_F32_REL, ROI_BF16_REL = 1e-5, 1e-2
 
 # Kernel 1 selects the same f32 differences as the sorted-window plain
 # version; only the order of the final sum of n logs differs (the kernel's
@@ -4391,6 +4430,433 @@ def train_rn18_phase(device, gen, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The object level: the NMS and ROIAlign kernels, the batched object scorer,
+# YOLOv8m per-detection scoring
+# ---------------------------------------------------------------------------
+
+
+def random_boxes(gen, n: int, size: float, lo: float, hi: float, device) -> torch.Tensor:
+    """n xyxy boxes with corners in [0, size) and sides in [lo, hi)."""
+    xy = torch.rand((n, 2), generator=gen, device=device) * size
+    wh = torch.rand((n, 2), generator=gen, device=device) * (hi - lo) + lo
+    return torch.cat([xy, xy + wh], dim=1)
+
+
+def nms_phase(device, gen) -> dict:
+    """The NMS kernel against its plain version (JAX's fixed point) at N =
+    1,000, 8,400 (YOLOv8's anchors at 640 px) and 30,000 (ultralytics'
+    max_nms): keep masks identical. Timed cold and L2-warm as replays of a
+    CUDA graph, the plain version by events. Bound: the IoUs the data needs
+    (each kept box against every later box, NMS_IOU_OPERATIONS f32
+    operations each) against the bytes of the boxes and the mask; beside it
+    the bitmask's bytes and all N^2 / 2 IoUs."""
+    from runia_core_tpu_torch.ops.nms import nms_keep_cuda, nms_keep_plain
+
+    flips, timing = {}, {}
+    for n in NMS_SIZES:
+        boxes = random_boxes(gen, n, YOLO_IMG, 8.0, 200.0, device)
+        scores = torch.rand(n, generator=gen, device=device)
+        sorted_boxes = boxes[torch.sort(scores, descending=True, stable=True).indices].contiguous()
+        for thr in NMS_THRESHOLDS:
+            got = nms_keep_cuda(sorted_boxes, thr)
+            again = nms_keep_cuda(sorted_boxes, thr)
+            want = nms_keep_plain(sorted_boxes, thr)
+            torch.cuda.synchronize()
+            require(torch.equal(got, again), f"nms {n}@{thr}: two runs are bit-identical")
+            flips[f"{n}@{thr}"] = int((got != want).sum())
+            require(flips[f"{n}@{thr}"] == 0, f"nms {n}@{thr}: the kernel's keep mask = plain's: {flips}")
+        thr = NMS_THRESHOLDS[0]
+        keep = nms_keep_cuda(sorted_boxes, thr)
+        kept_at = torch.nonzero(keep).flatten()
+        needed_ious = int((n - 1 - kept_at).sum())
+        mask_bytes = n * (-(-n // 64)) * 8
+        copies = cold_copies((sorted_boxes,), n * 16 + mask_bytes)
+        times = timed_cold(lambda b: nms_keep_cuda(b, thr), lambda b: nms_keep_plain(b, thr), copies)
+        bound = roofline(17 * n, NMS_IOU_OPERATIONS * needed_ious, H100_F32_OPS_PER_S)
+        all_pairs = roofline(mask_bytes, NMS_IOU_OPERATIONS * n * (n - 1) / 2, H100_F32_OPS_PER_S)
+        timing[str(n)] = {"iou": thr, "kept": int(keep.sum()), "needed_ious": needed_ious, "copies": len(copies),
+                          **times, **with_share(bound, times["ms"]),
+                          "bound_all_pairs_and_bitmask": with_share(all_pairs, times["ms"])}
+        require(timing[str(n)]["share_of_bound"] <= 1.0, f"nms {n}: faster than its bound: {timing[str(n)]}")
+        del copies
+    top = timing[str(NMS_SIZES[1])]  # YOLOv8's 8,400 anchors, what the adapter's NMS takes
+    emit({"phase": "kernel_nms", "keep_flips": flips, "timing": timing,
+          "timed_with": "CUDA-graph replays, inputs cold (copies cycled past the L2); ms_l2_warm: one input",
+          "library_ms": None, "library": "none: torchvision is not installed, and no PyTorch call is an NMS"})
+    return {"max_abs_err": 0.0, "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None}
+
+
+def roi_work(fmap: torch.Tensor, boxes: torch.Tensor, out: int, scale: float, mean: bool) -> dict:
+    """What ROIAlign must move and compute for these boxes: the map cells
+    some bin samples (read once), the boxes, the output; two operations a
+    channel for each (cell, bin) tap, or for each cell of a ROI's footprint
+    in the mean mode."""
+    from runia_core_tpu_torch.ops.roi_align import _interpolation
+
+    b, h, w, c = fmap.shape
+    k = boxes.shape[0]
+    ay, ax = _interpolation(boxes, out, out, h, w, scale, -1, True, 16)
+    rows, cols = (ay != 0).any(dim=1), (ax != 0).any(dim=1)  # (K, H), (K, W)
+    cells = int((rows[:, :, None] & cols[:, None, :]).reshape(b, k // b, h, w).any(dim=1).sum())
+    if mean:
+        taps = int((rows.sum(1) * cols.sum(1)).sum())
+    else:
+        taps = int(((ay != 0).sum(2).sum(1) * (ax != 0).sum(2).sum(1)).sum())
+    elem = fmap.element_size()
+    out_bytes = k * c * (1 if mean else out * out) * elem
+    return roofline(cells * c * elem + 16 * k + out_bytes, 2 * taps * c, H100_F32_OPS_PER_S)
+
+
+def roi_cases(gen, device) -> dict:
+    """(map, boxes, spatial scale) of the object scorer's bf16 pre_pool tap
+    and YOLOv8m's backbone_p5 and p3 at 640 px (one whole-image box each)."""
+    rng = np.random.RandomState(SEED + 7)
+    dets = np.concatenate([make_dets(rng, OBJ_MAX_DET, OBJ_IMG)["boxes"] for _ in range(OBJ_BATCH)])
+    yolo_boxes = random_boxes(gen, 300, YOLO_IMG * 0.8, 8.0, 320.0, device)
+    yolo_boxes[0] = torch.tensor([0.0, 0.0, YOLO_IMG, YOLO_IMG])
+    return {
+        "object_scorer_pre_pool": (torch.rand((OBJ_BATCH, 8, 8, 512), generator=gen, device=device),
+                                   torch.from_numpy(dets).to(device), 8 / OBJ_IMG),
+        "yolov8m_backbone_p5": (torch.rand((1, 20, 20, 576), generator=gen, device=device), yolo_boxes, 20 / YOLO_IMG),
+        "yolov8m_p3": (torch.rand((1, 80, 80, 192), generator=gen, device=device), yolo_boxes, 80 / YOLO_IMG),
+    }
+
+
+def roi_align_phase(device, gen) -> dict:
+    """The ROIAlign kernel against its plain version (JAX's separable form)
+    at the object scorer's (128, 8, 8, 512) tap with 2,560 boxes and YOLOv8m's
+    backbone_p5 and p3 with 300, both modes, f32 and bf16; timed where the
+    main paths call it: the scorer's bf16 means, the extractor's f32 means and
+    the MC route's f32 pooled bins."""
+    from runia_core_tpu_torch.ops.roi_align import roi_align_nhwc_cuda, roi_align_nhwc_plain
+
+    cases = roi_cases(gen, device)
+    errors = {}
+    for name, (fmap, boxes, scale) in cases.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            x = fmap.to(dtype)
+            for mean in (False, True):
+                got = roi_align_nhwc_cuda(x, boxes, 7, scale, mean=mean)
+                again = roi_align_nhwc_cuda(x, boxes, 7, scale, mean=mean)
+                want = roi_align_nhwc_plain(x, boxes, 7, scale, mean=mean)
+                torch.cuda.synchronize()
+                key = f"{name}/{str(dtype)[6:]}/{'mean' if mean else 'pooled'}"
+                require(torch.equal(got, again), f"roi_align {key}: two runs are bit-identical")
+                rel = float((got.float() - want.float()).abs().max()) / float(x.float().abs().max())
+                errors[key] = rel
+                bar = ROI_F32_REL if dtype == torch.float32 else ROI_BF16_REL
+                require(got.shape == want.shape and rel <= bar, f"roi_align {key}: {rel} of max |feature| > {bar}")
+    timing = {}
+    for key, (name, dtype, mean) in {"object_scorer_bf16_mean": ("object_scorer_pre_pool", torch.bfloat16, True),
+                                     "yolov8m_p5_f32_mean": ("yolov8m_backbone_p5", torch.float32, True),
+                                     "yolov8m_p5_f32_pooled": ("yolov8m_backbone_p5", torch.float32, False),
+                                     "yolov8m_p3_f32_mean": ("yolov8m_p3", torch.float32, True)}.items():
+        fmap, boxes, scale = cases[name]
+        fmap = fmap.to(dtype)
+        copies = cold_copies((fmap, boxes), fmap.numel() * fmap.element_size())
+        times = timed_cold(lambda f, b: roi_align_nhwc_cuda(f, b, 7, scale, mean=mean),
+                           lambda f, b: roi_align_nhwc_plain(f, b, 7, scale, mean=mean), copies)
+        bound = roi_work(fmap, boxes, 7, scale, mean)
+        timing[key] = {"map": list(fmap.shape), "rois": boxes.shape[0], "copies": len(copies), **times,
+                       **with_share(bound, times["ms"])}
+        require(timing[key]["share_of_bound"] <= 1.0, f"roi_align {key}: faster than its bound: {timing[key]}")
+        del copies
+    top = timing["object_scorer_bf16_mean"]
+    emit({"phase": "kernel_roi_align", "max_rel_err_of_max_feature": errors,
+          "bound": {"f32": ROI_F32_REL, "bf16": ROI_BF16_REL}, "timing": timing,
+          "timed_with": "CUDA-graph replays, inputs cold (copies cycled past the L2); ms_l2_warm: one input",
+          "library_ms": None, "library": "none: torchvision is not installed, and no PyTorch call is a ROIAlign"})
+    worst = max(errors[k] * float(cases[k.split("/")[0]][0].abs().max()) for k in errors)
+    return {"max_abs_err": worst, "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None}
+
+
+def make_dets(rng, n: int, img: int) -> dict:
+    """bench.py:213-220's detections: corners in [0, img - 40), sides 8-38 px."""
+    xy = rng.rand(n, 2) * (img - 40)
+    wh = rng.rand(n, 2) * 30 + 8
+    return {"boxes": np.concatenate([xy, xy + wh], 1).astype(np.float32), "scores": rng.rand(n).astype(np.float32),
+            "classes": rng.randint(0, 10, n)}
+
+
+def object_scorer_phase(device, gen, smi: str) -> dict:
+    """The bench leg object_scorer_256px_20det through build_object_scorer at
+    full width (see OBJ_*): counted replays of the scorer's graph, graph =
+    eager bit for bit, the f32 scorer at batch 4 card against CPU (padded
+    rows and the whole-image fallback included), det/s graph and eager in
+    turns, the forward and ROI + score stages, the kernel share."""
+    from runia_core_tpu_torch.detectors import MDLatentSpace
+    from runia_core_tpu_torch.extraction import batched_roi_features, build_object_scorer, pad_detections
+    from runia_core_tpu_torch.models import ResNet18, build_tapped_forward
+    from runia_core_tpu_torch.ops.linalg import mahalanobis_quadform
+    from runia_core_tpu_torch.ops.roi_align import roi_align_nhwc_cuda
+    from runia_core_tpu_torch.utils import cuda_graph_time_ms, cuda_time_ms, device_profile
+
+    rng = np.random.RandomState(SEED)
+    model = ResNet18(num_classes=NUM_CLASSES, dtype=torch.bfloat16)
+    require(model.head.weight.device == device, f"object_scorer: the default device is the card")
+    model.init_weights(torch.Generator(device=device).manual_seed(SEED + 30))  # then the statistics, and each
+    # block's last BatchNorm scale (0 after init), are randomised
+    randomize_batchnorm(model, torch.Generator(device=device).manual_seed(SEED + 31))
+    model = model.to(memory_format=torch.channels_last)
+    forward = build_tapped_forward(model, ("pre_pool",))
+    md = MDLatentSpace()
+    md.setup(torch.randn((OBJ_FIT, 512), generator=gen, device=device))
+    padded = pad_detections([make_dets(rng, OBJ_MAX_DET, OBJ_IMG) for _ in range(OBJ_BATCH)], OBJ_MAX_DET,
+                            (OBJ_IMG, OBJ_IMG))
+    images = torch.rand((OBJ_BATCH, OBJ_IMG, OBJ_IMG, 3), generator=gen, device=device)
+    scorers = {mode: build_object_scorer(forward, md.state, output_sizes=(7,), img_shape=(OBJ_IMG, OBJ_IMG),
+                                         use_graph=mode == "graph") for mode in ("graph", "eager")}
+
+    roi_align_nhwc_cuda.launches = 0
+    outs = []
+    for _ in range(3):
+        with no_host_sync():  # the first call captures the graph; every call replays it
+            outs.append(scorers["graph"](images, padded))
+    torch.cuda.synchronize()
+    launches = {"roi_align": roi_align_nhwc_cuda.launches}
+    require(launches["roi_align"] > 0, f"object_scorer: the ROIAlign kernel launched: {launches}")
+    want = scorers["eager"](images, padded)
+    require(all(torch.equal(o, want) for o in outs), "object_scorer: graph = eager, bit for bit")
+    require(tuple(want.shape) == (OBJ_BATCH, OBJ_MAX_DET) and bool(torch.isfinite(want).all()),
+            "object_scorer: finite (128, 20) scores (every row valid)")
+
+    # f32 at batch 4, card against the CPU's plain path, with padded rows and an empty image.
+    state = {k: v.float() for k, v in model.state_dict().items()}
+    xdets = [make_dets(rng, n, OBJ_IMG) if n else {"boxes": np.zeros((0, 4), np.float32)} for n in (3, 0, 20, 7)]
+    xscores = {}
+    for side, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        m = ResNet18(num_classes=NUM_CLASSES, device=None if side == "card" else dev)
+        m.load_state_dict({k: v.to(dev) for k, v in state.items()})
+        det_state = {k: v.to(dev) for k, v in md.state.items()}
+        xs = build_object_scorer(build_tapped_forward(m, ("pre_pool",)), det_state, output_sizes=(7,),
+                                 img_shape=(OBJ_IMG, OBJ_IMG))
+        xscores[side] = xs(images[:OBJ_XCHECK].to(dev), pad_detections(xdets, OBJ_MAX_DET, (OBJ_IMG, OBJ_IMG),
+                                                                        device=dev)).cpu()
+    finite = torch.isfinite(xscores["cpu"])
+    require(torch.equal(torch.isfinite(xscores["card"]), finite) and int(finite.sum()) == 3 + 1 + 20 + 7,
+            "object_scorer f32: -inf exactly in the padded rows, the empty image's fallback row finite")
+    xrel = float((xscores["card"][finite] - xscores["cpu"][finite]).abs().max() / xscores["cpu"][finite].abs().max())
+    require(xrel <= OBJ_XCHECK_REL, f"object_scorer f32 card vs CPU: {xrel} of max |score|")
+    del m, xs
+
+    # Timing: det/s by CUDA events, graph and eager in turns; the stages by graph replays.
+    times = {"graph": [], "eager": []}
+    for window in range(OBJ_WINDOWS):
+        for mode in (("graph", "eager") if window % 2 == 0 else ("eager", "graph")):
+            times[mode].append(cuda_time_ms(lambda: scorers[mode](images, padded), iters=OBJ_CALLS, warmup=1))
+    dets_per_call = OBJ_BATCH * OBJ_MAX_DET
+    det_per_s = {mode: dets_per_call / (statistics.median(ms) * 1e-3) for mode, ms in times.items()}
+    tap = forward(images)[1]["pre_pool"]
+    boxes_flat = padded.boxes.reshape(-1, 4)
+
+    def roi_and_score():
+        feats = batched_roi_features([tap.permute(0, 3, 1, 2)], padded.boxes, (OBJ_IMG, OBJ_IMG), (7,))
+        flat = feats.reshape(-1, feats.shape[-1]).float()
+        return -mahalanobis_quadform(flat, md.state["feats_mean"], md.state["precision"])
+
+    stage_ms = {"forward_bf16": cuda_graph_time_ms(lambda: forward(images), 3),
+                "roi_and_score": cuda_graph_time_ms(roi_and_score, 20),
+                "roi_align_kernel": cuda_graph_time_ms(
+                    lambda: roi_align_nhwc_cuda(tap, boxes_flat, 7, 8 / OBJ_IMG, mean=True), 20)}
+    busy = device_profile(lambda: [scorers["graph"](images, padded) for _ in range(3)], 3, category=flow_category)
+    print(f"object_scorer det/s: {det_per_s}; stages ms {stage_ms}", flush=True)
+    emit({"phase": "object_scorer_rn18", "card": smi, "batch": OBJ_BATCH, "img": OBJ_IMG, "max_det": OBJ_MAX_DET,
+          "tap": list(tap.shape), "launches": launches, "graph_equals_eager": True,
+          "f32_card_vs_cpu_rel": xrel, "bound_f32_card_vs_cpu_rel": OBJ_XCHECK_REL,
+          "det_per_s_median": det_per_s, "call_ms": times, "stage_ms": stage_ms,
+          "device_busy": {"share": busy["device_busy_share"], "device_ms_per_call": busy["device_busy_ms_per_unit"],
+                          "kernels_per_call": busy["kernels_per_unit"],
+                          "ms_by_category": busy["device_ms_per_unit_by_category"]}})
+    del scorers, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+@torch.no_grad()
+def randomize_batchnorm(model, generator: torch.Generator):
+    """Every BatchNorm's scale and running variance uniform in [0.5, 1.5),
+    its shift and running mean 0.1 N(0, 1): non-trivial statistics on a
+    seeded detector whose kernels keep their lecun-normal init."""
+    from runia_core_tpu_torch.models.resnet import BatchNorm
+
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            for t in (m.weight, m.running_var):
+                t.copy_(torch.rand(t.shape, generator=generator, device=t.device) + 0.5)
+            for t in (m.bias, m.running_mean):
+                t.copy_(0.1 * torch.randn(t.shape, generator=generator, device=t.device))
+    return model
+
+
+def yolov8m_flow_phase(device, gen, smi: str) -> dict:
+    """Per-detection OoD scoring on YOLOv8m @640 (see YOLO_*): the port's
+    YoloV8JaxAdapter (the NMS kernel) -> BoxFeaturesExtractor on backbone_p5
+    (the ROIAlign kernel) over the fit images -> MDLatentSpace ->
+    ObjectLevelInference.get_score and BoxInferenceYolo.get_score on
+    in-distribution and noise images -> the MC route (kernel 1), counted;
+    then the checks and the stages' times."""
+    from runia_core_tpu_torch.detectors import MDLatentSpace
+    from runia_core_tpu_torch.extraction import BoxFeaturesExtractor, yolo_get_logits
+    from runia_core_tpu_torch.inference import BoxInferenceYolo, ObjectLevelInference
+    from runia_core_tpu_torch.models import YoloV8, YoloV8JaxAdapter
+    from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda, marginal_entropy_plain
+    from runia_core_tpu_torch.ops.nms import nms_indices, nms_keep_cuda
+    from runia_core_tpu_torch.ops.roi_align import roi_align_nhwc, roi_align_nhwc_cuda
+    from runia_core_tpu_torch.sampling import MCSamplerModule
+    from runia_core_tpu_torch.utils import cuda_graph_time_ms, cuda_time_ms, device_profile
+
+    model = YoloV8(num_classes=80, scale="m")
+    require(model.layer0.conv.weight.device == device, "yolov8m: the default device is the card")
+    model.init_weights(torch.Generator(device=device).manual_seed(SEED + 40))
+    randomize_batchnorm(model, torch.Generator(device=device).manual_seed(SEED + 41))
+    model = model.to(memory_format=torch.channels_last)
+    adapter = YoloV8JaxAdapter(model)  # backbone_p5, iou 0.7, max_det 300
+
+    def images(n, scale=1.0):
+        return [torch.rand((YOLO_IMG, YOLO_IMG, 3), generator=gen, device=device) * scale for _ in range(n)]
+
+    fit_images, ind, noise = images(YOLO_FIT), images(YOLO_SCORE), images(YOLO_SCORE, 4.0)
+    adapter(fit_images[0], YOLO_CONF)  # cuDNN's autotune for the 640-px shapes, outside the count
+    torch.cuda.synchronize()
+
+    # ---- the main path, counted ----
+    nms_keep_cuda.launches = roi_align_nhwc_cuda.launches = marginal_entropy_cuda.launches = 0
+    seconds = {}
+    start = time.perf_counter()
+    extractor = BoxFeaturesExtractor(adapter, "yolov8", roi_output_sizes=[7])
+    fit = extractor.get_ls_samples([(f"fit{i}.png", x, i) for i, x in enumerate(fit_images)], predict_conf=YOLO_CONF)
+    feats = np.concatenate([fit[i]["latent_space_means"] for i in range(YOLO_FIT) if len(fit[i]["boxes"])])
+    seconds["extract_fit"] = time.perf_counter() - start
+    md = MDLatentSpace()
+    md.setup(feats)
+    fit_scores = md.postprocess(feats)
+    threshold = float(torch.quantile(fit_scores, 0.05))
+    inference = ObjectLevelInference(adapter, md, "yolov8", True, ["latent_space_means"], [7])
+    box_inference = BoxInferenceYolo(adapter, None, "LaREM", torch.from_numpy(feats).to(device), [7])
+    per_image, scores = [], {"ind": [], "noise": []}
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for split, batch in (("ind", ind), ("noise", noise)):
+        for x in batch:
+            det, s = inference.get_score(x, YOLO_CONF)
+            rewritten = box_inference.get_score(x, YOLO_CONF, threshold=threshold)
+            scores[split].append(torch.as_tensor(s).float().cpu())
+            require(np.isfinite(rewritten.extra["ood_scores"]).all(), "yolov8m: BoxInferenceYolo scores finite")
+            per_image.append({"candidates": int((det.raw_prediction[0, 4:].max(0) > YOLO_CONF).sum()),
+                              "survivors": int(det.boxes.shape[0]),
+                              "ood_rewritten": int((rewritten.classes == rewritten.extra["ood_class_id"]).sum())})
+    seconds["score_2x16_two_inference_classes"] = time.perf_counter() - start
+    mc_extractor = BoxFeaturesExtractor(adapter, "yolov8", roi_output_sizes=[7], extract_noise_entropies=True,
+                                        mcd_nro_samples=MC_SAMPLES, dropblock_probs=DROP_PROB,
+                                        dropblock_sizes=BLOCK_SIZE, generator=gen)
+    start = time.perf_counter()
+    for x in ind[:YOLO_MC]:
+        res, _ = mc_extractor._get_samples_one_image(x, YOLO_CONF)
+        require(np.isfinite(res["latent_space_means"]).all(), "yolov8m: the MC route's entropies are finite")
+    seconds["mc_route_8"] = time.perf_counter() - start
+    torch.cuda.synchronize()
+    launches = {"nms": nms_keep_cuda.launches, "roi_align": roi_align_nhwc_cuda.launches,
+                "marginal_entropy": marginal_entropy_cuda.launches}
+    require(all(n > 0 for n in launches.values()), f"yolov8m: NMS, ROIAlign and kernel 1 launched: {launches}")
+    all_scores = torch.cat(scores["ind"] + scores["noise"])
+    require(bool(torch.isfinite(all_scores).all()) and all_scores.numel() > 0, "yolov8m: finite scores")
+
+    # ---- checks ----
+    x = ind[0]
+    det = adapter(x, YOLO_CONF)
+    pred = det.raw_prediction[0].T  # the adapter's own predictions, on the host
+    cls = pred[:, 4:]
+    sel = cls.max(1) > YOLO_CONF
+    cx, cy, w, h = pred[:, 0], pred[:, 1], pred[:, 2], pred[:, 3]
+    xyxy = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], axis=-1).astype(np.float32)
+    cand = np.nonzero(sel)[0]
+    offset = cls.argmax(1)[cand, None].astype(np.float32) * adapter.max_wh
+    kept = nms_indices(torch.from_numpy(xyxy[cand] + offset), torch.from_numpy(cls.max(1)[cand]),
+                       adapter.iou_threshold, max_det=adapter.max_det)  # plain, on the CPU
+    require(np.array_equal(det.boxes, xyxy[cand][kept]),
+            f"yolov8m: the adapter's kept boxes = plain NMS's on its candidates ({len(kept)} of {len(cand)})")
+    replay_input = det.raw_prediction.copy()
+    replay_input[0, :4] = xyxy.T  # the replay takes its boxes as given; ultralytics makes them xyxy before its NMS
+    replayed = yolo_get_logits(replay_input, conf_thres=YOLO_CONF, iou_thres=adapter.iou_threshold,
+                               max_det=adapter.max_det)
+    require(np.array_equal(replayed, det.logits), "yolov8m: yolo_get_logits on the raw predictions = the logits")
+    cpu_model = YoloV8(num_classes=80, scale="m", device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.inference_mode():
+        card_preds = model(x[None])[0].cpu()
+        cpu_preds = cpu_model(x[None].cpu())[0]
+    xrel = float((card_preds - cpu_preds).abs().max() / cpu_preds.abs().max())
+    require(xrel <= YOLO_XCHECK_REL, f"yolov8m f32 forward card vs CPU: {xrel} of max")
+    with torch.inference_mode():
+        tap = model(x[None])[1]["backbone_p5"]
+        rois = roi_align_nhwc(tap, torch.from_numpy(det.boxes).to(device), 7, tap.shape[2] / YOLO_IMG)
+        samples = MCSamplerModule(MC_SAMPLES, BLOCK_SIZE, DROP_PROB, generator=gen)(rois)
+        samples = samples if samples.ndim == 3 else samples[None]
+        k1_err = float((marginal_entropy_cuda(samples, K) - marginal_entropy_plain(samples, K)).abs().max())
+    require(k1_err <= ENTROPY_ATOL, f"yolov8m: kernel 1 vs plain on the MC route's samples: {k1_err}")
+    # Kernel 1 at this path's (detections, S, 576) clouds, timed as the kernel phases time it.
+    n_det = samples.shape[0]
+    k1 = timed_cold(lambda c: marginal_entropy_cuda(c, K), lambda c: marginal_entropy_plain(c, K),
+                    cold_copies((samples.contiguous(),), samples.numel() * 4))
+    k1.update({"shape": list(samples.shape), **with_share(roofline(
+        4 * (samples.numel() + n_det * samples.shape[2]), n_det * samples.shape[2] * kl_entropy_operations(
+            MC_SAMPLES, K), H100_F32_OPS_PER_S), k1["ms"])})
+
+    eager_adapter = YoloV8JaxAdapter(model, use_graph=False)
+    eager = eager_adapter(x, YOLO_CONF)
+    require(np.array_equal(eager.boxes, det.boxes) and np.array_equal(eager.logits, det.logits)
+            and torch.equal(eager.fmaps[0], det.fmaps[0]), "yolov8m: the adapter's graph = its eager call, bit for bit")
+
+    # ---- timing ----
+    adapter_ips = {"graph": [], "eager": []}
+    for window in range(4):
+        for mode in (("graph", "eager") if window % 2 == 0 else ("eager", "graph")):
+            run = adapter if mode == "graph" else eager_adapter
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for x_ in ind:
+                run(x_, YOLO_CONF)
+            adapter_ips[mode].append(len(ind) / (time.perf_counter() - start))
+    start = time.perf_counter()
+    for x_ in ind:
+        inference.get_score(x_, YOLO_CONF)
+    scoring_ips = len(ind) / (time.perf_counter() - start)
+    with torch.inference_mode():
+        preds = model(x[None])[0][0].T
+        conf, best = preds[:, 4:].max(dim=1)
+        boxes_all = torch.cat([preds[:, :2] - preds[:, 2:4] / 2, preds[:, :2] + preds[:, 2:4] / 2], 1)
+        sorted_all = (boxes_all + best[:, None].float() * adapter.max_wh)[
+            torch.sort(torch.where(conf > YOLO_CONF, conf, -torch.inf), descending=True, stable=True).indices]
+        feats_t = torch.from_numpy(feats[: det.boxes.shape[0]]).to(device)
+        kept_boxes = torch.from_numpy(det.boxes).to(device)
+        stage_ms = {"forward_f32": cuda_graph_time_ms(lambda: model(x[None]), 3),
+                    "forward_f32_eager_events": cuda_time_ms(lambda: model(x[None]), 5),
+                    "nms_8400": cuda_graph_time_ms(lambda: nms_keep_cuda(sorted_all, adapter.iou_threshold), 10),
+                    "roi_align_mean": cuda_graph_time_ms(
+                        lambda: roi_align_nhwc_cuda(tap, kept_boxes, 7, tap.shape[2] / YOLO_IMG, mean=True), 10),
+                    "md_score": cuda_time_ms(lambda: md.postprocess(feats_t), 10)}
+    busy = device_profile(lambda: [inference.get_score(x_, YOLO_CONF) for x_ in ind[:4]], 4, category=flow_category)
+    per = {key: [p[key] for p in per_image] for key in per_image[0]}
+    print(f"yolov8m: adapter {adapter_ips} img/s, scoring {scoring_ips:.1f} img/s; stages ms {stage_ms}; "
+          f"survivors {statistics.median(per['survivors'])} of {statistics.median(per['candidates'])}", flush=True)
+    emit({"phase": "yolov8m_flow", "card": smi, "img": YOLO_IMG, "anchors": int(pred.shape[0]),
+          "fit_images": YOLO_FIT, "fit_rows": int(feats.shape[0]), "launches": launches,
+          "adapter_img_per_s": adapter_ips, "adapter_img_per_s_median": {
+              mode: statistics.median(v) for mode, v in adapter_ips.items()}, "scoring_img_per_s": scoring_ips, "stage_ms": stage_ms,
+          "seconds": seconds, "per_image": per, "threshold": threshold,
+          "score_median": {k: float(torch.cat(v).median()) for k, v in scores.items()},
+          "f32_card_vs_cpu_rel": xrel, "kernel1_max_abs_err": k1_err, "kernel1_timing": k1,
+          "device_busy": {"share": busy["device_busy_share"], "device_ms_per_call": busy["device_busy_ms_per_unit"],
+                          "kernels_per_call": busy["kernels_per_unit"],
+                          "ms_by_category": busy["device_ms_per_unit_by_category"]}})
+    del model, cpu_model, adapter, eager_adapter, extractor, mc_extractor
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _drop_programs() -> None:
     """Forget every cached decode program (their buffers and graphs)."""
     from runia_core_tpu_torch.llm.generate import _PROGRAM_CACHE
@@ -4455,8 +4921,13 @@ def main() -> None:
     int8_rn18 = timed("int8_rn18", int8_rn18_phase, device, gen, smi)
     vit_b16 = timed("vit_b16", vit_b16_phase, device, gen, smi)
     train_rn18 = timed("train_rn18", train_rn18_phase, device, gen, smi)
+    k_nms = timed("kernel_nms", nms_phase, device, gen)
+    k_roi = timed("kernel_roi_align", roi_align_phase, device, gen)
+    objects = timed("object_scorer_rn18", object_scorer_phase, device, gen, smi)
+    yolo = timed("yolov8m_flow", yolov8m_flow_phase, device, gen, smi)
+    launches.update(nms=0, roi_align=0)
     for counts in (flow, evaluation, semantic, speculative, mixed, spec1b, serve7b, spec7b, fused7b, moe, int8_rn18,
-                   vit_b16, train_rn18):
+                   vit_b16, train_rn18, objects, yolo):
         for name, n in counts.items():
             if name in launches:
                 launches[name] += n
@@ -4478,6 +4949,10 @@ def main() -> None:
          "source": "runia_core_tpu_torch/csrc/flash_prefill.cu",
          "replaces": "runia_core_tpu/ops/flash_prefill.py:333",
          "launches": launches["flash_prefix_attention"], **k4},
+        {"name": "nms", "route": "cuda", "source": "runia_core_tpu_torch/csrc/nms.cu",
+         "replaces": "runia_core_tpu/ops/nms.py:46", "launches": launches["nms"], **k_nms},
+        {"name": "roi_align", "route": "cuda", "source": "runia_core_tpu_torch/csrc/roi_align.cu",
+         "replaces": "runia_core_tpu/ops/roi_align.py:90", "launches": launches["roi_align"], **k_roi},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

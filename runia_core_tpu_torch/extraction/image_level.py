@@ -18,8 +18,9 @@ without a copy to the host; samples are formed in f32 whatever the
 forward's dtype. Each extractor keeps a generator (``generator``, or one
 seeded 0 on the device of the first batch), which every batch draws from in
 turn: the counterpart of the JAX package's ``fold_in(rng, step)``.
-``ImageLvlFeatureExtractor``, which runs object detectors, comes with the
-port's object-level layer.
+:class:`ImageLvlFeatureExtractor` runs an adapted object detector
+(``extraction/adapters.py``) and keeps one whole-image feature row per
+image: each captured map's channel means.
 """
 
 from __future__ import annotations
@@ -27,16 +28,21 @@ from __future__ import annotations
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Union
 from warnings import warn
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from runia_core_tpu_torch import default_device
+from runia_core_tpu_torch.extraction.adapters import SUPPORTED_OBJECT_DETECTION_ARCHITECTURES, postprocess_architecture_taps
+from runia_core_tpu_torch.extraction.object_level import BoxFeaturesExtractor
 from runia_core_tpu_torch.ops.dropblock import dropout
 from runia_core_tpu_torch.ops.mc_entropy_cuda import mc_dropblock_weights
 from runia_core_tpu_torch.sampling import mc_dropblock_samples
+from runia_core_tpu_torch.utils.placement import to_numpy
 
 __all__ = [
     "FastMCDSamplesExtractor",
+    "ImageLvlFeatureExtractor",
     "MCDSamplesExtractor",
     "deeplabv3p_get_ls_mcd_samples",
     "get_latent_representation_mcd_samples",
@@ -289,3 +295,67 @@ def get_latent_representation_mcd_samples(
         tap=layer_hook, mcd_nro_samples=mcd_nro_samples, generator=generator, device=device,
     )
     return extractor.get_ls_samples(dataloader)
+
+
+class ImageLvlFeatureExtractor:
+    """Whole-image latent features of an object detector: run the adapted
+    model, reduce each captured (1, C, H, W) map to its channel means and
+    concatenate them, one row per image, beside the per-detection logits and
+    features the architecture gives; images with no detection go to
+    'no_obj'. Results are numpy, as in the JAX package. ``device`` is where
+    array maps go (None: the GPU)."""
+
+    def __init__(
+        self,
+        model: Callable,
+        architecture: str,
+        rcnn_extraction_type: Optional[str] = None,
+        return_raw_predictions: bool = False,
+        return_stds: bool = False,
+        device=None,
+    ):
+        assert architecture in SUPPORTED_OBJECT_DETECTION_ARCHITECTURES, (
+            f"Only {SUPPORTED_OBJECT_DETECTION_ARCHITECTURES} are supported"
+        )
+        self.model = model
+        self.architecture = architecture
+        self.rcnn_extraction_type = rcnn_extraction_type
+        self.return_raw_predictions = return_raw_predictions
+        self.device = device
+        if return_stds:
+            raise NotImplementedError  # as the reference
+
+    @torch.inference_mode()
+    def _get_samples_one_image(self, image, predict_conf: float, **kwargs):
+        det = self.model(image, predict_conf, **kwargs)
+        results: Dict[str, object] = {}
+        if det.logits is not None:
+            results["logits"] = to_numpy(det.logits)
+        if det.features is not None:
+            results["features"] = to_numpy(det.features)
+        found_objs_flag = to_numpy(det.boxes).reshape(-1, 4).shape[0] > 0
+        latent_sample = postprocess_architecture_taps(self.architecture, det.fmaps, self.rcnn_extraction_type,
+                                                      device=self.device)
+        reduced = [to_numpy(t.mean(dim=(2, 3))).reshape(1, -1) for t in latent_sample]
+        results["latent_space_means"] = np.concatenate(reduced, axis=1)
+        if self.return_raw_predictions:
+            results["raw_preds"] = det
+        return results, found_objs_flag
+
+    def get_ls_samples(self, data_loader: Iterable, predict_conf: float = 0.25, **kwargs) -> Dict:
+        results: Dict[str, list] = {"latent_space_means": [], "features": [], "logits": []}
+        no_obj_imgs = []
+        for loader_contents in data_loader:
+            impath, image, im_id = BoxFeaturesExtractor.unpack_dataloader(loader_contents)
+            result_img, found_obj_flag = self._get_samples_one_image(image=image, predict_conf=predict_conf,
+                                                                     **kwargs)
+            for result_type, result_value in result_img.items():
+                if result_type in results:
+                    results[result_type].append(result_value)
+            if not found_obj_flag:
+                no_obj_imgs.append(impath[0])
+        out = {k: (np.concatenate(v, axis=0) if len(v) > 0 else v) for k, v in results.items()}
+        out["no_obj"] = no_obj_imgs
+        print("Latent representation vector size: ", out["latent_space_means"].shape[1])
+        print(f"No objects in {len(no_obj_imgs)} images")
+        return out

@@ -52,7 +52,8 @@ from runia_core_tpu_torch.sampling import MCSamplerModule, mc_dropblock_samples
 from runia_core_tpu_torch.utils.graphs import CudaGraph, ProgramCache, drawing_from
 
 __all__ = [
-    "InferenceModule", "LaRDInference", "LaRExInference", "ProbabilisticInferenceModule", "build_larex_scorer",
+    "InferenceModule", "LaRDInference", "LaRExInference", "ObjectDetectionInferenceBase",
+    "ProbabilisticInferenceModule", "build_larex_scorer",
 ]
 
 
@@ -76,6 +77,19 @@ class ProbabilisticInferenceModule(InferenceModule):
         self.drop_block_prob = drop_block_prob
         self.drop_block_size = drop_block_size
         self.mcd_samples_nro = mcd_samples_nro
+
+
+class ObjectDetectionInferenceBase(InferenceModule):
+    """Object-detection inference base: the architecture string, its tap
+    names (``hooked_layers``) and an optional PCA transform."""
+
+    def __init__(self, model, postprocessor, architecture: str, hooked_layers=None, pca_transform=None,
+                 rcnn_extraction_type: str = None):
+        super().__init__(model, postprocessor)
+        self.architecture = architecture
+        self.rcnn_extraction_type = rcnn_extraction_type
+        self.hooked_layers = hooked_layers
+        self.pca_transform = pca_transform
 
 
 class LaRExInference(InferenceModule):

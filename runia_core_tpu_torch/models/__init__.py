@@ -2,7 +2,8 @@
 their int8 PTQ (``quant_vision``) and torchvision / HF converters, the
 decoder LMs with their KV cache and HF converters (the Llama family, dense or
 sparse-MoE; GPT-2's ``CausalLM``; GPT-NeoX / Pythia's ``NeoXLM``), and the
-DeBERTa-v2 NLI classifier."""
+DeBERTa-v2 NLI classifier; the detectors (``SimpleDetector``, ``YoloV8`` and
+their adapters)."""
 
 from runia_core_tpu_torch.models.convert import (
     causal_lm_from_flax,
@@ -12,7 +13,9 @@ from runia_core_tpu_torch.models.convert import (
     neox_from_flax,
     pca_state_from_arrays,
     resnet_from_flax,
+    simple_detector_from_flax,
     vit_from_flax,
+    yolov8_from_flax,
 )
 from runia_core_tpu_torch.models.deberta import DebertaV2Classifier, convert_hf_deberta, wrap_torch_nli
 from runia_core_tpu_torch.models.llama import (
@@ -39,10 +42,13 @@ from runia_core_tpu_torch.models.resnet import (
 from runia_core_tpu_torch.models.torch_convert import convert_hf_vit, convert_torch_resnet
 from runia_core_tpu_torch.models.transformer import CausalLM, convert_hf_gpt2, init_cache
 from runia_core_tpu_torch.models.vit import ViT
+from runia_core_tpu_torch.models.detection import JaxDetectorAdapter, SimpleDetector
+from runia_core_tpu_torch.models.yolov8 import YoloV8, YoloV8JaxAdapter, convert_ultralytics_yolov8, yolov8_widths
 
 __all__ = [
     "CausalLM",
     "DebertaV2Classifier",
+    "JaxDetectorAdapter",
     "LlamaLM",
     "NeoXLM",
     "QDense",
@@ -51,7 +57,10 @@ __all__ = [
     "ResNet34",
     "ResNet50",
     "SimpleConvNet",
+    "SimpleDetector",
     "ViT",
+    "YoloV8",
+    "YoloV8JaxAdapter",
     "build_tapped_forward",
     "causal_lm_from_flax",
     "convert_hf_deberta",
@@ -62,6 +71,7 @@ __all__ = [
     "convert_hf_mixtral",
     "convert_hf_vit",
     "convert_torch_resnet",
+    "convert_ultralytics_yolov8",
     "deberta_from_flax",
     "detector_state_from_arrays",
     "fuse_quantized_llama_params",
@@ -73,8 +83,11 @@ __all__ = [
     "quantize_resnet",
     "quantize_resnet_params",
     "resnet_from_flax",
+    "simple_detector_from_flax",
     "space_to_depth_2x2",
     "stem_to_s2d",
     "vit_from_flax",
+    "yolov8_from_flax",
+    "yolov8_widths",
     "wrap_torch_nli",
 ]

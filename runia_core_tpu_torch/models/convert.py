@@ -27,7 +27,7 @@ from runia_core_tpu_torch.reduction import PCAState
 
 __all__ = [
     "causal_lm_from_flax", "deberta_from_flax", "detector_state_from_arrays", "llama_from_flax", "neox_from_flax",
-    "pca_state_from_arrays", "resnet_from_flax", "vit_from_flax",
+    "pca_state_from_arrays", "resnet_from_flax", "simple_detector_from_flax", "vit_from_flax", "yolov8_from_flax",
 ]
 
 
@@ -132,6 +132,12 @@ def llama_from_flax(params: Mapping[str, Any], device=None) -> Dict[str, torch.T
 deberta_from_flax = llama_from_flax
 causal_lm_from_flax = llama_from_flax
 neox_from_flax = llama_from_flax
+
+# The detectors keep the flax names too (``down{i}`` / ``neck`` / ``head``;
+# ``layer{i}.conv`` / ``.bn``, ``m{j}``, ``head_box{l}_{j}``): the ResNet
+# rule maps their conv kernels, biases and BatchNorm leaves.
+simple_detector_from_flax = resnet_from_flax
+yolov8_from_flax = resnet_from_flax
 
 
 def pca_state_from_arrays(state, device=None) -> PCAState:

@@ -1189,3 +1189,140 @@ def test_train_step_and_vit_on_the_card_match_the_cpu(gen):
     got, want = build_tapped_forward(vit, taps)(x), build_tapped_forward(vit_cpu, taps)(x.cpu())
     for a, b in ((got[0], want[0]), *((got[1][t], want[1][t]) for t in taps)):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+
+
+def _random_boxes(gen, n, size=640.0, lo=8.0, hi=200.0):
+    """n xyxy boxes at ``size`` px with widths and heights in [lo, hi)."""
+    xy = torch.rand((n, 2), generator=gen, device="cuda") * size
+    wh = torch.rand((n, 2), generator=gen, device="cuda") * (hi - lo) + lo
+    return torch.cat([xy, xy + wh], dim=1)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 1000, 8400, 30000])
+@pytest.mark.parametrize("thr", [0.45, 0.7])
+def test_nms_kernel_matches_plain_bit_for_bit(gen, n, thr):
+    """The NMS kernel decides each pair with the plain version's rounding:
+    the keep masks are identical, at ragged 64-box edges and at N up to
+    ultralytics' max_nms."""
+    from runia_core_tpu_torch.ops.nms import nms_keep_cuda, nms_keep_plain, nms_mask
+
+    boxes = _random_boxes(gen, n)
+    scores = torch.rand(n, generator=gen, device="cuda")
+    before = nms_keep_cuda.launches
+    order, keep = nms_mask(boxes, scores, thr)
+    again = nms_mask(boxes, scores, thr)[1]
+    assert nms_keep_cuda.launches == before + 2
+    assert torch.equal(keep, again)
+    want = nms_keep_plain(boxes[order], thr) if n <= 8400 else nms_keep_plain(boxes[order].cpu(), thr).cuda()
+    assert torch.equal(keep, want)
+
+
+def test_nms_kernel_chains_ties_and_degenerate_boxes(gen):
+    """The alternating chain keeps every other box; identical boxes keep one;
+    zero-area boxes (0 / 0 IoU) suppress nothing."""
+    from runia_core_tpu_torch.ops.nms import nms_indices
+
+    n = 200
+    chain = torch.stack([torch.arange(n) * 6.0, torch.zeros(n), torch.arange(n) * 6.0 + 10, torch.full((n,), 10.0)], 1)
+    scores = torch.linspace(0.9, 0.1, n)
+    assert nms_indices(chain.cuda(), scores.cuda(), 0.2).tolist() == list(range(0, n, 2))
+    same = torch.tensor([[0.0, 0.0, 10.0, 10.0]]).repeat(130, 1)
+    assert nms_indices(same.cuda(), torch.linspace(0.1, 0.9, 130).cuda(), 0.5).tolist() == [129]
+    flat = torch.tensor([[5.0, 5.0, 5.0, 9.0]]).repeat(70, 1)
+    assert nms_indices(flat.cuda(), torch.rand(70, generator=gen, device="cuda"), 0.0).shape == (70,)
+
+
+_ROI_CASES = {  # (B, H, W, C, M, image size, out): the bench leg's tap, YOLOv8m's p5 and p3, small edges
+    "bench_tap": (128, 8, 8, 512, 20, 256, 7),
+    "yolo_p5": (1, 20, 20, 576, 300, 640, 7),
+    "yolo_p3": (1, 80, 80, 192, 300, 640, 7),
+    "ragged_c": (2, 9, 13, 70, 5, 100, 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_ROI_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("mean", [False, True], ids=["pooled", "mean"])
+def test_roi_align_kernel_matches_plain(gen, case, dtype, mean):
+    """Kernel against the plain (JAX) form on the same inputs: f32 within
+    1e-5 of max |feature|; bf16 within ROI_BF16_REL of it (the plain form
+    rounds its weights and its intermediate to bf16, the kernel sums in f32)."""
+    from runia_core_tpu_torch.ops.roi_align import roi_align_nhwc_cuda, roi_align_nhwc_plain
+
+    b, h, w, c, m, img, out = _ROI_CASES[case]
+    fmap = torch.rand((b, h, w, c), generator=gen, device="cuda").to(dtype)
+    boxes = _random_boxes(gen, b * m, size=img * 0.8, lo=1.0, hi=img * 0.5)
+    boxes[0] = torch.tensor([0.0, 0.0, img, img])  # the whole image: the adaptive grid at its cap
+    scale = w / img
+    before = roi_align_nhwc_cuda.launches
+    got = roi_align_nhwc_cuda(fmap, boxes, out, scale, mean=mean)
+    assert roi_align_nhwc_cuda.launches == before + 1
+    assert torch.equal(got, roi_align_nhwc_cuda(fmap, boxes, out, scale, mean=mean))
+    want = roi_align_nhwc_plain(fmap, boxes, out, scale, mean=mean)
+    assert got.shape == want.shape and got.dtype == dtype
+    bound = (1e-5 if dtype == torch.float32 else ROI_BF16_REL) * float(fmap.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= bound
+
+
+ROI_BF16_REL = 1e-2
+
+
+def test_object_scorer_replays_and_yolo_adapter_on_the_card(gen):
+    """build_object_scorer's graph against its eager call (bit for bit) and
+    against the CPU (f32, TF32 off: 1e-4 of max |score|), padded rows -inf;
+    YoloV8JaxAdapter on the card (NMS kernel) against the CPU (plain NMS)."""
+    from runia_core_tpu_torch.detectors import MDLatentSpace
+    from runia_core_tpu_torch.extraction import build_object_scorer, pad_detections
+    from runia_core_tpu_torch.models import ResNet18, YoloV8, YoloV8JaxAdapter, build_tapped_forward
+    from runia_core_tpu_torch.ops.nms import nms_keep_cuda
+    from runia_core_tpu_torch.ops.roi_align import roi_align_nhwc_cuda
+
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(0)
+    dets = []
+    for n in (3, 0, 6, 2):
+        xy = rng.rand(n, 2) * 40
+        dets.append({"boxes": np.concatenate([xy, xy + rng.rand(n, 2) * 20 + 4], 1).astype(np.float32)})
+    card = ResNet18(num_classes=3, num_filters=8)
+    card.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    cpu = ResNet18(num_classes=3, num_filters=8, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    md = MDLatentSpace()
+    md.setup(torch.randn((100, 64), generator=gen, device="cuda"))
+    x = torch.rand((4, 64, 64, 3), generator=gen, device="cuda")
+    scores = {}
+    for name, model, device, graph in (("graph", card, "cuda", True), ("eager", card, "cuda", False),
+                                       ("cpu", cpu, "cpu", False)):
+        scorer = build_object_scorer(build_tapped_forward(model), {k: v.to(device) for k, v in md.state.items()},
+                                     output_sizes=(7,), img_shape=(64, 64), use_graph=graph)
+        padded = pad_detections(dets, 6, (64, 64), device=device)
+        before = roi_align_nhwc_cuda.launches
+        with no_host_sync() if graph else contextlib.nullcontext():
+            scores[name] = [scorer(x.to(device), padded) for _ in range(2)]
+        assert (roi_align_nhwc_cuda.launches > before) == (device == "cuda")
+    assert all(torch.equal(s, scores["eager"][0]) for s in scores["graph"] + scores["eager"])
+    want = scores["cpu"][0]
+    finite = torch.isfinite(want)
+    assert int(finite.sum()) == 3 + 1 + 6 + 2 and torch.equal(torch.isfinite(scores["graph"][0]).cpu(), finite)
+    torch.testing.assert_close(scores["graph"][0].cpu()[finite], want[finite], rtol=0,
+                               atol=1e-4 * float(want[finite].abs().max()))
+
+    yolo = YoloV8(4, "n").init_weights(torch.Generator(device="cuda").manual_seed(1))
+    yolo_cpu = YoloV8(4, "n", device="cpu")
+    yolo_cpu.load_state_dict({k: v.cpu() for k, v in yolo.state_dict().items()})
+    image = torch.rand((64, 64, 3), generator=gen, device="cuda")
+    before = nms_keep_cuda.launches
+    eager = YoloV8JaxAdapter(yolo, fmap_taps=("backbone_p5", "p3"), use_graph=False)(image, 0.3)
+    assert nms_keep_cuda.launches == before + 1
+    adapter = YoloV8JaxAdapter(yolo, fmap_taps=("backbone_p5", "p3"))
+    for _ in range(2):  # the first call captures the adapter's graph, both replay it
+        got = adapter(image, 0.3)
+        np.testing.assert_array_equal(got.boxes, eager.boxes)
+        np.testing.assert_array_equal(got.logits, eager.logits)
+        assert all(torch.equal(g, e) for g, e in zip(got.fmaps, eager.fmaps))
+    assert nms_keep_cuda.launches == before + 1 + 2 + 2  # eager, the capture's two warm-ups, two replays
+    want = YoloV8JaxAdapter(yolo_cpu, fmap_taps=("backbone_p5", "p3"))(image.cpu(), 0.3)
+    assert got.boxes.shape[0] > 0 and got.fmaps[0].is_cuda
+    np.testing.assert_array_equal(got.classes, want.classes)
+    np.testing.assert_allclose(got.boxes, want.boxes, rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(got.logits, want.logits, rtol=1e-4, atol=1e-4)

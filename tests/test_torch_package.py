@@ -42,7 +42,9 @@ from runia_core_tpu_torch.ops.entropy import marginal_entropy
 from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda
 from runia_core_tpu_torch.ops.flash_prefill import flash_prefix_attention
 from runia_core_tpu_torch.ops.mc_entropy_cuda import fused_mc_entropy, mc_dropblock_weights
+from runia_core_tpu_torch.ops.nms import nms_keep_cuda, nms_mask
 from runia_core_tpu_torch.ops.quant_matmul import quant_matmul
+from runia_core_tpu_torch.ops.roi_align import roi_align_nhwc, roi_align_nhwc_cuda
 from runia_core_tpu_torch.training import fit_classifier
 
 torch.set_num_threads(1)
@@ -69,7 +71,12 @@ def test_import_loads_no_jax_or_flax():
             "runia_core_tpu_torch.evaluation.latent_space", "runia_core_tpu_torch.models.quant_vision",
             "runia_core_tpu_torch.checkpoint", "runia_core_tpu_torch.models.torch_convert",
             "runia_core_tpu_torch.models.vit", "runia_core_tpu_torch.training", "runia_core_tpu_torch.config",
-            "runia_core_tpu_torch.version", "runia_core_tpu_torch.import_helper_functions"} <= set(modules)
+            "runia_core_tpu_torch.version", "runia_core_tpu_torch.import_helper_functions",
+            "runia_core_tpu_torch.ops.nms", "runia_core_tpu_torch.ops.roi_align",
+            "runia_core_tpu_torch.extraction.adapters", "runia_core_tpu_torch.extraction.object_level",
+            "runia_core_tpu_torch.extraction.object_level_batched", "runia_core_tpu_torch.models.detection",
+            "runia_core_tpu_torch.models.yolov8", "runia_core_tpu_torch.inference.object_level",
+            "runia_core_tpu_torch.rcnn", "runia_core_tpu_torch.yolov8"} <= set(modules)
     assert out.stdout.strip() == "[]"
 
 
@@ -119,6 +126,27 @@ def test_cpu_calls_take_the_plain_versions_and_launch_nothing():
     assert fused_mc_entropy.launches == 0
     assert quant_matmul.launches == 0
     assert flash_prefix_attention.launches == flash_prefix_attention.kv8_launches == 0
+    boxes = torch.tensor([[0.0, 0.0, 4.0, 4.0], [1.0, 1.0, 5.0, 5.0]])
+    assert nms_mask(boxes, torch.tensor([0.9, 0.8]), 0.1)[1].tolist() == [True, False]
+    assert roi_align_nhwc(fmap, torch.zeros((2, 4)), 2, 1.0, mean=True).shape == (2, 8)
+    assert nms_keep_cuda.launches == roi_align_nhwc_cuda.launches == 0
+
+
+def test_the_object_level_kernels_refuse_what_they_do_not_take():
+    """Shapes outside a kernel's contract raise at the call, before any
+    launch: NMS past MAX_NMS_BOXES boxes, ROIAlign on a map that is not a
+    (B, H, W, C) float32 / bfloat16 one (the wrappers check before they ask
+    for the library, so this holds on a host without a GPU too)."""
+    from runia_core_tpu_torch.ops.nms import MAX_NMS_BOXES
+
+    with pytest.raises(ValueError, match="at most"):
+        nms_keep_cuda(torch.zeros((MAX_NMS_BOXES + 1, 4)), 0.5)
+    with pytest.raises(ValueError, match="float32"):
+        nms_keep_cuda(torch.zeros((3, 4), dtype=torch.float64), 0.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        roi_align_nhwc_cuda(torch.zeros((1, 4, 4, 8), dtype=torch.float16), torch.zeros((1, 4)), 2, 1.0)
+    with pytest.raises(ValueError, match="split evenly"):
+        roi_align_nhwc_cuda(torch.zeros((2, 4, 4, 8)), torch.zeros((3, 4)), 2, 1.0)
 
 
 def test_package_exposes_its_version():
@@ -257,7 +285,35 @@ _ON_CPU = {
         ResNet18(num_classes=3, num_filters=4, cifar_stem=True, device="cpu"), torch.rand(2, 8, 8, 3))(
         torch.rand(1, 8, 8, 3))[1].values()),
     "load_pca": lambda: [checkpoint_load_pca(device="cpu").mean],
+    "SimpleDetector": lambda: list(_detector_models()["SimpleDetector"](device="cpu").parameters()),
+    "YoloV8": lambda: list(_detector_models()["YoloV8"](device="cpu").state_dict().values()),
+    "convert_ultralytics_yolov8": lambda: list(_detector_models()["convert_ultralytics_yolov8"](
+        device="cpu").state_dict().values()),
+    "yolov8_from_flax": lambda: list(_detector_models()["yolov8_from_flax"](device="cpu").values()),
+    "pad_detections": lambda: [_detector_models()["pad_detections"](device="cpu").boxes],
 }
+
+
+def _detector_models():
+    """The object level's constructors and converters, each a call taking ``device``."""
+    from runia_core_tpu_torch.extraction import pad_detections
+    from runia_core_tpu_torch.models import SimpleDetector, YoloV8, convert_ultralytics_yolov8, yolov8_from_flax
+    from runia_core_tpu_torch.models.yolov8 import _ultralytics_names, yolov8_widths
+
+    def ultralytics_sd():
+        state = YoloV8(2, "n", device="cpu").state_dict()
+        return {theirs: state[ours] for ours, theirs in _ultralytics_names(yolov8_widths("n")).items()}
+
+    return {
+        "SimpleDetector": lambda device=None: SimpleDetector(num_classes=2, features=2, device=device),
+        "YoloV8": lambda device=None: YoloV8(2, "n", device=device),
+        "convert_ultralytics_yolov8": lambda device=None: convert_ultralytics_yolov8(ultralytics_sd(), 2, "n",
+                                                                                     device=device),
+        "yolov8_from_flax": lambda device=None: yolov8_from_flax(
+            {"params": {"layer0": {"conv": {"kernel": np.zeros((3, 3, 3, 16), np.float32)}}}}, device=device),
+        "pad_detections": lambda device=None: pad_detections([{"boxes": np.zeros((1, 4))}], 2, (8, 8),
+                                                             device=device),
+    }
 
 
 def checkpoint_load_pca(device=None):
@@ -279,7 +335,8 @@ def test_constructors_and_converters_land_on_the_cpu_when_asked(name):
                                   "detector_state_from_arrays", "resnet_from_flax", "llama_from_flax", "CausalLM",
                                   "NeoXLM", "convert_hf_gpt2", "convert_hf_gpt_neox", "neox_from_flax",
                                   "SimpleConvNet", "ViT", "vit_from_flax", "convert_torch_resnet", "convert_hf_vit",
-                                  "load_pca"])
+                                  "load_pca", "SimpleDetector", "YoloV8", "convert_ultralytics_yolov8",
+                                  "yolov8_from_flax", "pad_detections"])
 def test_the_default_device_is_the_card_and_nothing_falls_back(name):
     """With no ``device`` the constructors and converters go to the GPU: on a
     host without one the first allocation raises; nothing carries on on the
@@ -305,6 +362,7 @@ def test_the_default_device_is_the_card_and_nothing_falls_back(name):
         "convert_torch_resnet": lambda: convert_torch_resnet(_torchvision_sd()),
         "convert_hf_vit": lambda: convert_hf_vit(_hf_vit()),
         "load_pca": lambda: checkpoint_load_pca(),
+        **{name: make for name, make in _detector_models().items()},
     }
     with pytest.raises((RuntimeError, AssertionError)):
         calls[name]()
@@ -342,6 +400,9 @@ def _placement_cases():
     from runia_core_tpu_torch.detectors import DDU, MDLatentSpace, ViM, postprocessors_dict
     from runia_core_tpu_torch.evaluation import calculate_all_baselines, get_dl_h_z, torch_auroc
     from runia_core_tpu_torch.evaluation.entropy import single_image_entropy_calculation
+    from runia_core_tpu_torch.extraction import postprocess_architecture_taps
+    from runia_core_tpu_torch.extraction.object_level import _reduce_features_to_rois
+    from runia_core_tpu_torch.rcnn import MCSamplerRCNN
     from runia_core_tpu_torch.reduction import apply_pca_ds, apply_pca_ds_split
 
     class Cfg:
@@ -374,6 +435,12 @@ def _placement_cases():
                                           final_linear_layer_params={"weight": make(w), "bias": make(w[:, 0])}).NS,
         "calculate_all_baselines": lambda make: baselines(make),
         "torch_auroc": lambda make: torch_auroc(make(x[:, 0]), make(x[:, 1])),
+        "postprocess_architecture_taps": lambda make: postprocess_architecture_taps(
+            "owlv2", [make(rng.rand(1, 5, 3).astype(np.float32))]),
+        "_reduce_features_to_rois": lambda make: list(_reduce_features_to_rois(
+            [make(rng.rand(1, 3, 4, 4).astype(np.float32))], [2], make(np.array([[0, 0, 8, 8]], np.float32)), (8, 8),
+            -1, 1, 1, return_stds=True)),
+        "MCSamplerRCNN": lambda make: MCSamplerRCNN(2, block_size=1)([make(rng.rand(1, 3, 4, 4).astype(np.float32))]),
     }
 
 
