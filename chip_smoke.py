@@ -123,6 +123,19 @@ kernel against its plain PyTorch version on the card. Then, through
   ``backbone_p5`` (ROIAlign kernel) over 32 images -> ``MDLatentSpace`` ->
   ``ObjectLevelInference`` and ``BoxInferenceYolo`` on 16 in-distribution
   and 16 noise images -> the MC-DropBlock route (kernel 1) on 8.
+* DETR and segmentation (``detr_r50_flow``, ``deeplabv3p_r50_seg``): DETR-R50
+  (facebook/detr-resnet-50's config, 91 labels, seeded random weights from a
+  local ``transformers.DetrConfig``) at 800 x 1216, f32: ``convert_hf_detr``
+  -> ``DetrAdapter`` (held to HF's forward and to ``HFDetrAdapter`` on the
+  card) -> ``BoxFeaturesExtractor`` on the backbone map (ROIAlign kernel) and
+  its MC route (kernel 1) over 32 images -> MD and LaREM -> the open-set
+  evaluation (``get_overall_open_set_results``, ``get_gtu_uu_metrics``, the
+  native matcher held to the numpy loops) against a seeded synthetic COCO
+  ground truth; DeepLabV3+-R50 OS16 (VOC defaults, 21 classes) at 512 x 512,
+  f32: ``build_pixel_uncertainty_scorer`` at batch 4 and S = 8 under its
+  graph, then LaREx over the (4, 32, 32, 256) ``pre_pool`` tap
+  (``FastMCDSamplesExtractor`` -> ``get_dl_h_z`` (kernel 1) -> MD ->
+  ``build_larex_scorer`` fused (kernel 2) and two-step (kernel 1)).
 
 Both paths run as the port runs them by default: the LaREx scorer and the
 decode steps as replays of CUDA graphs (``utils/graphs.py``; the JAX
@@ -147,7 +160,8 @@ past the L2, so neither the host nor the cache is in the number. Where one PyTor
 same function (``scaled_dot_product_attention`` for kernel 4), that call's
 time, which the port itself never uses. A kernel's launch count is what the
 main paths launched (the LaREx slice, user flow and evaluation layer, the int8 leg, the
-ViT and the trained model's LaREx, the object scorer and the YOLOv8m flow, the Llama slice,
+ViT and the trained model's LaREx, the object scorer, the YOLOv8m and DETR flows, the
+DeepLab segmentation path, the Llama slice,
 semantic entropy, speculative decoding, the two serving cells and the MoE
 slice, each counted from zero just before it runs), the kernels inside each
 graph replay included.
@@ -163,6 +177,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -284,6 +299,38 @@ OBJ_WINDOWS, OBJ_CALLS = 5, 10  # timed windows of scorer calls, graph and eager
 # card (TF32 off) against CPU, within YOLO_XCHECK_REL of the largest value.
 YOLO_IMG, YOLO_FIT, YOLO_SCORE, YOLO_MC, YOLO_CONF = 640, 32, 16, 8, 0.25
 YOLO_XCHECK_REL = 1e-4
+# DETR-R50 (facebook/detr-resnet-50's config: d_model 256, 8 heads, 6 + 6
+# layers, FFN 2,048, 100 queries, 91 labels, the HF-native ResNet-50
+# backbone), built from a local DetrConfig with random weights from the seed
+# and randomised frozen-BatchNorm statistics, f32: 32 images at 800 x 1216
+# (COCO's short side 800, the long side held to a multiple of 32), a (1, 2048,
+# 25, 38) backbone map and 950 encoder tokens. predict_conf 0.0 keeps all 100
+# queries: with random weights the best class score is near 1 / 92, below the
+# adapter's default 0.25. ROIAlign out 7 on the backbone map, the MC route on
+# every image; MD on the ROI means and LaREM on the MC entropies fitted on the
+# first 16 images; the other 8 in-distribution and 8 noise images scored and
+# evaluated open-set against a seeded synthetic COCO ground truth built around
+# the detections (91 known classes; an unknown class on the noise images).
+# The port's forward against HF's on the card: logits within DETR_LOGITS_REL of
+# their largest magnitude, boxes within DETR_BOXES_ATOL.
+DETR_IMG, DETR_IMAGES, DETR_FIT, DETR_CONF = (800, 1216), 32, 16, 0.0
+DETR_LOGITS_REL, DETR_BOXES_ATOL = 1e-4, 1e-4
+# DeepLabV3+ with the JAX package's defaults, the paper's VOC setting (Chen et
+# al. 2018): 21 classes, ResNet-50 (3, 4, 6, 3) bottleneck, output stride 16,
+# ASPP 256 at rates 6 / 12 / 18, low-level 48, decoder dropout 0.5; seeded
+# lecun-normal kernels and randomised BatchNorm statistics; f32 at 512 x 512.
+# The pixel scorer at batch 4 and S = 8; LaREx over the (4, 32, 32, 256)
+# pre_pool tap: S = 16 DropBlock samples (p 0.5, block 3) of SEG_FIT images
+# in batches of 4, MD, both scorer routes at batch 4. One image's
+# f32 forward, card (TF32 off) against CPU, within SEG_XCHECK_REL of the
+# largest logit.
+SEG_IMG, SEG_BATCH, SEG_PIXEL_MC, SEG_FIT, SEG_XCHECK_REL = 512, 4, 8, 384, 1e-4
+# The fused scorer against the two-step one on the same keep-weights,
+# relative to max |score|: the fused entropies sum each product in another
+# order (within FUSED_RTOL / FUSED_ATOL), and LaREM on the 256 unreduced
+# entropies (no PCA) magnifies that more than FLOW_SCORER_REL allows after
+# PCA-256 (2.5e-5 on an H100 80GB HBM3 at 700 W).
+SEG_ROUTES_REL = 1e-4
 # NMS kernel against plain: random boxes at 640 px, sides 8-200 px.
 NMS_SIZES, NMS_THRESHOLDS = (1000, 8400, 30000), (0.45, 0.7)
 NMS_IOU_OPERATIONS = 13  # f32 operations an IoU and its compare (csrc/nms.cu)
@@ -4857,6 +4904,440 @@ def yolov8m_flow_phase(device, gen, smi: str) -> dict:
     return launches
 
 
+def _synthetic_coco(path, preds: dict, rng, known: bool, num_labels: int) -> str:
+    """A seeded COCO file around the detections. On the first half of the
+    images two objects are detections' boxes jittered by 4 px, so that some
+    detections match them; on the other half two small objects lie in the
+    top-left corner, away from the detections. A known image's objects carry
+    the class its detection scored best (or a random one), a noise image's
+    the one unknown category. A random DETR's queries give nearly the same
+    box, so both halves are needed for TP and FP, GTU and UU detections."""
+    anns = []
+    for n, (im_id, pred) in enumerate(preds.items()):
+        boxes = np.asarray(pred["boxes"], np.float64)
+        classes = np.asarray(pred["logits"]).argmax(1)
+        for j in rng.choice(len(boxes), 2, replace=False):
+            if n < len(preds) // 2:
+                x1, y1, x2, y2 = boxes[j] + rng.normal(0, 4, 4)
+                bbox, cls = [x1, y1, max(x2 - x1, 1.0), max(y2 - y1, 1.0)], int(classes[j])
+            else:
+                bbox, cls = [*rng.uniform(0, 40, 2), *rng.uniform(20, 60, 2)], int(rng.randint(num_labels))
+            anns.append((im_id, cls if known else 0, bbox))
+    coco = {
+        "images": [{"id": im, "file_name": f"{im}.png", "width": DETR_IMG[1], "height": DETR_IMG[0]} for im in preds],
+        "annotations": [{"id": k, "image_id": im, "category_id": cat, "bbox": [float(v) for v in bbox],
+                         "area": float(bbox[2] * bbox[3])} for k, (im, cat, bbox) in enumerate(anns)],
+        "categories": ([{"id": c, "name": f"class{c}"} for c in range(num_labels)] if known
+                       else [{"id": 0, "name": "unknown object"}]),
+    }
+    Path(path).write_text(json.dumps(coco))
+    return str(path)
+
+
+def matcher_against_loops(open_set, evaluator, gt_path: str, is_ood: bool) -> dict:
+    """The native matcher against its plain version (the numpy loops) on
+    every class's detections of a filled evaluator: TP / FP, recall,
+    precision and AP equal, and the unknown-overlap flags."""
+    import copy
+
+    ann = open_set.COCOParser(gt_path)
+    unknown, _ = open_set._gt_records(ann, None, is_ood)
+    dets = tps = 0
+    for cls_id, name in enumerate(evaluator._class_names):
+        lines = evaluator._predictions.get(cls_id)
+        if not lines:
+            continue
+        recs, npos = open_set._gt_records(ann, name, is_ood)
+        ids, _, bb, _ = open_set._parse_prediction_lines(lines)
+        got = open_set._greedy_match(ids, bb, copy.deepcopy(recs), 0.5, npos, False)
+        want = open_set._greedy_match(ids, bb, copy.deepcopy(recs), 0.5, npos, False, native=False)
+        require(all(np.array_equal(np.asarray(g), np.asarray(w)) for g, w in zip(got, want)),
+                f"detr open-set: the native matcher = the numpy loops on class {name}")
+        flags = [open_set._mark_unknown_overlaps(len(ids), ids, bb, unknown, 0.5, native)[2] for native in (True, False)]
+        require(np.array_equal(*flags), f"detr open-set: the native unknown-overlap flags = the loops' on {name}")
+        dets, tps = dets + len(ids), tps + int(got[4][-1])
+    return {"detections": dets, "true_positives": tps}
+
+
+def detr_r50_flow_phase(device, gen, smi: str) -> dict:
+    """Object-level OoD on DETR-R50 @ 800 x 1216 through open-set evaluation
+    (see DETR_*): convert_hf_detr -> DetrAdapter -> BoxFeaturesExtractor on
+    the backbone map (the ROIAlign kernel) and its MC route (kernel 1) ->
+    MD and LaREM -> get_overall_open_set_results (the native matcher) and
+    get_gtu_uu_metrics, counted; then the port against HF, DetrAdapter
+    against HFDetrAdapter, the kernels and the matcher against their plain
+    versions, and the times."""
+    import tempfile
+
+    import transformers
+
+    from runia_core_tpu_torch.detectors import MDLatentSpace
+    from runia_core_tpu_torch.evaluation import get_gtu_uu_metrics, get_overall_open_set_results, open_set
+    from runia_core_tpu_torch.extraction import BoxFeaturesExtractor, HFDetrAdapter
+    from runia_core_tpu_torch.models import DetrAdapter, convert_hf_detr
+    from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda, marginal_entropy_plain
+    from runia_core_tpu_torch.ops.roi_align import roi_align_nhwc_cuda, roi_align_nhwc_plain
+    from runia_core_tpu_torch.sampling import MCSamplerModule
+    from runia_core_tpu_torch.utils import cuda_graph_time_ms, cuda_time_ms
+
+    seconds = {}
+    start = time.perf_counter()
+    cfg = transformers.DetrConfig(
+        use_timm_backbone=False, use_pretrained_backbone=False, num_labels=91,
+        backbone_config=transformers.ResNetConfig(embedding_size=64, hidden_sizes=[256, 512, 1024, 2048],
+                                                  depths=[3, 4, 6, 3], layer_type="bottleneck",
+                                                  out_features=["stage4"]))
+    torch.manual_seed(SEED + 50)
+    hf = transformers.DetrForObjectDetection(cfg).eval()
+    rng = np.random.RandomState(SEED + 51)
+    with torch.no_grad():
+        for name, buf in hf.named_buffers():  # the frozen backbone norms' statistics
+            if name.endswith("running_mean"):
+                buf.copy_(torch.from_numpy(0.1 * rng.randn(*buf.shape).astype(np.float32)))
+            elif name.endswith("running_var"):
+                buf.copy_(torch.from_numpy(rng.rand(*buf.shape).astype(np.float32) + 0.5))
+    params = sum(p.numel() for p in hf.parameters())
+    model, _ = convert_hf_detr(hf)
+    require(model.input_projection.weight.device == device, "detr: the default device is the card")
+    hf_adapter = HFDetrAdapter(hf)  # the HF model on the card
+    adapter = DetrAdapter(model)
+    seconds["build"] = time.perf_counter() - start
+    h, w = DETR_IMG
+    images = [torch.rand((h, w, 3), generator=gen, device=device) * (4.0 if i >= DETR_IMAGES - 8 else 1.0)
+              for i in range(DETR_IMAGES)]
+    splits = {"fit": list(range(DETR_FIT)), "ind": list(range(1000, 1008)), "noise": list(range(2000, 2008))}
+    image_of = dict(zip([i for ids in splits.values() for i in ids], images))
+    adapter(images[0], DETR_CONF)  # cuDNN's autotune for the 800 x 1216 shapes, outside the count
+    torch.cuda.synchronize()
+
+    # ---- the main path, counted ----
+    roi_align_nhwc_cuda.launches = marginal_entropy_cuda.launches = 0
+    start = time.perf_counter()
+    extractor = BoxFeaturesExtractor(adapter, "detr-backbone", roi_output_sizes=[7])
+    mc_extractor = BoxFeaturesExtractor(adapter, "detr-backbone", roi_output_sizes=[7], extract_noise_entropies=True,
+                                        mcd_nro_samples=MC_SAMPLES, dropblock_probs=DROP_PROB,
+                                        dropblock_sizes=BLOCK_SIZE, generator=gen)
+    out, mc_out = {}, {}
+    for split, ids in splits.items():
+        loader = [(f"{split}{i}.png", image_of[i], i) for i in ids]
+        out[split] = extractor.get_ls_samples(loader, predict_conf=DETR_CONF)
+        mc_out[split] = mc_extractor.get_ls_samples(loader, predict_conf=DETR_CONF)
+    torch.cuda.synchronize()
+    seconds["extract_32x2"] = time.perf_counter() - start
+    start = time.perf_counter()
+    rows = {split: {kind: np.concatenate([res[split][i]["latent_space_means"] for i in ids])
+                    for kind, res in (("md", out), ("LaREM", mc_out))} for split, ids in splits.items()}
+    detectors, thresholds, preds = {}, {}, {"ind": {}, "noise": {}}
+    for method in ("md", "LaREM"):
+        detectors[method] = MDLatentSpace()
+        detectors[method].setup(rows["fit"][method])
+        thresholds[method] = float(torch.quantile(detectors[method].postprocess(rows["fit"][method]), 0.05))
+    for split in ("ind", "noise"):
+        scored = {m: detectors[m].postprocess(rows[split][m]).cpu().numpy() for m in detectors}
+        for n, i in enumerate(splits[split]):
+            require(len(out[split][i]["boxes"]) == 100 and len(mc_out[split][i]["boxes"]) == 100,
+                    "detr: predict_conf 0.0 keeps all 100 queries")
+            preds[split][i] = {"boxes": out[split][i]["boxes"], "logits": out[split][i]["logits"],
+                               **{m: scored[m][100 * n:100 * (n + 1)].tolist() for m in scored}}
+    torch.cuda.synchronize()
+    seconds["fit_and_score"] = time.perf_counter() - start
+    with tempfile.TemporaryDirectory() as tmp:
+        grng = np.random.RandomState(SEED + 52)
+        ind_path = _synthetic_coco(Path(tmp) / "ind.json", preds["ind"], grng, True, cfg.num_labels)
+        ood_path = _synthetic_coco(Path(tmp) / "ood.json", preds["noise"], grng, False, cfg.num_labels)
+        osod = dict(ind_dataset_name="ind", ind_gt_annotations_path=ind_path, ind_data_dict={"valid": preds["ind"]},
+                    ood_data_dict={"noise": preds["noise"]}, ood_datasets_names=["noise"],
+                    ood_annotations_paths={"noise": ood_path}, methods_names=["md", "LaREM"], metric_2007=False)
+        for call in ("", "_again"):  # the first builds the native matcher; get_gtu_uu_metrics imports pandas
+            start = time.perf_counter()
+            results = get_overall_open_set_results(**osod, methods_thresholds=thresholds, evaluate_on_ind=True,
+                                                   get_known_classes_metrics=True, is_open_set_model=False)
+            seconds[f"open_set_eval_host{call}"] = time.perf_counter() - start
+            start = time.perf_counter()
+            gtu_uu = get_gtu_uu_metrics(**osod)
+            seconds[f"gtu_uu_host{call}"] = time.perf_counter() - start
+        launches = {"roi_align": roi_align_nhwc_cuda.launches, "marginal_entropy": marginal_entropy_cuda.launches}
+        require(all(n > 0 for n in launches.values()), f"detr: ROIAlign and kernel 1 launched: {launches}")
+        flat = [v for ds in results.values() for m in ds.values() for v in m.values()]
+        require(all(np.isfinite(v) for v in flat) and {"WI", "AOSE", "AP_U", "E_BK"} <= set(results["noise"]["md"]),
+                f"detr: finite open-set metrics {results}")
+        gtu_uu_n = [len(g) for g in open_set.get_boxes_gtu_and_uu_ood_dataset(
+            "ind", ind_path, preds["noise"], "md", ood_path, False, True)]
+        require(min(gtu_uu_n) > 0 and all(np.isfinite(v) for ds in gtu_uu.values() for m in ds.values()
+                                          for g in m.values() for v in g.values()),
+                f"detr: GTU and UU detections ({gtu_uu_n}) and finite AUROCs {gtu_uu}")
+
+        # ---- the native matcher against its plain version ----
+        matcher, eval_host = {}, {}
+        for name, path, data, is_ood in (("ind", ind_path, preds["ind"], False),
+                                         ("noise", ood_path, preds["noise"], True)):
+            evaluators = {}
+            for native in (True, False):
+                ev = open_set.OpenSetEvaluator("ind", ind_path, metric_2007=False, native=native)
+                open_set._fill_evaluator(ev, data, "md", thresholds["md"], False, None, False, None, True)
+                start = time.perf_counter()
+                evaluators[native] = ev.evaluate(path, is_ood=is_ood, get_known_classes_metrics=True)
+                eval_host[f"{name}_{'native' if native else 'numpy_loops'}_s"] = time.perf_counter() - start
+            require(evaluators[True] == evaluators[False], f"detr open-set {name}: native = loops, {evaluators}")
+            matcher[name] = matcher_against_loops(open_set, ev, path, is_ood)
+
+    # ---- the port against HF, the adapters, the kernels ----
+    x = image_of[1000]
+    with torch.inference_mode():
+        ours, taps = model(x[None])
+        theirs = hf(pixel_values=x.permute(2, 0, 1)[None])
+    fmap = taps["backbone_fmap"]
+    require(tuple(fmap.shape) == (1, h // 32, w // 32, 2048) and taps["encoder_tokens"].shape[1:3] == fmap.shape[1:3],
+            f"detr: the (1, 25, 38, 2048) backbone map and 950 encoder tokens: {tuple(fmap.shape)}")
+    logits_rel = float((ours["logits"] - theirs.logits).abs().max() / theirs.logits.abs().max())
+    boxes_abs = float((ours["pred_boxes"] - theirs.pred_boxes).abs().max())
+    require(logits_rel <= DETR_LOGITS_REL and boxes_abs <= DETR_BOXES_ATOL,
+            f"detr: the port's forward against HF's, logits {logits_rel} rel, boxes {boxes_abs}")
+    flips = 0
+    for i in (1000, 1001, 2000, 2001):
+        a, b = adapter(image_of[i], DETR_CONF), hf_adapter(image_of[i], DETR_CONF)
+        agree = {"boxes": np.allclose(a.boxes, b.boxes, rtol=1e-3, atol=1e-3),
+                 "scores": np.allclose(a.scores, b.scores, rtol=1e-4, atol=1e-5),
+                 "features": np.allclose(a.features, b.features, rtol=1e-3, atol=1e-4),
+                 # 50 random bottleneck blocks leave the map in the thousands: 1e-4 of its largest value
+                 "fmaps": _rel(a.fmaps[0], b.fmaps[0]) <= DETR_LOGITS_REL}
+        errs = {k: float(np.abs(np.asarray(getattr(a, k)) - np.asarray(getattr(b, k))).max())
+                for k in ("boxes", "scores", "features")}
+        errs["fmaps"] = _rel(a.fmaps[0], b.fmaps[0])
+        require(a.boxes.shape == b.boxes.shape == (100, 4) and all(agree.values()),
+                f"detr: DetrAdapter = HFDetrAdapter on image {i}: {agree}, max abs errors (fmaps rel) {errs}")
+        rows_ = np.nonzero(a.classes != b.classes)[0]
+        gaps = np.abs(a.logits[rows_, a.classes[rows_]] - a.logits[rows_, b.classes[rows_]])
+        require(bool((gaps <= 1e-4 * np.abs(a.logits).max()).all()), f"detr: classes differ only at near-ties {gaps}")
+        flips += len(rows_)
+    det = adapter(x, DETR_CONF)
+    boxes = torch.from_numpy(det.boxes).to(device)
+    scale = fmap.shape[2] / w
+    roi_err = {}
+    for mean in (True, False):
+        got = roi_align_nhwc_cuda(fmap, boxes, 7, scale, mean=mean)
+        want = roi_align_nhwc_plain(fmap, boxes, 7, scale, mean=mean)
+        roi_err["mean" if mean else "pooled"] = float((got - want).abs().max()) / float(fmap.abs().max())
+    require(max(roi_err.values()) <= ROI_F32_REL, f"detr: ROIAlign kernel vs plain on the backbone map: {roi_err}")
+    with torch.inference_mode():
+        rois = roi_align_nhwc_plain(fmap, boxes, 7, scale)
+        samples = MCSamplerModule(MC_SAMPLES, BLOCK_SIZE, DROP_PROB, generator=gen)(rois)
+    k1_err = float((marginal_entropy_cuda(samples, K) - marginal_entropy_plain(samples, K)).abs().max())
+    require(k1_err <= ENTROPY_ATOL, f"detr: kernel 1 vs plain on the MC route's (100, 16, 2048) samples: {k1_err}")
+
+    # ---- timing ----
+    k1 = timed_cold(lambda c: marginal_entropy_cuda(c, K), lambda c: marginal_entropy_plain(c, K),
+                    cold_copies((samples.contiguous(),), samples.numel() * 4))
+    n_det, dims = samples.shape[0], samples.shape[2]
+    k1.update({"shape": list(samples.shape), **with_share(roofline(
+        4 * (samples.numel() + n_det * dims), n_det * dims * kl_entropy_operations(MC_SAMPLES, K),
+        H100_F32_OPS_PER_S), k1["ms"])})
+    roi = {}
+    for mean in (True, False):
+        times = timed_cold(lambda f, b: roi_align_nhwc_cuda(f, b, 7, scale, mean=mean),
+                           lambda f, b: roi_align_nhwc_plain(f, b, 7, scale, mean=mean),
+                           cold_copies((fmap, boxes), fmap.numel() * 4))
+        roi["mean" if mean else "pooled"] = {"map": list(fmap.shape), "rois": int(boxes.shape[0]), **times,
+                                             **with_share(roi_work(fmap, boxes, 7, scale, mean), times["ms"])}
+    adapter_ips = {}
+    scored = [image_of[i] for i in splits["ind"] + splits["noise"]]
+    for name, run in (("DetrAdapter", adapter), ("HFDetrAdapter", hf_adapter), ("DetrAdapter_again", adapter)):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for x_ in scored:
+            run(x_, DETR_CONF)
+        adapter_ips[name] = len(scored) / (time.perf_counter() - start)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for x_ in scored:
+        res, _ = extractor._get_samples_one_image(x_, DETR_CONF)
+        detectors["md"].postprocess(res["latent_space_means"])
+    torch.cuda.synchronize()
+    det_per_s = 100 * len(scored) / (time.perf_counter() - start)
+    with torch.inference_mode():
+        stage_ms = {"forward_f32": cuda_graph_time_ms(lambda: model(x[None]), 3),
+                    "hf_forward_f32_events": cuda_time_ms(lambda: hf(pixel_values=x.permute(2, 0, 1)[None]), 5)}
+    print(f"detr_r50: adapter img/s {adapter_ips}, scoring {det_per_s:.0f} det/s, stages ms {stage_ms}, "
+          f"open-set host s {seconds['open_set_eval_host']:.3f} ({seconds['open_set_eval_host_again']:.3f} again)",
+          flush=True)
+    emit({"phase": "detr_r50_flow", "card": smi, "img": list(DETR_IMG), "params": params,
+          "backbone_map": list(fmap.shape), "encoder_tokens": int(fmap.shape[1] * fmap.shape[2]),
+          "predict_conf": DETR_CONF, "launches": launches, "seconds": seconds, "thresholds": thresholds,
+          "open_set": results, "gtu_uu_detections": gtu_uu_n,
+          "gtu_uu_auroc": {m: {g: v["auroc"] for g, v in r.items()} for m, r in gtu_uu["noise"].items()},
+          "matcher_vs_loops": matcher, "open_set_eval_host_s": eval_host,
+          "xcheck_hf": {"logits_rel": logits_rel, "boxes_abs": boxes_abs, "bounds": [DETR_LOGITS_REL, DETR_BOXES_ATOL],
+                        "adapter_class_flips_at_near_ties": flips},
+          "roi_align_rel_err": roi_err, "kernel1_max_abs_err": k1_err, "kernel1_timing": k1, "roi_align_timing": roi,
+          "adapter_img_per_s": adapter_ips, "scoring_det_per_s": det_per_s, "stage_ms": stage_ms,
+          "transformers": transformers.__version__})
+    del model, hf, adapter, hf_adapter, extractor, mc_extractor, images, image_of
+    torch.cuda.empty_cache()
+    return launches, {"roi_align": roi, "marginal_entropy": k1}
+
+
+@torch.no_grad()
+def seeded_convs(model, generator: torch.Generator):
+    """Every convolution kernel lecun-normal (std 1 / sqrt(fan_in)) from
+    ``generator``, biases 0, as flax initialises them."""
+    for m in model.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=generator, device=m.weight.device)
+                           / math.sqrt(m.weight[0].numel()))
+            if m.bias is not None:
+                m.bias.zero_()
+    return model
+
+
+def deeplabv3p_r50_seg_phase(device, gen, smi: str) -> dict:
+    """Segmentation uncertainty on DeepLabV3+-R50 OS16 @ 512 x 512 (see
+    SEG_*): (a) build_pixel_uncertainty_scorer under its graph; (b) LaREx over
+    the pre_pool tap: FastMCDSamplesExtractor -> get_dl_h_z (kernel 1) -> MD
+    -> build_larex_scorer with fused=True (kernel 2) and fused=False (kernel
+    1), counted; then replays against eager, the kernels against their plain
+    versions at this tap, the card against the CPU, and the times."""
+    from runia_core_tpu_torch.detectors import MDLatentSpace
+    from runia_core_tpu_torch.evaluation import get_dl_h_z
+    from runia_core_tpu_torch.extraction import FastMCDSamplesExtractor
+    from runia_core_tpu_torch.inference import build_larex_scorer, build_pixel_uncertainty_scorer
+    from runia_core_tpu_torch.models import DeepLabV3Plus, build_tapped_forward
+    from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda, marginal_entropy_plain
+    from runia_core_tpu_torch.ops.mc_entropy_cuda import fused_mc_entropy, fused_mc_entropy_plain, mc_dropblock_weights
+    from runia_core_tpu_torch.utils import cuda_graph_time_ms, cuda_time_ms
+
+    model = DeepLabV3Plus(dropout_rate=0.5)
+    require(model.head.weight.device == device, "deeplab: the default device is the card")
+    seeded_convs(model, torch.Generator(device=device).manual_seed(SEED + 60))
+    randomize_batchnorm(model, torch.Generator(device=device).manual_seed(SEED + 61))
+    model = model.to(memory_format=torch.channels_last)
+
+    def images(n, scale=1.0):
+        return torch.rand((n, SEG_IMG, SEG_IMG, 3), generator=gen, device=device) * scale
+
+    ind, noise = images(SEG_BATCH), images(SEG_BATCH, 4.0)
+    forward = build_tapped_forward(model, ("pre_pool",))
+    with torch.inference_mode():
+        model(ind)  # cuDNN's autotune for the 512 px shapes, outside the count
+    torch.cuda.synchronize()
+
+    # ---- the main path, counted ----
+    marginal_entropy_cuda.launches = fused_mc_entropy.launches = 0
+    seconds = {}
+    start = time.perf_counter()
+    pixel = build_pixel_uncertainty_scorer(model, mc_samples=SEG_PIXEL_MC)
+    maps = []
+    for i, batch in enumerate((ind, noise)):
+        with no_host_sync():  # the first call captures the scorer's graph; both replay it
+            maps.append(pixel(batch, torch.Generator(device=device).manual_seed(SEED + 62 + i)))
+    torch.cuda.synchronize()
+    seconds["pixel_scorer_2_calls"] = time.perf_counter() - start
+    start = time.perf_counter()
+    extractor = FastMCDSamplesExtractor(forward, "Conv", "fullmean", mcd_nro_samples=MC_SAMPLES,
+                                        dropblock_probs=DROP_PROB, dropblock_sizes=BLOCK_SIZE, generator=gen)
+    fit = extractor.get_ls_samples([(images(SEG_BATCH), None) for _ in range(SEG_FIT // SEG_BATCH)])
+    samples = fit["latent_space_means"]
+    _, h_z = get_dl_h_z(samples, MC_SAMPLES)
+    md = MDLatentSpace()
+    md.setup(h_z)
+    torch.cuda.synchronize()
+    seconds["extract_fit"] = time.perf_counter() - start
+    scorers = {route: build_larex_scorer(forward, None, md.state, MC_SAMPLES, DROP_PROB, BLOCK_SIZE,
+                                         fused=route == "fused") for route in ("two_step", "fused")}
+    scores = {}
+    start = time.perf_counter()
+    for route, scorer in scorers.items():
+        scores[route] = []
+        for i, batch in enumerate((ind, noise)):
+            with no_host_sync():
+                scores[route].append(scorer(batch, torch.Generator(device=device).manual_seed(SEED + 64 + i))[1])
+    torch.cuda.synchronize()
+    seconds["larex_scorers_2x2_calls"] = time.perf_counter() - start
+    launches = {"marginal_entropy": marginal_entropy_cuda.launches, "fused_mc_entropy": fused_mc_entropy.launches}
+    require(all(n > 0 for n in launches.values()), f"deeplab: kernels 1 and 2 launched: {launches}")
+    for m in maps:
+        require(all(tuple(m[k].shape) == (SEG_BATCH, SEG_IMG, SEG_IMG) for k in m) and m["pred"].dtype == torch.int32
+                and all(bool(torch.isfinite(m[k]).all()) for k in ("pred_h", "mi", "msp")),
+                "deeplab: finite (4, 512, 512) maps, int32 pred")
+        require(float(m["mi"].min()) > -1e-5 and float(m["mi"].max()) > 1e-4,
+                "deeplab: MI >= 0 up to f32 noise, and the dropout makes the samples disagree")
+    require(all(bool(torch.isfinite(t).all()) for v in scores.values() for t in v), "deeplab: finite LaREx scores")
+
+    # ---- replays against eager, the routes against each other ----
+    eager_pixel = build_pixel_uncertainty_scorer(model, mc_samples=SEG_PIXEL_MC, use_graph=False)
+    pixel_rel = 0.0
+    for i, batch in enumerate((ind, noise)):
+        want = eager_pixel(batch, torch.Generator(device=device).manual_seed(SEED + 62 + i))
+        require(torch.equal(maps[i]["pred"], want["pred"]), "deeplab: the pixel scorer's replay pred = eager's")
+        pixel_rel = max(pixel_rel, *(_rel(maps[i][k], want[k]) for k in ("pred_h", "mi", "msp")))
+    require(pixel_rel <= GRAPH_REL, f"deeplab: the pixel scorer's replay against eager: {pixel_rel}")
+    larex_rel = {}
+    for route in scorers:
+        eager = build_larex_scorer(forward, None, md.state, MC_SAMPLES, DROP_PROB, BLOCK_SIZE,
+                                   fused=route == "fused", use_graph=False)
+        larex_rel[route] = max(_rel(scores[route][i], eager(batch, torch.Generator(device=device).manual_seed(
+            SEED + 64 + i))[1]) for i, batch in enumerate((ind, noise)))
+    larex_rel["fused_vs_two_step"] = max(_rel(f, t) for f, t in zip(scores["fused"], scores["two_step"]))
+    require(max(larex_rel["two_step"], larex_rel["fused"]) <= GRAPH_REL and
+            larex_rel["fused_vs_two_step"] <= SEG_ROUTES_REL, f"deeplab: LaREx scorer replays and routes {larex_rel}")
+
+    # ---- the kernels at this path's shapes, the card against the CPU ----
+    with torch.inference_mode():
+        tap = forward(ind)[1]["pre_pool"].float().contiguous()
+    b, th, tw, c = tap.shape
+    weights = mc_dropblock_weights(b, th, tw, MC_SAMPLES, BLOCK_SIZE, DROP_PROB, gen, device)
+    got, want = fused_mc_entropy(weights, tap, K), fused_mc_entropy_plain(weights, tap, K)
+    k2_err = float((got - want).abs().max())
+    require(bool(((got - want).abs() <= FUSED_ATOL + FUSED_RTOL * want.abs()).all()),
+            f"deeplab: kernel 2 vs plain at the (4, 32, 32, 256) tap: {k2_err}")
+    clouds = samples.reshape(-1, MC_SAMPLES, samples.shape[-1]).contiguous()
+    scorer_clouds = torch.bmm(weights, tap.reshape(b, th * tw, c)) / (th * tw)  # the two-step scorer's (4, 16, 256)
+    k1_err = max(float((marginal_entropy_cuda(x, K) - marginal_entropy_plain(x, K)).abs().max())
+                 for x in (clouds, scorer_clouds))
+    require(k1_err <= ENTROPY_ATOL, f"deeplab: kernel 1 vs plain on get_dl_h_z's and the scorer's clouds: {k1_err}")
+    cpu_model = DeepLabV3Plus(dropout_rate=0.5, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.inference_mode():
+        card_logits = model(ind[:1])[0].cpu()
+        cpu_logits = cpu_model(ind[:1].cpu())[0]
+    xrel = _rel(card_logits, cpu_logits)
+    require(xrel <= SEG_XCHECK_REL, f"deeplab f32 forward card vs CPU: {xrel} of max |logit|")
+    del cpu_model
+
+    # ---- timing ----
+    read = tap.numel() * 4 + weights.numel() * 4
+    k2 = timed_cold(lambda wt, fm: fused_mc_entropy(wt, fm, K), lambda wt, fm: fused_mc_entropy_plain(wt, fm, K),
+                    cold_copies((weights, tap), read))
+    k2.update({"shape": [b, th, tw, c], "samples": MC_SAMPLES, **with_share(roofline(
+        read + 4 * b * c, 2 * b * MC_SAMPLES * th * tw * c + b * c * kl_entropy_operations(MC_SAMPLES, K),
+        H100_F32_OPS_PER_S), k2["ms"])})
+    k1 = timed_cold(lambda x: marginal_entropy_cuda(x, K), lambda x: marginal_entropy_plain(x, K),
+                    cold_copies((clouds,), clouds.numel() * 4))
+    n, d = clouds.shape[0], clouds.shape[2]
+    k1.update({"shape": list(clouds.shape), **with_share(roofline(
+        4 * (clouds.numel() + n * d), n * d * kl_entropy_operations(MC_SAMPLES, K), H100_F32_OPS_PER_S), k1["ms"])})
+    ips = {}
+    for name, fn in (("pixel_graph", lambda: pixel(ind, torch.Generator(device=device).manual_seed(1))),
+                     ("pixel_eager", lambda: eager_pixel(ind, torch.Generator(device=device).manual_seed(1))),
+                     ("larex_two_step_graph", lambda: scorers["two_step"](ind)),
+                     ("larex_fused_graph", lambda: scorers["fused"](ind))):
+        ips[name] = SEG_BATCH / (cuda_time_ms(fn, 3, warmup=1) * 1e-3)
+    with torch.inference_mode():
+        forward_ms = {"batch4_f32": cuda_graph_time_ms(lambda: model(ind), 2),
+                      "batch4_f32_eager_events": cuda_time_ms(lambda: model(ind), 3)}
+    print(f"deeplabv3p_r50: img/s {ips}; forward ms {forward_ms}", flush=True)
+    emit({"phase": "deeplabv3p_r50_seg", "card": smi, "img": SEG_IMG, "batch": SEG_BATCH, "tap": list(tap.shape),
+          "pixel_mc_samples": SEG_PIXEL_MC, "fit_images": SEG_FIT, "launches": launches, "seconds": seconds,
+          "pixel_replay_vs_eager_rel": pixel_rel, "larex_rel": larex_rel,
+          "bounds": {"graph": GRAPH_REL, "fused_vs_two_step": SEG_ROUTES_REL, "card_vs_cpu": SEG_XCHECK_REL},
+          "f32_card_vs_cpu_rel": xrel, "kernel1_max_abs_err": k1_err, "kernel2_max_abs_err": k2_err,
+          "kernel1_timing": k1, "kernel2_timing": k2, "img_per_s": ips, "forward_ms": forward_ms,
+          "mi_max": [float(m["mi"].max()) for m in maps],
+          "score_median": {r: [float(t.median()) for t in v] for r, v in scores.items()}})
+    del model, scorers, pixel, eager_pixel
+    torch.cuda.empty_cache()
+    return launches, {"marginal_entropy": k1, "fused_mc_entropy": k2}
+
+
 def _drop_programs() -> None:
     """Forget every cached decode program (their buffers and graphs)."""
     from runia_core_tpu_torch.llm.generate import _PROGRAM_CACHE
@@ -4925,9 +5406,11 @@ def main() -> None:
     k_roi = timed("kernel_roi_align", roi_align_phase, device, gen)
     objects = timed("object_scorer_rn18", object_scorer_phase, device, gen, smi)
     yolo = timed("yolov8m_flow", yolov8m_flow_phase, device, gen, smi)
+    detr, _ = timed("detr_r50_flow", detr_r50_flow_phase, device, gen, smi)
+    seg, _ = timed("deeplabv3p_r50_seg", deeplabv3p_r50_seg_phase, device, gen, smi)
     launches.update(nms=0, roi_align=0)
     for counts in (flow, evaluation, semantic, speculative, mixed, spec1b, serve7b, spec7b, fused7b, moe, int8_rn18,
-                   vit_b16, train_rn18, objects, yolo):
+                   vit_b16, train_rn18, objects, yolo, detr, seg):
         for name, n in counts.items():
             if name in launches:
                 launches[name] += n

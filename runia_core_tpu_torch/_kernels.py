@@ -8,6 +8,10 @@ The library's name carries a hash of the sources and flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is. Nothing here runs
 at import time: the CPU-only test host imports this module without a GPU or a
 compiler.
+
+The open-set evaluation's native matcher (``csrc/osod_eval.cpp``, a CPython
+extension with no CUDA in it) is built the same way by :func:`osod_matcher`,
+with the host's C++ compiler, on any host.
 """
 
 from __future__ import annotations
@@ -16,14 +20,17 @@ import contextlib
 import ctypes
 import functools
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
+import sys
+import sysconfig
 from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_DIR", "CSRC", "build", "check", "device_guard", "library"]
+__all__ = ["BUILD_DIR", "CSRC", "build", "check", "device_guard", "library", "osod_matcher"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
@@ -131,6 +138,41 @@ def library() -> ctypes.CDLL:
     lib.runia_cuda_error_string.argtypes = [ctypes.c_int]
     lib.runia_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+OSOD_SOURCES = ("osod_eval.cpp", "parallel_util.h")
+
+
+@functools.cache
+def osod_matcher():
+    """The native open-set matcher (``greedy_match``, ``max_overlap_flags``):
+    ``csrc/osod_eval.cpp`` compiled at first use with the host's C++
+    compiler (``$CXX``, else ``g++``) against this Python's headers into
+    ``build/torch_kernels/`` and imported. The file's name carries a hash of
+    the sources, flags and Python; a failed build raises."""
+    digest = hashlib.sha256(" ".join(HOST_FLAGS).encode() + sys.version.encode())
+    for name in OSOD_SOURCES:
+        digest.update((CSRC / name).read_bytes())
+    path = BUILD_DIR / f"runia_osod_{digest.hexdigest()[:16]}{sysconfig.get_config_var('EXT_SUFFIX')}"
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        compiler = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+        if compiler is None:
+            raise RuntimeError("no C++ compiler (looked at $CXX, g++ and c++) to build the open-set matcher")
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        done = subprocess.run(
+            [compiler, *HOST_FLAGS, f"-I{sysconfig.get_paths()['include']}", f"-I{CSRC}",
+             str(CSRC / "osod_eval.cpp"), "-o", str(tmp)],
+            capture_output=True, text=True,
+        )
+        if done.returncode != 0:
+            raise RuntimeError(f"building the open-set matcher failed:\n{done.stdout}{done.stderr}"[-4000:])
+        os.replace(tmp, path)
+    spec = importlib.util.spec_from_file_location("_runia_osod", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def device_guard(device: torch.device):

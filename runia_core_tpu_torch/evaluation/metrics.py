@@ -10,7 +10,8 @@ AUROC as one reduction on the scores' device (the JAX package's
 ``jax_auroc``). pandas builds the results tables and is imported by the
 functions that build them, matplotlib and seaborn by the plots; ``mlflow``
 is optional, as in the JAX package. ``subset_boxes`` and
-``get_gtu_uu_metrics`` belong to the object-level evaluation.
+``get_gtu_uu_metrics`` serve the object-level evaluation
+(``evaluation/open_set.py``): host numpy code, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,12 +29,14 @@ __all__ = [
     "binary_precision_recall_curve",
     "binary_roc",
     "get_auroc_results",
+    "get_gtu_uu_metrics",
     "get_pred_scores_plots",
     "log_evaluate_postprocessors",
     "plot_roc_ood_detector",
     "save_roc_ood_detector",
     "save_scores_plots",
     "select_and_log_best_larex",
+    "subset_boxes",
     "torch_auroc",
 ]
 
@@ -325,3 +328,134 @@ def select_and_log_best_larex(
                 mlflow.log_metric(f"{postprocessor_name}_{short}_std", stds_df.loc[best_index, metric])
         mlflow.log_metric(f"Best {postprocessor_name}", best_n_comps)
     return best_mean["auroc"], best_mean["aupr"], best_mean["fpr@95"], best_n_comps
+
+
+def subset_boxes(
+    ind_dict: Dict[str, np.ndarray],
+    ood_dict: Dict[str, np.ndarray],
+    ind_train_limit: int,
+    ood_limit: int,
+    random_seed: int,
+    ood_names: List[str],
+    non_empty_predictions_id: Optional[Dict[str, List]] = None,
+    non_empty_predictions_ood: Optional[Dict[str, List]] = None,
+):
+    """Random subsetting of extracted boxes for faster eval (metrics.py:465-575).
+
+    Train boxes are subsampled uniformly; the InD valid set is subsampled by
+    whole images (so per-image prediction dicts stay consistent); OoD sets are
+    subsampled uniformly. Host numpy arrays, drawn from numpy's global
+    generator seeded with ``random_seed``: the JAX package's subsets for the
+    same seed.
+    """
+    from collections import Counter
+
+    np.random.seed(random_seed)
+
+    def take(store, split, idx):
+        """Apply one index selection to every array of a split."""
+        for kind in ("latent_space_means", "logits", "features"):
+            key = f"{split} {kind}"
+            if key in store:
+                store[key] = store[key][np.asarray(idx)]
+
+    train_key = "train latent_space_means"
+    if train_key in ind_dict and ind_dict[train_key].shape[0] > ind_train_limit:
+        total = ind_dict[train_key].shape[0]
+        print(f"Subsetting train set to {ind_train_limit} from {total} extracted boxes")
+        take(ind_dict, "train",
+             np.random.choice(total, size=ind_train_limit, replace=False))
+
+    valid_key = "valid latent_space_means"
+    if (
+        valid_key in ind_dict
+        and ind_dict[valid_key].shape[0] > ood_limit
+        and non_empty_predictions_id is not None
+    ):
+        # Pick whole images until ~ood_limit boxes are kept.
+        per_image = Counter(non_empty_predictions_id["valid"])
+        avg_boxes = int(ind_dict[valid_key].shape[0] / len(per_image))
+        kept_images = np.random.choice(
+            list(per_image.keys()), size=int(ood_limit / avg_boxes), replace=False
+        )
+        kept_set = set(np.asarray(kept_images).tolist())
+        chosen = [
+            i for i, im_id in enumerate(non_empty_predictions_id["valid"])
+            if im_id in kept_set
+        ]
+        print(
+            f"Subsetting valid set to {len(chosen)} from "
+            f"{ind_dict[valid_key].shape[0]} extracted boxes"
+        )
+        take(ind_dict, "valid", chosen)
+        if non_empty_predictions_id is not None:
+            non_empty_predictions_id["valid"] = [
+                non_empty_predictions_id["valid"][i] for i in chosen
+            ]
+
+    for name in ood_names:
+        total = ood_dict[f"{name} latent_space_means"].shape[0]
+        if total > ood_limit:
+            print(f"Subsetting {name} to {ood_limit} from {total} extracted boxes")
+            chosen = np.random.choice(total, size=ood_limit, replace=False)
+            take(ood_dict, name, chosen)
+            if non_empty_predictions_ood is not None:
+                non_empty_predictions_ood[name] = [
+                    non_empty_predictions_ood[name][i] for i in chosen
+                ]
+
+    if non_empty_predictions_id is not None and non_empty_predictions_ood is not None:
+        return ind_dict, ood_dict, non_empty_predictions_id, non_empty_predictions_ood
+    return ind_dict, ood_dict
+
+
+def get_gtu_uu_metrics(
+    ind_dataset_name: str,
+    ind_gt_annotations_path: str,
+    ind_data_dict: Dict,
+    ood_data_dict: Dict,
+    ood_datasets_names: List[str],
+    ood_annotations_paths: Dict[str, str],
+    methods_names: List[str],
+    metric_2007: bool,
+    min_conf_score: Optional[float] = None,
+) -> Dict[str, Dict[str, Dict[str, np.ndarray]]]:
+    """AUROC split into GTU (ground-truth unknown) vs UU (unknown unknown)
+    detections (reference metrics.py:578-657): InD valid scores vs the OoD
+    detections grouped by whether they overlap an unknown GT box."""
+    from runia_core_tpu_torch.evaluation.open_set import get_boxes_gtu_and_uu_ood_dataset
+
+    def flat_scores(method):
+        values = [
+            v for pred_dict in ind_data_dict["valid"].values()
+            for v in pred_dict[method]
+        ]
+        return np.array([values]).squeeze()
+
+    def auroc_vs(ind_scores, ood_scores):
+        _, metrics = get_auroc_results(
+            detect_exp_name="", ind_samples_scores=ind_scores,
+            ood_samples_scores=ood_scores, return_results_for_mlflow=True,
+        )
+        return metrics
+
+    id_valid_scores = {method: flat_scores(method) for method in methods_names}
+    results: Dict = {}
+    for ood_name in ood_datasets_names:
+        results[ood_name] = {}
+        for method in methods_names:
+            gtu, uu = get_boxes_gtu_and_uu_ood_dataset(
+                id_dataset_name=ind_dataset_name,
+                id_gt_annotations_path=ind_gt_annotations_path,
+                predictions_dict=ood_data_dict[ood_name],
+                method_name=method,
+                test_gt_annotations_path=ood_annotations_paths[ood_name],
+                metric_2007=metric_2007,
+                evaluating_ood=True,
+                min_conf_score=min_conf_score,
+            )
+            results[ood_name][method] = {
+                "gtu": auroc_vs(id_valid_scores[method], gtu),
+                "uu": auroc_vs(id_valid_scores[method], uu),
+            }
+    return results

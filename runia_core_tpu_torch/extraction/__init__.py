@@ -1,6 +1,7 @@
 """Feature extraction of the PyTorch port: forward-hook taps, the
 image-level MC-dropout extractors, and the object level (detection adapters,
-per-detection ROI features, the batched object scorer)."""
+HF DETR-family adapters, per-detection ROI features, the batched object
+scorer)."""
 
 from runia_core_tpu_torch.extraction.adapters import (
     SUPPORTED_OBJECT_DETECTION_ARCHITECTURES,
@@ -8,6 +9,7 @@ from runia_core_tpu_torch.extraction.adapters import (
     postprocess_architecture_taps,
     yolo_get_logits,
 )
+from runia_core_tpu_torch.extraction.hf_adapters import HFDetrAdapter, cxcywh_to_xyxy
 from runia_core_tpu_torch.extraction.image_level import (
     FastMCDSamplesExtractor,
     ImageLvlFeatureExtractor,
@@ -34,6 +36,7 @@ __all__ = [
     "DetectionResult",
     "Extractor",
     "FastMCDSamplesExtractor",
+    "HFDetrAdapter",
     "Hook",
     "ImageLvlFeatureExtractor",
     "MCDSamplesExtractor",
@@ -43,6 +46,7 @@ __all__ = [
     "associate_precalculated_baselines_with_raw_predictions",
     "batched_roi_features",
     "build_object_scorer",
+    "cxcywh_to_xyxy",
     "deeplabv3p_get_ls_mcd_samples",
     "get_aggregated_data_dict",
     "get_latent_representation_mcd_samples",

@@ -1,4 +1,4 @@
-"""Online inference of the PyTorch port: image level (LaREx / LaRD, the\nscorer) and object level (per-detection scoring)."""
+"""Online inference of the PyTorch port: image level (LaREx / LaRD, the\nscorer), object level (per-detection scoring) and per-pixel segmentation\nuncertainty."""
 
 from runia_core_tpu_torch.detectors.base import (
     OodPostprocessor,
@@ -20,6 +20,7 @@ from runia_core_tpu_torch.inference.object_level import (
     ObjectLevelInference,
     adjust_predictions_faster_rcnn,
 )
+from runia_core_tpu_torch.inference.segmentation import build_pixel_uncertainty_scorer
 
 __all__ = [
     "BoxInferenceYolo",
@@ -33,6 +34,7 @@ __all__ = [
     "ProbabilisticInferenceModule",
     "adjust_predictions_faster_rcnn",
     "build_larex_scorer",
+    "build_pixel_uncertainty_scorer",
     "get_baselines_thresholds",
     "get_method_threshold",
     "record_time",

@@ -9,7 +9,10 @@ flax ResNet ``{"params", "batch_stats"}`` tree onto the ``state_dict`` of
 ``DebertaV2Classifier``, ``CausalLM`` (GPT-2) and ``NeoXLM`` and their
 counterparts in ``models/llama.py``, ``models/deberta.py``,
 ``models/transformer.py`` and ``models/neox.py``; ``vit_from_flax`` for a
-flax ``ViT`` and ``models/vit.py``. The other two helpers turn a
+flax ``ViT`` and ``models/vit.py``; ``deeplab_from_flax``,
+``segmenter_from_flax`` and ``detr_from_flax`` for a flax ``DeepLabV3Plus``,
+``SimpleSegmenter`` and ``DETR`` and ``models/deeplab.py``,
+``models/segmentation.py`` and ``models/detr.py``. The other two helpers turn a
 JAX ``PCAState`` and an MD/KDE detector state into the port's. Nothing here imports JAX:
 leaves only need ``np.asarray``. Every helper makes its tensors on
 ``device``; None is ``runia_core_tpu_torch.default_device()``, the GPU.
@@ -26,8 +29,9 @@ from runia_core_tpu_torch import default_device
 from runia_core_tpu_torch.reduction import PCAState
 
 __all__ = [
-    "causal_lm_from_flax", "deberta_from_flax", "detector_state_from_arrays", "llama_from_flax", "neox_from_flax",
-    "pca_state_from_arrays", "resnet_from_flax", "simple_detector_from_flax", "vit_from_flax", "yolov8_from_flax",
+    "causal_lm_from_flax", "deberta_from_flax", "deeplab_from_flax", "detector_state_from_arrays", "detr_from_flax",
+    "llama_from_flax", "neox_from_flax", "pca_state_from_arrays", "resnet_from_flax", "segmenter_from_flax",
+    "simple_detector_from_flax", "vit_from_flax", "yolov8_from_flax",
 ]
 
 
@@ -138,6 +142,23 @@ neox_from_flax = llama_from_flax
 # rule maps their conv kernels, biases and BatchNorm leaves.
 simple_detector_from_flax = resnet_from_flax
 yolov8_from_flax = resnet_from_flax
+# So do the segmentation models (``backbone``, ``aspp.Conv_i`` / ``image_pool``
+# / ``proj``, ``low_proj``, ``dec1``, ``head``; ``enc1``, ``enc2``, ``aspp``).
+deeplab_from_flax = resnet_from_flax
+segmenter_from_flax = resnet_from_flax
+
+
+def detr_from_flax(variables: Mapping[str, Any], device=None) -> Dict[str, torch.Tensor]:
+    """A flax ``DETR`` ``{"params", "batch_stats"}`` tree (numpy leaves) ->
+    the state_dict of ``models/detr.py::DETR``: the ResNet rule for the
+    backbone, the input projection, the dense kernels ((in, out) -> (out,
+    in)) and the LayerNorms (``scale`` -> ``weight``); the learned
+    ``query_position_embeddings`` (Q, d) as they are."""
+    params = dict(variables["params"])
+    queries = params.pop("query_position_embeddings")
+    state = resnet_from_flax({"params": params, "batch_stats": variables.get("batch_stats", {})}, device)
+    state["query_position_embeddings"] = _tensor(queries, device)
+    return state
 
 
 def pca_state_from_arrays(state, device=None) -> PCAState:

@@ -28,14 +28,16 @@ __all__ = ["JaxDetectorAdapter", "SameConv", "SimpleDetector"]
 
 
 class SameConv(nn.Conv2d):
-    """flax's ``nn.Conv`` with bias and XLA "SAME" padding, over NCHW."""
+    """flax's ``nn.Conv`` with bias and XLA "SAME" padding (``kernel_dilation``
+    as ``dilation``), over NCHW."""
 
-    def __init__(self, in_features: int, features: int, kernel: int, stride: int = 1):
-        super().__init__(in_features, features, kernel, stride, padding=0, bias=True)
+    def __init__(self, in_features: int, features: int, kernel: int, stride: int = 1, dilation: int = 1):
+        super().__init__(in_features, features, kernel, stride, padding=0, dilation=dilation, bias=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        (h_lo, h_hi), (w_lo, w_hi) = (same_padding(size, self.kernel_size[0], self.stride[0]) for size in x.shape[2:])
-        return F.conv2d(F.pad(x, (w_lo, w_hi, h_lo, h_hi)), self.weight, self.bias, self.stride)
+        (h_lo, h_hi), (w_lo, w_hi) = (same_padding(size, self.kernel_size[0], self.stride[0], self.dilation[0])
+                                      for size in x.shape[2:])
+        return F.conv2d(F.pad(x, (w_lo, w_hi, h_lo, h_hi)), self.weight, self.bias, self.stride, 0, self.dilation)
 
 
 class SimpleDetector(nn.Module):

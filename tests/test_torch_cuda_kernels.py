@@ -1326,3 +1326,103 @@ def test_object_scorer_replays_and_yolo_adapter_on_the_card(gen):
     np.testing.assert_array_equal(got.classes, want.classes)
     np.testing.assert_allclose(got.boxes, want.boxes, rtol=1e-4, atol=1e-3)
     np.testing.assert_allclose(got.logits, want.logits, rtol=1e-4, atol=1e-4)
+
+
+# ---- segmentation and DETR on the card, the native open-set matcher ----
+
+
+def test_pixel_scorer_replays_match_eager(gen):
+    """build_pixel_uncertainty_scorer over a small DeepLabV3Plus with decoder
+    dropout: its graph against the eager call on the same generator seed
+    (1e-6 relative, pred equal), a new generator per call replaying one
+    capture, nothing synchronising inside."""
+    from runia_core_tpu_torch.inference import build_pixel_uncertainty_scorer
+    from runia_core_tpu_torch.models import DeepLabV3Plus
+    from runia_core_tpu_torch.models.resnet import ResNetBlock
+
+    torch.backends.cudnn.allow_tf32 = False
+    model = DeepLabV3Plus(num_classes=5, backbone_stages=(1, 1, 1, 1), backbone_block=ResNetBlock, num_filters=8,
+                          aspp_features=16, low_level_features=8, aspp_rates=(2, 4), dropout_rate=0.5)
+    with torch.no_grad():  # tests/test_torch_deeplab.py's random weights: PyTorch's init leaves MI near 1e-5
+        for name, t in model.state_dict().items():
+            if name.endswith("running_var") or (name.endswith("weight") and t.ndim == 1):
+                t.copy_(torch.rand(t.shape, generator=gen, device="cuda") + 0.5)
+            elif name.endswith("running_mean"):
+                t.copy_(0.1 * torch.randn(t.shape, generator=gen, device="cuda"))
+            else:
+                t.copy_(0.2 * torch.randn(t.shape, generator=gen, device="cuda"))
+    graph = build_pixel_uncertainty_scorer(model, mc_samples=4)
+    eager = build_pixel_uncertainty_scorer(model, mc_samples=4, use_graph=False)
+    x = torch.rand((2, 64, 64, 3), generator=gen, device="cuda")
+    captures = None
+    for seed in (1, 2, 3):
+        with no_host_sync():
+            got = graph(x, torch.Generator(device="cuda").manual_seed(seed))
+        want = eager(x, torch.Generator(device="cuda").manual_seed(seed))
+        captures = CudaGraph.captures if captures is None else captures
+        assert torch.equal(got["pred"], want["pred"]) and got["pred"].dtype == torch.int32
+        for name in ("pred_h", "mi", "msp"):
+            torch.testing.assert_close(got[name], want[name], rtol=1e-6, atol=1e-6 * float(want[name].abs().max()))
+        assert float(want["mi"].max()) > 1e-4
+    assert CudaGraph.captures == captures
+
+
+def test_detr_on_the_card_matches_the_cpu(gen):
+    """A small random HF DETR converted onto the card and onto the CPU (f32,
+    TF32 off): logits and boxes within rtol 1e-4; DetrAdapter on the card
+    against HFDetrAdapter on the card (the same detections), its fmap a card
+    tensor."""
+    transformers = pytest.importorskip("transformers")
+    from runia_core_tpu_torch.extraction import HFDetrAdapter
+    from runia_core_tpu_torch.models import DetrAdapter, convert_hf_detr
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = transformers.DetrConfig(
+        use_timm_backbone=False, use_pretrained_backbone=False,
+        backbone_config=transformers.ResNetConfig(embedding_size=8, hidden_sizes=[32, 64], depths=[1, 1],
+                                                  layer_type="bottleneck"),
+        d_model=32, encoder_layers=2, decoder_layers=2, encoder_attention_heads=4, decoder_attention_heads=4,
+        encoder_ffn_dim=64, decoder_ffn_dim=64, num_queries=9, num_labels=5)
+    torch.manual_seed(0)
+    hf = transformers.DetrForObjectDetection(cfg).eval()
+    card, _ = convert_hf_detr(hf)
+    cpu, _ = convert_hf_detr(hf, device="cpu")
+    x = torch.rand((2, 96, 128, 3), generator=gen, device="cuda")
+    with torch.inference_mode():
+        got, taps = card(x)
+        want, _ = cpu(x.cpu())
+    for name in ("logits", "pred_boxes"):
+        torch.testing.assert_close(got[name].cpu(), want[name], rtol=1e-4, atol=1e-5)
+    ours = DetrAdapter(card)(x[0], predict_conf=0.0)
+    theirs = HFDetrAdapter(hf)(x[0].cpu().numpy(), predict_conf=0.0)
+    assert ours.fmaps[0].is_cuda and theirs.fmaps[0].is_cuda and ours.boxes.shape == (9, 4)
+    np.testing.assert_allclose(ours.boxes, theirs.boxes, rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(ours.scores, theirs.scores, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(ours.fmaps[0], theirs.fmaps[0], rtol=1e-3, atol=1e-4)
+
+
+def test_native_open_set_matcher_on_the_card_machine(gen):
+    """The native matcher builds with the host compiler and equals the numpy
+    loops on seeded random problems (missing images, difficult objects)."""
+    from runia_core_tpu_torch import _kernels
+    from runia_core_tpu_torch.evaluation import open_set
+
+    assert _kernels.osod_matcher().__name__ == "_runia_osod"
+    rng = np.random.RandomState(0)
+    recs = {}
+    for i in range(25):
+        n = rng.randint(0, 7)
+        xy, wh = rng.uniform(0, 80, (n, 2)), rng.uniform(4, 40, (n, 2))
+        recs[f"im{i}"] = {"bbox": np.concatenate([xy, xy + wh], 1) if n else np.array([]),
+                          "difficult": rng.rand(n) < 0.15, "det": [False] * n}
+    image_ids = [f"im{rng.randint(25)}" if rng.rand() > 0.05 else "missing" for _ in range(400)]
+    xy, wh = rng.uniform(0, 80, (400, 2)), rng.uniform(4, 40, (400, 2))
+    bb = np.concatenate([xy, xy + wh], 1)
+    npos = int(sum((~r["difficult"]).sum() for r in recs.values()))
+    got = open_set._greedy_match(image_ids, bb, recs, 0.35, npos, False)
+    want = open_set._greedy_match(image_ids, bb, recs, 0.35, npos, False, native=False)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+    got = open_set._mark_unknown_overlaps(400, image_ids, bb, recs, 0.5)
+    want = open_set._mark_unknown_overlaps(400, image_ids, bb, recs, 0.5, native=False)
+    np.testing.assert_array_equal(got[2], want[2])

@@ -76,7 +76,10 @@ def test_import_loads_no_jax_or_flax():
             "runia_core_tpu_torch.extraction.adapters", "runia_core_tpu_torch.extraction.object_level",
             "runia_core_tpu_torch.extraction.object_level_batched", "runia_core_tpu_torch.models.detection",
             "runia_core_tpu_torch.models.yolov8", "runia_core_tpu_torch.inference.object_level",
-            "runia_core_tpu_torch.rcnn", "runia_core_tpu_torch.yolov8"} <= set(modules)
+            "runia_core_tpu_torch.rcnn", "runia_core_tpu_torch.yolov8", "runia_core_tpu_torch.models.detr",
+            "runia_core_tpu_torch.models.deeplab", "runia_core_tpu_torch.models.segmentation",
+            "runia_core_tpu_torch.extraction.hf_adapters", "runia_core_tpu_torch.evaluation.open_set",
+            "runia_core_tpu_torch.inference.segmentation"} <= set(modules)
     assert out.stdout.strip() == "[]"
 
 
@@ -89,8 +92,42 @@ def test_evaluation_exports_every_jax_name_but_subset_boxes_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
                          check=True).stdout.splitlines()
     assert len(jax_names) == 16 and "subset_boxes" in jax_names
-    assert jax_names - {"subset_boxes"} <= set(eval(out[0]))
+    assert jax_names <= set(eval(out[0]))  # subset_boxes came with the object-level evaluation
     assert out[1] == "[]"
+
+
+_NEW_SLICE_NAMES = {
+    "models": ["DETR", "DetrJaxAdapter", "convert_hf_detr", "ASPP", "DeepLabV3Plus", "SimpleSegmenter"],
+    "inference": ["build_pixel_uncertainty_scorer"],
+    "extraction": ["HFDetrAdapter", "cxcywh_to_xyxy"],
+    "evaluation": ["subset_boxes"],
+    "evaluation.open_set": ["COCOParser", "OpenSetEvaluator", "voc_eval", "voc_ap", "get_gtu_uu_per_class",
+                            "convert_xywh_to_xyxy", "evaluate_open_set_detection_one_method",
+                            "get_overall_open_set_results", "convert_osod_results_to_pandas_df",
+                            "convert_osod_results_to_hierarchical_pandas_df",
+                            "convert_osod_results_for_mlflow_logging", "plot_two_osod_datasets_metrics",
+                            "plot_two_osod_datasets_per_metric", "get_boxes_gtu_and_uu_ood_dataset",
+                            "get_labels_and_scores_from_logits", "get_n_unk_ood_dataset"],
+}
+
+
+@pytest.mark.parametrize("package", sorted(_NEW_SLICE_NAMES))
+def test_the_detr_segmentation_and_open_set_names_are_the_jax_packages(package):
+    """Every name the JAX package exports for DETR, DeepLab, segmentation,
+    the HF adapter and the open-set evaluation is exported by the port from
+    the same package, and importing it loads no JAX."""
+    path = REPO / "runia_core_tpu" / Path(*package.split("."))
+    source = (path / "__init__.py" if path.is_dir() else path.with_suffix(".py")).read_text()
+    jax_names = set(re.findall(r'^\s+"(\w+)",$', source.split("__all__")[1], re.M))
+    assert set(_NEW_SLICE_NAMES[package]) <= jax_names
+    code = (f"import sys, runia_core_tpu_torch.{package} as m\n"
+            "print(sorted(m.__all__))\n"
+            "print(sorted(n for n in m.__all__ if not hasattr(m, n)))\n"
+            "print(sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'runia_core_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+                         check=True).stdout.splitlines()
+    assert set(_NEW_SLICE_NAMES[package]) <= set(eval(out[0]))
+    assert out[1:] == ["[]", "[]"]
 
 
 def test_sources_never_import_jax_flax_or_the_jax_package():
@@ -291,7 +328,36 @@ _ON_CPU = {
         device="cpu").state_dict().values()),
     "yolov8_from_flax": lambda: list(_detector_models()["yolov8_from_flax"](device="cpu").values()),
     "pad_detections": lambda: [_detector_models()["pad_detections"](device="cpu").boxes],
+    "DeepLabV3Plus": lambda: list(_segmentation_models()["DeepLabV3Plus"](device="cpu").state_dict().values()),
+    "SimpleSegmenter": lambda: list(_segmentation_models()["SimpleSegmenter"](device="cpu").parameters()),
+    "convert_hf_detr": lambda: list(_segmentation_models()["convert_hf_detr"](device="cpu")[1].values()),
+    "HFDetrAdapter": lambda: list(_segmentation_models()["HFDetrAdapter"](device="cpu").model.parameters()),
 }
+
+
+def _tiny_hf_detr():
+    transformers = pytest.importorskip("transformers")
+    return transformers.DetrForObjectDetection(transformers.DetrConfig(
+        use_timm_backbone=False, use_pretrained_backbone=False,
+        backbone_config=transformers.ResNetConfig(embedding_size=4, hidden_sizes=[16, 32], depths=[1, 1],
+                                                  layer_type="bottleneck"),
+        d_model=8, encoder_layers=1, decoder_layers=1, encoder_attention_heads=2, decoder_attention_heads=2,
+        encoder_ffn_dim=16, decoder_ffn_dim=16, num_queries=3, num_labels=2))
+
+
+def _segmentation_models():
+    """This slice's constructors and converters, each a call taking ``device``."""
+    from runia_core_tpu_torch.extraction import HFDetrAdapter
+    from runia_core_tpu_torch.models import DeepLabV3Plus, SimpleSegmenter, convert_hf_detr
+
+    return {
+        "DeepLabV3Plus": lambda device=None: DeepLabV3Plus(num_classes=2, backbone_stages=(1, 1),
+                                                           backbone_block=ResNetBlock, num_filters=4,
+                                                           aspp_features=4, low_level_features=2, device=device),
+        "SimpleSegmenter": lambda device=None: SimpleSegmenter(num_classes=2, features=2, device=device),
+        "convert_hf_detr": lambda device=None: convert_hf_detr(_tiny_hf_detr(), device=device),
+        "HFDetrAdapter": lambda device=None: HFDetrAdapter(_tiny_hf_detr(), device=device),
+    }
 
 
 def _detector_models():
@@ -336,7 +402,8 @@ def test_constructors_and_converters_land_on_the_cpu_when_asked(name):
                                   "NeoXLM", "convert_hf_gpt2", "convert_hf_gpt_neox", "neox_from_flax",
                                   "SimpleConvNet", "ViT", "vit_from_flax", "convert_torch_resnet", "convert_hf_vit",
                                   "load_pca", "SimpleDetector", "YoloV8", "convert_ultralytics_yolov8",
-                                  "yolov8_from_flax", "pad_detections"])
+                                  "yolov8_from_flax", "pad_detections", "DeepLabV3Plus", "SimpleSegmenter",
+                                  "convert_hf_detr", "HFDetrAdapter"])
 def test_the_default_device_is_the_card_and_nothing_falls_back(name):
     """With no ``device`` the constructors and converters go to the GPU: on a
     host without one the first allocation raises; nothing carries on on the
@@ -363,6 +430,7 @@ def test_the_default_device_is_the_card_and_nothing_falls_back(name):
         "convert_hf_vit": lambda: convert_hf_vit(_hf_vit()),
         "load_pca": lambda: checkpoint_load_pca(),
         **{name: make for name, make in _detector_models().items()},
+        **{name: make for name, make in _segmentation_models().items()},
     }
     with pytest.raises((RuntimeError, AssertionError)):
         calls[name]()
