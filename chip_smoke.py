@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one NVIDIA GPU: LaREx image
-scoring, the Llama LLM-uncertainty slice with semantic entropy on a DeBERTa
-NLI judge, the Mixtral sparse-MoE LlamaLM, and object-level scoring.
+scoring (served over a dataset, and split over a one-process world), the
+Llama LLM-uncertainty slice with semantic entropy on a DeBERTa NLI judge,
+the Mixtral sparse-MoE LlamaLM, and object-level scoring.
 
 Run from the root of a checkout, with no arguments:
 
@@ -136,6 +137,18 @@ kernel against its plain PyTorch version on the card. Then, through
   graph, then LaREx over the (4, 32, 32, 256) ``pre_pool`` tap
   (``FastMCDSamplesExtractor`` -> ``get_dl_h_z`` (kernel 1) -> MD ->
   ``build_larex_scorer`` fused (kernel 2) and two-step (kernel 1)).
+* The dataset scoring service and data parallelism (``score_dataset_rn18``,
+  ``dp_world1``): ``ScoringService.score_dataset`` over 10,000 seeded uint8
+  CIFAR-shaped images (the native gather of ``data.PrefetchLoader`` into
+  pinned memory, 19 batches of 512 and a tail of 272 padded to 512, 8 in
+  flight) into the headline LaREx scorer, both routes under the graph (kernels
+  1 and 2), its outputs equal bit for bit to the scorer called batch by batch
+  with the service's generators and to the numpy gather's run; img/s against
+  the scorer's replay rate and the loader's, and ``device_healthcheck``. Then,
+  in a one-process NCCL world, ``parallel.data_parallel_scorer`` (both
+  routes), ``fit_md_sharded``, the sharded KNN and KDE and one
+  ``sharded_train_step`` of the headline ResNet-18 in f32 against their
+  single-device counterparts, and each one's overhead.
 
 Both paths run as the port runs them by default: the LaREx scorer and the
 decode steps as replays of CUDA graphs (``utils/graphs.py``; the JAX
@@ -161,7 +174,7 @@ same function (``scaled_dot_product_attention`` for kernel 4), that call's
 time, which the port itself never uses. A kernel's launch count is what the
 main paths launched (the LaREx slice, user flow and evaluation layer, the int8 leg, the
 ViT and the trained model's LaREx, the object scorer, the YOLOv8m and DETR flows, the
-DeepLab segmentation path, the Llama slice,
+DeepLab segmentation path, the dataset scoring service and the data-parallel scorer, the Llama slice,
 semantic entropy, speculative decoding, the two serving cells and the MoE
 slice, each counted from zero just before it runs), the kernels inside each
 graph replay included.
@@ -331,6 +344,23 @@ SEG_IMG, SEG_BATCH, SEG_PIXEL_MC, SEG_FIT, SEG_XCHECK_REL = 512, 4, 8, 384, 1e-4
 # entropies (no PCA) magnifies that more than FLOW_SCORER_REL allows after
 # PCA-256 (2.5e-5 on an H100 80GB HBM3 at 700 W).
 SEG_ROUTES_REL = 1e-4
+# The dataset scoring service on the headline scorer (both routes, under its
+# graph): CIFAR-10's test-split size of seeded uint8 32x32x3 images, 19
+# batches of BATCH and a tail of 272 padded to BATCH, a window of 8 batches
+# in flight; the timed runs of the two routes in SERVE_TURNS. The loader
+# alone is timed over the same images, into pinned host memory and to the card.
+SERVE_IMAGES, SERVE_WINDOW = 10_000, 8
+SERVE_TURNS = ("two_step", "fused", "fused", "two_step", "two_step", "fused")
+# The data-parallel helpers in a one-process NCCL world: the sharded LaREM
+# fit against MDLatentSpace on the same rows (means 1e-6; scores within
+# DP_MD_REL of max |score|: E[x x^T] - m m^T against the centred product,
+# through a pseudo-inverse), KNN (k = DP_KNN_K) and KDE against the dense
+# scores (KDE 1e-5 relative), and one sharded SGD step of the headline
+# ResNet-18 in f32 at DP_TRAIN_BATCH images against a plain autograd step
+# (loss 1e-6 relative; each parameter's update within DP_STEP_REL of its
+# largest entry: two runs read 4.5e-5 and 2.1e-5 on an H100 80GB HBM3 at
+# 700 W).
+DP_MD_REL, DP_KNN_K, DP_TRAIN_BATCH, DP_STEP_REL, DP_LR = 1e-3, 50, 128, 2e-4, 0.1
 # NMS kernel against plain: random boxes at 640 px, sides 8-200 px.
 NMS_SIZES, NMS_THRESHOLDS = (1000, 8400, 30000), (0.45, 0.7)
 NMS_IOU_OPERATIONS = 13  # f32 operations an IoU and its compare (csrc/nms.cu)
@@ -5338,6 +5368,233 @@ def deeplabv3p_r50_seg_phase(device, gen, smi: str) -> dict:
     return launches, {"marginal_entropy": k1, "fused_mc_entropy": k2}
 
 
+def score_dataset_rn18_phase(device, gen, smi: str):
+    """``ScoringService.score_dataset`` over SERVE_IMAGES seeded uint8
+    CIFAR-shaped images into the headline LaREx scorer (RN18-CIFAR bf16,
+    batch 512, S = 16, PCA-256, LaREM, under its graph), both routes,
+    counted; the outputs equal the same scorer called batch by batch on the
+    loader's batches with the service's generators, bit for bit, and the
+    numpy gather's run; then img/s against the scorer's replay rate and the
+    loader alone, and ``device_healthcheck``'s latency. Returns the counts
+    and what ``dp_world1`` scores with."""
+    from runia_core_tpu_torch.data import PrefetchLoader, gather_normalize
+    from runia_core_tpu_torch.detectors import MDLatentSpace
+    from runia_core_tpu_torch.inference import ScoringService, build_larex_scorer
+    from runia_core_tpu_torch.models import build_tapped_forward
+    from runia_core_tpu_torch.ops.entropy import marginal_entropy
+    from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda
+    from runia_core_tpu_torch.ops.mc_entropy_cuda import fused_mc_entropy
+    from runia_core_tpu_torch.reduction import apply_pca_ds_split
+    from runia_core_tpu_torch.sampling import mc_dropblock_samples
+    from runia_core_tpu_torch.utils import cuda_time_ms, device_healthcheck, device_profile
+
+    model = build_model(torch.bfloat16)
+    forward = build_tapped_forward(model, ("pre_pool",))
+    fit_images = torch.rand((BATCH, IMG, IMG, 3), generator=gen, device=device)
+    with torch.inference_mode():
+        latent = forward(fit_images)[1]["pre_pool"].to(torch.float32).contiguous()
+    mc = mc_dropblock_samples(latent, MC_SAMPLES, BLOCK_SIZE, DROP_PROB, "Conv", channel_axis=3, generator=gen)
+    h_pca, pca_state = apply_pca_ds_split(marginal_entropy(mc, K), nro_components=PCA_DIMS)
+    larem = MDLatentSpace()
+    larem.setup(h_pca)
+    images_u8 = np.random.RandomState(SEED + 70).randint(0, 256, (SERVE_IMAGES, IMG, IMG, 3), dtype=np.uint8)
+    routes = {route: build_larex_scorer(forward, pca_state, larem.state, MC_SAMPLES, DROP_PROB, BLOCK_SIZE,
+                                        fused=route == "fused") for route in ("two_step", "fused")}
+    services = {route: ScoringService(scorer, seed=SEED + 71, max_in_flight=SERVE_WINDOW)
+                for route, scorer in routes.items()}
+    torch.cuda.synchronize()
+
+    # ---- the main path, counted: a whole dataset through each route ----
+    marginal_entropy_cuda.launches = fused_mc_entropy.launches = 0
+    start = time.perf_counter()
+    served = {route: service.score_dataset(images_u8, BATCH) for route, service in services.items()}
+    first_s = time.perf_counter() - start
+    launches = {"marginal_entropy": marginal_entropy_cuda.launches, "fused_mc_entropy": fused_mc_entropy.launches}
+    require(all(n > 0 for n in launches.values()), f"score_dataset: kernels 1 and 2 launched: {launches}")
+    for route, (logits, scores) in served.items():
+        require(tuple(logits.shape) == (SERVE_IMAGES, NUM_CLASSES) and tuple(scores.shape) == (SERVE_IMAGES,)
+                and logits.device.type == "cpu" and bool(torch.isfinite(scores).all())
+                and bool(torch.isfinite(logits.float()).all()),
+                f"score_dataset {route}: finite ({SERVE_IMAGES},) scores and logits on the host")
+
+    # ---- the same scorer batch by batch, and the numpy gather ----
+    batches = len(PrefetchLoader(images_u8, batch_size=BATCH))
+    for route, scorer in routes.items():
+        parts = []
+        for i, (x, _) in enumerate(PrefetchLoader(images_u8, batch_size=BATCH)):
+            if x.shape[0] < BATCH:
+                x = torch.cat([x, x.new_zeros((BATCH - x.shape[0],) + tuple(x.shape[1:]))])
+            parts.append(scorer(x, services[route].generator_for(i)))
+        direct = [torch.cat([p[j] for p in parts])[:SERVE_IMAGES].cpu() for j in (0, 1)]
+        require(all(torch.equal(a, b) for a, b in zip(served[route], direct)),
+                f"score_dataset {route}: the service's outputs = direct scorer calls, bit for bit")
+    idx = np.random.RandomState(SEED + 72).permutation(SERVE_IMAGES)[:BATCH]
+    require(np.array_equal(gather_normalize(images_u8, idx), gather_normalize(images_u8, idx, native=False)),
+            "score_dataset: the native gather = the numpy one")
+    plain = ScoringService(routes["two_step"], seed=SEED + 71, max_in_flight=SERVE_WINDOW).score_dataset(
+        images_u8, BATCH, native=False)
+    require(all(torch.equal(a, b) for a, b in zip(plain, served["two_step"])),
+            "score_dataset: native=False gives the same outputs")
+
+    # ---- timing: the service per route in turns, the scorer's replay, the loader ----
+    runs = {route: [] for route in routes}
+    for route in SERVE_TURNS:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        services[route].score_dataset(images_u8, BATCH)
+        runs[route].append(time.perf_counter() - start)
+    x = torch.rand((BATCH, IMG, IMG, 3), generator=gen, device=device)
+    replay_ips = {route: BATCH / (cuda_time_ms(lambda: scorer(x, torch.Generator(device=device).manual_seed(1)),
+                                               iters=30, warmup=3) * 1e-3) for route, scorer in routes.items()}
+    loader_s = {}
+    for name, kw in (("host_pinned", {"device": None, "pin_memory": device.type == "cuda"}), ("to_card", {})):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for xb, _ in PrefetchLoader(images_u8, batch_size=BATCH, **kw):
+            pass
+        torch.cuda.synchronize()
+        loader_s[name] = time.perf_counter() - start
+    busy = device_profile(lambda: services["two_step"].score_dataset(images_u8, BATCH), 1)
+    health_s = device_healthcheck()
+    ips = {route: SERVE_IMAGES / statistics.median(t) for route, t in runs.items()}
+    record = {"phase": "score_dataset_rn18", "card": smi, "images": SERVE_IMAGES, "batch": BATCH,
+              "batches": batches, "tail": SERVE_IMAGES - (batches - 1) * BATCH, "window": SERVE_WINDOW,
+              "launches": launches, "first_run_both_routes_s": first_s,
+              "service_img_per_s": ips, "service_runs_s": runs, "scorer_replay_img_per_s": replay_ips,
+              "service_share_of_replay_rate": {r: ips[r] / replay_ips[r] for r in routes},
+              "loader_img_per_s": {k: SERVE_IMAGES / v for k, v in loader_s.items()},
+              "device_busy_share_two_step_run": busy["device_busy_share"],
+              "device_busy_ms_two_step_run": busy["device_busy_ms_per_unit"],
+              "device_time_seen": busy["device_time_seen"], "healthcheck_latency_s": health_s,
+              "bit_equal_to_direct_calls": True, "native_equals_numpy": True}
+    print(f"score_dataset_rn18 ({smi}): service img/s {ips}, scorer replay img/s {replay_ips}, "
+          f"loader img/s {record['loader_img_per_s']}, healthcheck {health_s * 1e3:.3f} ms", flush=True)
+    emit(record)
+    return launches, {"model": model, "forward": forward, "routes": routes, "larem": larem, "h_pca": h_pca}
+
+
+def dp_world1_phase(device, gen, smi: str, served: dict) -> dict:
+    """The data-parallel helpers in a one-process NCCL world (a ``file://``
+    rendezvous in a temporary directory, torn down at the end):
+    ``data_parallel_scorer`` = the single-device scorer (both routes, the
+    same generator state), ``fit_md_sharded`` = ``MDLatentSpace``, the
+    sharded KNN and KDE = the dense ones, one ``sharded_train_step`` = one
+    plain SGD step; then each one's time against the single-device call.
+    One card measures the layer's overhead, not its scaling."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from runia_core_tpu_torch.detectors import MDLatentSpace
+    from runia_core_tpu_torch.detectors.latent import kde_log_density, md_score
+    from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda
+    from runia_core_tpu_torch.ops.knn import squared_l2_kth_neighbor
+    from runia_core_tpu_torch.ops.mc_entropy_cuda import fused_mc_entropy
+    from runia_core_tpu_torch.parallel import (
+        data_parallel_scorer,
+        fit_md_sharded,
+        make_mesh,
+        shard_batch,
+        sharded_kde_log_density,
+        sharded_knn_score,
+        sharded_train_step,
+    )
+
+    def host_ms(fn, iters=10):
+        fn()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - start) * 1e3 / iters
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo", init_method=f"file://{tmp}/rendezvous",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh(1, device_type=device.type)
+            x = torch.rand((BATCH, IMG, IMG, 3), generator=gen, device=device)
+
+            # ---- the main path, counted: the data-parallel scorer, both routes (its split path:
+            # keep-weights drawn outside the scorer, its weights= graph, the all-gather) ----
+            want = {route: scorer(x, torch.Generator(device=device).manual_seed(SEED + 80))
+                    for route, scorer in served["routes"].items()}
+            dp = {route: data_parallel_scorer(scorer, mesh) for route, scorer in served["routes"].items()}
+            marginal_entropy_cuda.launches = fused_mc_entropy.launches = 0
+            got = {route: dp[route](shard_batch(x, mesh), torch.Generator(device=device).manual_seed(SEED + 80))
+                   for route in dp}
+            launches = {"marginal_entropy": marginal_entropy_cuda.launches,
+                        "fused_mc_entropy": fused_mc_entropy.launches}
+            require(all(n > 0 for n in launches.values()), f"dp_world1: kernels 1 and 2 launched: {launches}")
+            for route in dp:
+                require(all(torch.equal(a, b) for a, b in zip(got[route], want[route])),
+                        f"dp_world1 {route}: the data-parallel scorer = the single-device scorer")
+
+            # ---- LaREM, KNN, KDE: sharded against dense ----
+            h = served["h_pca"]
+            state = fit_md_sharded(shard_batch(h, mesh), mesh)
+            dense = MDLatentSpace()
+            dense.setup(h)
+            mean_err = float((state["feats_mean"] - dense.feats_mean.reshape(1, -1)).abs().max())
+            want = dense.postprocess(h)
+            md_rel = float((md_score(h, state["feats_mean"], state["precision"]) - want).abs().max()
+                           / want.abs().max())
+            require(mean_err <= 1e-6 and md_rel <= DP_MD_REL,
+                    f"dp_world1: fit_md_sharded = MDLatentSpace (mean {mean_err}, scores {md_rel})")
+            test, bank = h[: BATCH // 4], h
+            knn_equal = torch.equal(-sharded_knn_score(test, bank, DP_KNN_K), squared_l2_kth_neighbor(test, bank,
+                                                                                                     DP_KNN_K))
+            kde_rel = _rel(sharded_kde_log_density(test, bank, bank.shape[0]), kde_log_density(test, bank))
+            require(knn_equal and kde_rel <= 1e-5, f"dp_world1: KNN equal {knn_equal}, KDE {kde_rel}")
+
+            # ---- one sharded SGD step against a plain one ----
+            model = build_model(torch.float32)
+            images = torch.rand((DP_TRAIN_BATCH, IMG, IMG, 3), generator=gen, device=device)
+            labels = torch.randint(0, NUM_CLASSES, (DP_TRAIN_BATCH,), generator=gen, device=device)
+            step = sharded_train_step(model, make_mesh(1, 1, device_type=device.type), learning_rate=DP_LR)
+            params = step.shard_params(dict(model.named_parameters()))
+            new, loss = step(params, shard_batch(images, mesh), shard_batch(labels, mesh))
+
+            def plain_step():
+                model.zero_grad()
+                with torch.enable_grad():
+                    plain_loss = F.cross_entropy(model(images)[0].float(), labels)
+                    plain_loss.backward()
+                return {n: (p - DP_LR * p.grad).detach() for n, p in model.named_parameters()}, plain_loss.detach()
+
+            plain_new, plain_loss = plain_step()
+            loss_rel = abs(float(loss) - float(plain_loss)) / abs(float(plain_loss))
+            step_rel = max(float((new[n] - plain_new[n]).abs().max()
+                                 / max(float((plain_new[n] - params[n]).abs().max()), 1e-12)) for n in plain_new)
+            require(loss_rel <= 1e-6 and step_rel <= DP_STEP_REL,
+                    f"dp_world1: sharded step = plain step (loss {loss_rel}, updates {step_rel})")
+
+            # ---- overhead against the single-device calls (host clock, synchronised) ----
+            gen_fn = lambda: torch.Generator(device=device).manual_seed(1)  # noqa: E731
+            ms = {
+                "scorer_two_step": (host_ms(lambda: dp["two_step"](x, gen_fn())),
+                                    host_ms(lambda: served["routes"]["two_step"](x, gen_fn()))),
+                "fit_md": (host_ms(lambda: fit_md_sharded(h, mesh)), host_ms(lambda: MDLatentSpace().setup(h))),
+                "knn": (host_ms(lambda: sharded_knn_score(test, bank, DP_KNN_K)),
+                        host_ms(lambda: squared_l2_kth_neighbor(test, bank, DP_KNN_K))),
+                "kde": (host_ms(lambda: sharded_kde_log_density(test, bank, bank.shape[0])),
+                        host_ms(lambda: kde_log_density(test, bank))),
+                "sgd_step": (host_ms(lambda: step(params, images, labels), 5), host_ms(plain_step, 5)),
+            }
+        finally:
+            dist.destroy_process_group()
+    overhead = {name: {"sharded_ms": a, "single_ms": b, "ratio": a / b} for name, (a, b) in ms.items()}
+    print(f"dp_world1 ({smi}): " + ", ".join(f"{k} {v['ratio']:.3f}x" for k, v in overhead.items()), flush=True)
+    emit({"phase": "dp_world1", "card": smi, "backend": "nccl" if device.type == "cuda" else "gloo", "world": 1,
+          "launches": launches, "fit_md_mean_err": mean_err, "fit_md_scores_rel": md_rel, "knn_equal": knn_equal,
+          "kde_rel": kde_rel, "sgd_loss_rel": loss_rel, "sgd_update_rel": step_rel, "overhead": overhead,
+          "bounds": {"md": DP_MD_REL, "update": DP_STEP_REL},
+          "note": "one card: the layer's overhead at world size 1, not scaling"})
+    return launches
+
+
 def _drop_programs() -> None:
     """Forget every cached decode program (their buffers and graphs)."""
     from runia_core_tpu_torch.llm.generate import _PROGRAM_CACHE
@@ -5408,9 +5665,12 @@ def main() -> None:
     yolo = timed("yolov8m_flow", yolov8m_flow_phase, device, gen, smi)
     detr, _ = timed("detr_r50_flow", detr_r50_flow_phase, device, gen, smi)
     seg, _ = timed("deeplabv3p_r50_seg", deeplabv3p_r50_seg_phase, device, gen, smi)
+    dataset, served = timed("score_dataset_rn18", score_dataset_rn18_phase, device, gen, smi)
+    dp_world1 = timed("dp_world1", dp_world1_phase, device, gen, smi, served)
+    del served
     launches.update(nms=0, roi_align=0)
     for counts in (flow, evaluation, semantic, speculative, mixed, spec1b, serve7b, spec7b, fused7b, moe, int8_rn18,
-                   vit_b16, train_rn18, objects, yolo, detr, seg):
+                   vit_b16, train_rn18, objects, yolo, detr, seg, dataset, dp_world1):
         for name, n in counts.items():
             if name in launches:
                 launches[name] += n

@@ -1,4 +1,4 @@
-// Threading helper for the native open-set matcher (osod_eval.cpp).
+// Threading helper for the native host extensions (osod_eval.cpp, dataloader.cpp).
 #ifndef RUNIA_NATIVE_PARALLEL_UTIL_H_
 #define RUNIA_NATIVE_PARALLEL_UTIL_H_
 

@@ -7,15 +7,15 @@ dict of tensors (``state``) that ``load_state`` restores.
 
 from __future__ import annotations
 
-import time
 import warnings
 from abc import ABC, abstractmethod
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from runia_core_tpu_torch.utils.placement import as_tensor
+from runia_core_tpu_torch.utils.profiling import record_time  # noqa: F401  (the JAX package defines it here)
 
 __all__ = [
     "OodPostprocessor",
@@ -47,23 +47,6 @@ def register_postprocessor(postprocessor_name, postprocessor_input: List[str]):
         return cls
 
     return decorator
-
-
-def record_time(function: Callable) -> Callable:
-    """Decorator returning ``(result, seconds)``.
-
-    GPU work is asynchronous, so the clock is read after
-    ``torch.cuda.synchronize()`` when CUDA has been used in this process.
-    """
-
-    def wrapper(*args, **kwargs):
-        start = time.monotonic()
-        result = function(*args, **kwargs)
-        if torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-        return result, time.monotonic() - start
-
-    return wrapper
 
 
 class Postprocessor(ABC):

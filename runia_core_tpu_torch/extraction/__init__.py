@@ -31,6 +31,8 @@ from runia_core_tpu_torch.extraction.utils import (
     get_aggregated_data_dict,
 )
 
+ObjectDetectionExtractor = BoxFeaturesExtractor  # the JAX package's name
+
 __all__ = [
     "BoxFeaturesExtractor",
     "DetectionResult",
@@ -40,6 +42,7 @@ __all__ = [
     "Hook",
     "ImageLvlFeatureExtractor",
     "MCDSamplesExtractor",
+    "ObjectDetectionExtractor",
     "PaddedDetections",
     "SUPPORTED_OBJECT_DETECTION_ARCHITECTURES",
     "apply_dropout",

@@ -31,7 +31,7 @@ On CPU tensors both routes take the kernels' plain versions.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -232,7 +232,10 @@ def build_larex_scorer(
         the JAX package's weights); it is copied into the graph's input. A
         replay draws what the eager call would draw from ``generator`` and
         advances it alike. The results of a replay are copies: a later call
-        does not overwrite them.
+        does not overwrite them. ``score.draw_weights(batch, H, W,
+        generator, device)`` draws the keep-weights a call draws and
+        ``score.tap_size(images)`` gives the tap's (H, W)
+        (``parallel.data_parallel_scorer`` splits a batch with them).
     """
     if detector not in ("MD", "KDE"):
         raise ValueError(f"Unsupported fused detector {detector}")
@@ -302,4 +305,18 @@ def build_larex_scorer(
         own = torch.Generator(device=device)
         return CudaGraph(lambda images: run(images, own), inputs, generators=[own], device=device)
 
+    def draw_weights(batch: int, height: int, width: int, generator: Optional[torch.Generator] = None,
+                     device=None) -> torch.Tensor:
+        """The (batch, S, H*W) keep-weights ``score`` draws from
+        ``generator`` for a batch whose tap is H x W."""
+        return mc_dropblock_weights(batch, height, width, mcd_samples_nro, drop_block_size, drop_block_prob,
+                                    generator, device)
+
+    @torch.inference_mode()
+    def tap_size(images: torch.Tensor) -> Tuple[int, int]:
+        """The (H, W) of the tap ``forward`` gives for ``images``."""
+        latent = forward(images)[1][tap]
+        return tuple(latent.shape[2:4] if channel_axis == 1 else latent.shape[1:3])
+
+    score.draw_weights, score.tap_size = draw_weights, tap_size
     return score

@@ -553,3 +553,109 @@ def test_a_numpy_input_is_not_computed_on_the_cpu_without_a_gpu():
 
     with pytest.raises((RuntimeError, AssertionError)):
         get_dl_h_z(np.zeros((16, 4), np.float32), 8)
+
+
+# Every name a JAX module exports has a counterpart at the same path in the
+# port, under the same name unless it is renamed here.
+_RENAMED = {
+    "jax_auroc": "torch_auroc",
+    "tap_flax_model": "tap_torch_model",
+    "JaxGenerator": "TorchGenerator",
+    "wrap_jax_nli": "wrap_torch_nli",
+    "tpu_profile": "cuda_profile",
+    "marginal_entropy_pallas": "marginal_entropy_cuda",
+}
+# The Pallas kernels' wrappers live beside their CUDA kernels.
+_MODULE_PATHS = {"ops.entropy_pallas": "ops.entropy_cuda", "ops.mc_entropy_pallas": "ops.mc_entropy_cuda"}
+_NO_COUNTERPART = {
+    "enable_compilation_cache": "configures XLA's persistent compilation cache only "
+                                "(runia_core_tpu/utils/profiling.py:31-58); the port compiles no programs",
+    "HAVE_NATIVE": "flags the JAX loader's silent numpy fallback; the port's native= raises where the "
+                   "extension does not build",
+}
+# The model-parallel layer, not ported yet: its modules and the names
+# runia_core_tpu/parallel/__init__.py exports from them.
+_PENDING_MODULES = {"parallel.fsdp", "parallel.llama_tp", "parallel.ring_attention", "parallel.pipeline",
+                    "parallel.moe"}
+_PENDING_NAMES = {"fsdp_shard_params", "fsdp_spec", "fsdp_train_step", "ring_attention", "ring_self_attention",
+                  "MoEParams", "init_moe", "moe_ffn", "sharded_moe_ffn", "pipeline_apply", "llama_tp_specs",
+                  "shard_llama_params"}
+
+
+def _jax_exports():
+    """{module path relative to the package: its ``__all__``}, read from the
+    JAX package's sources with ``ast`` (no JAX import)."""
+    import ast
+
+    root = REPO / "runia_core_tpu"
+    exports = {}
+    for path in sorted(root.rglob("*.py")):
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "__all__" for t in node.targets):
+                parts = path.relative_to(root).with_suffix("").parts
+                exports[".".join(parts[:-1] if parts[-1] == "__init__" else parts)] = ast.literal_eval(node.value)
+    return exports
+
+
+_JAX_EXPORTS = _jax_exports()
+
+
+@pytest.mark.parametrize("module", sorted(_JAX_EXPORTS))
+def test_every_jax_export_exists_in_the_port(module):
+    """Each name in a JAX module's ``__all__`` is an attribute of the port's
+    module at the same path, renamed only as ``_RENAMED`` says; the names
+    without a counterpart say why, and the pending ones are still missing."""
+    import importlib
+
+    if module in _PENDING_MODULES:
+        port = REPO / "runia_core_tpu_torch" / Path(*module.split("."))
+        assert not port.with_suffix(".py").exists(), f"{module} is ported: take it off the pending list"
+        return
+    target = _MODULE_PATHS.get(module, module)
+    port = importlib.import_module("runia_core_tpu_torch" + (f".{target}" if target else ""))
+    names = [n for n in _JAX_EXPORTS[module] if n not in _NO_COUNTERPART]
+    missing = [n for n in names if n not in _PENDING_NAMES and not hasattr(port, _RENAMED.get(n, n))]
+    assert missing == []
+    still_pending = [n for n in names if n in _PENDING_NAMES]
+    assert not any(hasattr(port, n) for n in still_pending), "a pending name is ported: take it off the list"
+
+
+def test_the_pending_list_is_the_model_parallel_layer():
+    assert _PENDING_NAMES <= set(_JAX_EXPORTS["parallel"])
+    assert {f"parallel.{m}" for m in ("fsdp", "llama_tp", "ring_attention", "pipeline", "moe")} == _PENDING_MODULES
+    assert set(_NO_COUNTERPART) <= {n for names in _JAX_EXPORTS.values() for n in names}
+
+
+def test_the_three_aliases_are_the_jax_packages():
+    from runia_core_tpu_torch import extraction, inference, utils
+    from runia_core_tpu_torch.detectors.base import record_time
+
+    assert extraction.ObjectDetectionExtractor is extraction.BoxFeaturesExtractor
+    assert inference.ObjectDetectionInference is inference.ObjectDetectionInferenceBase
+    assert utils.record_time is record_time is inference.record_time
+
+
+def test_the_top_level_package_is_lazy_and_exports_the_jax_names():
+    """``import runia_core_tpu_torch`` loads no sub-package, touches no CUDA
+    and imports neither transformers nor pandas; the JAX package's top-level
+    names (sub-packages, the reference's aliases, the reduction functions)
+    load at first access."""
+    jax_names = set(_JAX_EXPORTS[""])
+    code = (
+        "import sys, torch, runia_core_tpu_torch as r\n"
+        "print(torch.cuda.is_initialized(), sorted(m for m in sys.modules if m.startswith('runia_core_tpu_torch.')))\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('transformers', 'pandas', 'jax')))\n"
+        "print(sorted(n for n in r.__all__ if getattr(r, n, None) is None))\n"
+        "print(r.dimensionality_reduction is r.reduction, r.feature_extraction is r.extraction,"
+        " r.llm_uncertainty is r.llm, r.apply_pca_ds is r.reduction.apply_pca_ds)\n"
+        "print(sorted(r.__all__))\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('transformers', 'pandas', 'jax')))\n"
+        "try:\n    r.no_such_name\nexcept AttributeError as e:\n    print('AttributeError')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+                         check=True).stdout.splitlines()
+    assert out[0] == "False ['runia_core_tpu_torch.version']"
+    assert out[1] == out[2] == "[]"
+    assert out[3] == "True True True True"
+    assert jax_names <= set(eval(out[4])) and "default_device" in eval(out[4])
+    assert out[5] == "[]" and out[6] == "AttributeError"
