@@ -149,6 +149,16 @@ kernel against its plain PyTorch version on the card. Then, through
   routes), ``fit_md_sharded``, the sharded KNN and KDE and one
   ``sharded_train_step`` of the headline ResNet-18 in f32 against their
   single-device counterparts, and each one's overhead.
+* The model-parallel layer (``mp_world1``), in a one-process NCCL world:
+  the production Llama (bf16 ``use_flash`` and int8 + KV8 + fused qkv) made
+  tensor-parallel by ``parallel.shard_llama_params`` and served by
+  ``ContinuousBatchingEngine`` to 8 prompts of 150-300 tokens (kernel 3 for
+  the int8 projections, kernel 4 for the chunked prefills of 128), greedy
+  tokens equal to the unsharded engine's; ``ring_attention`` on (1, 16,
+  4096, 128) bf16 against dense attention; ``sharded_moe_ffn`` at Mixtral's
+  FFN width against ``moe_ffn``; ``pipeline_apply`` against its block; and
+  ``fsdp_train_step`` on the headline ResNet-18 and the Llama cut to 2
+  layers against plain Adam steps; each one's overhead.
 
 Both paths run as the port runs them by default: the LaREx scorer and the
 decode steps as replays of CUDA graphs (``utils/graphs.py``; the JAX
@@ -174,7 +184,8 @@ same function (``scaled_dot_product_attention`` for kernel 4), that call's
 time, which the port itself never uses. A kernel's launch count is what the
 main paths launched (the LaREx slice, user flow and evaluation layer, the int8 leg, the
 ViT and the trained model's LaREx, the object scorer, the YOLOv8m and DETR flows, the
-DeepLab segmentation path, the dataset scoring service and the data-parallel scorer, the Llama slice,
+DeepLab segmentation path, the dataset scoring service and the data-parallel scorer, the tensor-parallel
+serving engine, the Llama slice,
 semantic entropy, speculative decoding, the two serving cells and the MoE
 slice, each counted from zero just before it runs), the kernels inside each
 graph replay included.
@@ -361,6 +372,30 @@ SERVE_TURNS = ("two_step", "fused", "fused", "two_step", "two_step", "fused")
 # largest entry: two runs read 4.5e-5 and 2.1e-5 on an H100 80GB HBM3 at
 # 700 W).
 DP_MD_REL, DP_KNN_K, DP_TRAIN_BATCH, DP_STEP_REL, DP_LR = 1e-3, 50, 128, 2e-4, 0.1
+# The model-parallel layer in a one-process NCCL world (mp_world1). tp +
+# engine: the production Llama at full width (LLM_CFG), bf16 use_flash and
+# int8 + KV8 + fused qkv, made tensor-parallel on a model axis of 1 and
+# served by ContinuousBatchingEngine (chunked prefill of 128: kernel 4) to 8
+# prompts of 150-300 tokens from RandomState(17), 16 greedy tokens each.
+# sp: ring attention on (1, 16, 4096, 128) bf16 against dense causal
+# attention in f32, within MP_RING_REL of max |dense| (the bf16 output's
+# one rounding, 2^-9 relative, twice). ep: sharded_moe_ffn at Mixtral's FFN
+# width (d 4,096, h 14,336, 8 experts, top-2) on 2,048 f32 tokens against
+# moe_ffn, MP_MOE_REL of max (the same einsums at world 1). pp: a one-stage
+# pipeline of x + tanh(x @ w), w (2048, 2048), a (4096, 2048) batch in 8
+# microbatches against the block on the whole batch, MP_PIPE_REL of max
+# (products of 512 rows against 4,096). fsdp: one Adam step (lr MP_LR) of the
+# headline ResNet-18 in f32 on 128 images and of LLM_CFG cut to 2 layers in
+# f32 on (4, 512) tokens, against a plain autograd step of the same
+# arithmetic: loss 1e-6 relative, every update within MP_ADAM_REL of the
+# rate (deterministic cuDNN in the leg).
+MP_TRAFFIC = dict(seed=17, requests=8, prompts=(150, 301), budgets=(16, 17))
+MP_ENGINE = dict(num_slots=8, max_ctx=384, max_new_tokens=16, chunk_tokens=8, prefill_chunk=128)
+MP_RING, MP_RING_REL = (1, 16, 4096, 128), 2**-8
+MP_MOE, MP_MOE_REL = dict(d_model=4096, d_hidden=14336, num_experts=8, top_k=2, tokens=2048), 1e-6
+MP_PIPE, MP_PIPE_REL = dict(d=2048, batch=4096, micro=8), 1e-5
+MP_FSDP_IMAGES, MP_FSDP_LM_LAYERS, MP_FSDP_LM_TOKENS = 128, 2, (4, 512)
+MP_LR, MP_ADAM_REL = 1e-3, 1e-3
 # NMS kernel against plain: random boxes at 640 px, sides 8-200 px.
 NMS_SIZES, NMS_THRESHOLDS = (1000, 8400, 30000), (0.45, 0.7)
 NMS_IOU_OPERATIONS = 13  # f32 operations an IoU and its compare (csrc/nms.cu)
@@ -5473,6 +5508,17 @@ def score_dataset_rn18_phase(device, gen, smi: str):
     return launches, {"model": model, "forward": forward, "routes": routes, "larem": larem, "h_pca": h_pca}
 
 
+def host_ms(fn, iters: int = 10) -> float:
+    """ms a call on the host clock, one warm call first, synchronised."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) * 1e3 / iters
+
+
 def dp_world1_phase(device, gen, smi: str, served: dict) -> dict:
     """The data-parallel helpers in a one-process NCCL world (a ``file://``
     rendezvous in a temporary directory, torn down at the end):
@@ -5500,15 +5546,6 @@ def dp_world1_phase(device, gen, smi: str, served: dict) -> dict:
         sharded_knn_score,
         sharded_train_step,
     )
-
-    def host_ms(fn, iters=10):
-        fn()
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - start) * 1e3 / iters
 
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl" if device.type == "cuda" else "gloo", init_method=f"file://{tmp}/rendezvous",
@@ -5595,6 +5632,217 @@ def dp_world1_phase(device, gen, smi: str, served: dict) -> dict:
     return launches
 
 
+def _adam_update(p, g, lr):
+    """The first step of JAX's bias-corrected Adam (fsdp.py), from zero
+    moments, as ``parallel.fsdp_train_step`` runs it."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    tf = torch.ones((), dtype=torch.float32, device=g.device)
+    m, v = (1 - b1) * g, (1 - b2) * g.square()
+    return p - lr * (m / (1 - b1**tf)) / ((v / (1 - b2**tf)).sqrt() + eps)
+
+
+def mp_world1_phase(device, gen, smi: str) -> dict:
+    """The model-parallel layer in a one-process NCCL world (a ``file://``
+    rendezvous in a temporary directory, torn down at the end), each leg
+    against its unsharded counterpart: ``tp`` + ``engine``, the production
+    Llama (bf16 ``use_flash`` and int8 + KV8 + fused qkv) made
+    tensor-parallel by ``shard_llama_params`` on a ``model`` axis and served
+    by ``ContinuousBatchingEngine`` (the main path, counted: kernel 3 for the
+    int8 projections, kernel 4 for the chunked prefills of 128), greedy
+    tokens equal to the unsharded engine's; ``sp`` ring attention against
+    dense causal attention; ``ep`` the expert-parallel MoE against
+    ``moe_ffn``; ``pp`` a one-stage pipeline against the block; ``fsdp`` an
+    FSDP Adam step of the headline ResNet-18 and of the Llama cut to 2
+    layers against a plain step. Then each leg's time against its
+    counterpart's. One card measures the layer's overhead, not its
+    scaling."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from runia_core_tpu_torch.llm import ContinuousBatchingEngine
+    from runia_core_tpu_torch.models import LlamaLM
+    from runia_core_tpu_torch.parallel import (
+        fsdp_train_step,
+        init_moe,
+        make_mesh,
+        moe_ffn,
+        pipeline_apply,
+        ring_attention,
+        shard_batch,
+        shard_llama_params,
+        sharded_moe_ffn,
+    )
+
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    prompts, budgets = serve_traffic(MP_TRAFFIC, LLM_CFG["vocab_size"])
+    ms, record = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0)
+        try:
+            dist.all_reduce(torch.zeros(1, device=device))  # the communicator, before any capture
+            mesh = make_mesh(1, model_parallel=1, device_type=device.type)
+
+            # ---- tp + engine: the main path, counted ----
+            dense, int8 = build_llms(device, LLM_CFG["num_layers"], torch.bfloat16)
+            engines = {}
+            for name, model in (("bf16", dense), ("int8_kv8", int8)):
+                tp_model = shard_llama_params(sharing(model), mesh)
+                engines[name] = {"unsharded": ContinuousBatchingEngine(model, **MP_ENGINE),
+                                 "tp": ContinuousBatchingEngine(tp_model, **MP_ENGINE)}
+            _zero_counts()
+            served = {}
+            for name in engines:
+                with no_host_sync():
+                    served[name] = serve_pass(engines[name]["tp"], prompts, budgets)
+                check_served(served[name], budgets, f"mp_world1 tp {name}")
+            counted = _counted()
+            launches = {"quant_matmul": counted["quant_matmul"],
+                        "flash_prefix_attention": counted["flash_prefix_attention"]}
+            require(counted["quant_matmul"] > 0 and counted["flash_prefix_attention"] > 0
+                    and counted["flash_prefix_attention_kv8"] > 0,
+                    f"mp_world1: kernels 3 and 4 (bf16 and KV8) launched on the tensor-parallel path: {counted}")
+            for name in engines:
+                with no_host_sync():
+                    want = serve_pass(engines[name]["unsharded"], prompts, budgets)
+                same = [a["tokens"] == b["tokens"] for a, b in zip(served[name], want)]
+                require(all(same), f"mp_world1 tp {name}: the tensor-parallel engine's tokens = the unsharded "
+                                   f"engine's ({sum(same)} of {len(same)} requests)")
+                record[f"tp_{name}_requests_equal"] = sum(same)
+
+            def drain_ms(engine):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                with no_host_sync():
+                    serve_pass(engine, prompts, budgets)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - start) * 1e3
+
+            for name in engines:  # warm drains, in turns: unsharded, tp, tp, unsharded
+                runs = {"tp": [], "unsharded": []}
+                for route in ("unsharded", "tp", "tp", "unsharded"):
+                    runs[route].append(drain_ms(engines[name][route]))
+                ms[f"engine_{name}"] = (min(runs["tp"]), min(runs["unsharded"]))
+            del engines, dense, int8, served
+            _drop_programs()
+            torch.cuda.empty_cache()
+
+            # ---- sp: ring attention against dense causal attention in f32 ----
+            q, k, v = (torch.randn(MP_RING, generator=gen, device=device, dtype=torch.bfloat16) for _ in range(3))
+            seq_mesh = make_mesh(1, axis_names=("seq", "unused"), device_type=device.type)
+
+            def ring():
+                return ring_attention(q, k, v, seq_mesh, seq_axis="seq").full_tensor()
+
+            def dense_attention():
+                logits = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(MP_RING[-1])
+                causal = torch.ones(logits.shape[-2:], dtype=torch.bool, device=device).tril()
+                return torch.softmax(logits.masked_fill(~causal, float("-inf")), dim=-1) @ v.float()
+
+            want = dense_attention()
+            ring_err = float((ring().float() - want).abs().max() / want.abs().max())
+            require(ring_err <= MP_RING_REL, f"mp_world1 sp: ring = dense attention ({ring_err} > {MP_RING_REL})")
+            ms["ring_attention"] = (host_ms(ring, 5), host_ms(dense_attention, 5))
+            del q, k, v, want
+
+            # ---- ep: the expert-parallel MoE against moe_ffn ----
+            moe_gen = torch.Generator(device=device).manual_seed(SEED + 90)
+            params = init_moe(moe_gen, MP_MOE["d_model"], MP_MOE["d_hidden"], MP_MOE["num_experts"])
+            tokens = torch.randn((MP_MOE["tokens"], MP_MOE["d_model"]), generator=moe_gen, device=device)
+
+            def moe_sharded():
+                return sharded_moe_ffn(params, tokens, mesh, top_k=MP_MOE["top_k"]).full_tensor()
+
+            def moe_dense():
+                return moe_ffn(params, tokens, top_k=MP_MOE["top_k"])
+
+            want = moe_dense()
+            moe_err = float((moe_sharded() - want).abs().max() / want.abs().max())
+            require(moe_err <= MP_MOE_REL, f"mp_world1 ep: sharded = unsharded MoE ({moe_err} > {MP_MOE_REL})")
+            ms["moe"] = (host_ms(moe_sharded, 5), host_ms(moe_dense, 5))
+            del params, tokens, want
+
+            # ---- pp: a one-stage pipeline against the block ----
+            w = torch.randn((1, MP_PIPE["d"], MP_PIPE["d"]), generator=gen, device=device) / math.sqrt(MP_PIPE["d"])
+            x = torch.randn((MP_PIPE["batch"], MP_PIPE["d"]), generator=gen, device=device)
+
+            def block(wi, h):
+                return h + torch.tanh(h @ wi)
+
+            def piped():
+                return pipeline_apply(block, w, x, mesh, MP_PIPE["micro"])
+
+            want = block(w[0], x)
+            pipe_err = float((piped() - want).abs().max() / want.abs().max())
+            require(pipe_err <= MP_PIPE_REL, f"mp_world1 pp: pipeline = the block ({pipe_err} > {MP_PIPE_REL})")
+            ms["pipeline"] = (host_ms(piped, 5), host_ms(lambda: block(w[0], x), 5))
+            del w, x, want
+
+            # ---- fsdp: one Adam step of the ResNet-18 and of the 2-layer Llama against plain steps ----
+            fsdp = {}
+            resnet = build_model(torch.float32)
+            images = torch.rand((MP_FSDP_IMAGES, IMG, IMG, 3), generator=gen, device=device)
+            labels = torch.randint(0, NUM_CLASSES, (MP_FSDP_IMAGES,), generator=gen, device=device)
+            lm = LlamaLM(**dict(LLM_CFG, num_layers=MP_FSDP_LM_LAYERS)).eval()
+            lm.init_weights(torch.Generator(device=device).manual_seed(SEED + 91))
+            lm_tokens = torch.randint(1, LLM_CFG["vocab_size"], MP_FSDP_LM_TOKENS, generator=gen, device=device)
+
+            def lm_loss(out, tgt):
+                logp = F.log_softmax(out[0][:, :-1].float(), dim=-1)
+                return -logp.gather(2, tgt[:, 1:, None]).mean()
+
+            legs = {
+                "resnet18": (resnet, "classifier", images, labels,
+                             lambda: F.cross_entropy(resnet(images)[0].float(), labels)),
+                "llama_2l": (lm, "causal_lm", lm_tokens, lm_tokens,
+                             lambda: lm_loss(lm.differentiable_forward(lm_tokens, need_attentions=False,
+                                                                       need_hiddens=False), lm_tokens)),
+            }
+            with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+                for name, (model, task, inputs, targets, plain_loss) in legs.items():
+                    step = fsdp_train_step(model, mesh, learning_rate=MP_LR, task=task)
+                    params = step.shard_params(dict(model.named_parameters()))
+                    opt = step.init_opt(params)
+                    new, _, loss = step(params, opt, shard_batch(inputs, mesh), shard_batch(targets, mesh))
+                    frozen = {n: p.requires_grad for n, p in model.named_parameters()}
+
+                    def plain_step():
+                        leaves = list(model.parameters())
+                        for p in leaves:
+                            p.requires_grad_(True)
+                        try:
+                            with torch.enable_grad():
+                                value = plain_loss()
+                                grads = torch.autograd.grad(value, leaves)
+                        finally:
+                            for (n, p) in model.named_parameters():
+                                p.requires_grad_(frozen[n])
+                        return ({n: _adam_update(p.detach(), g, MP_LR) for (n, p), g in
+                                 zip(model.named_parameters(), grads)}, value.detach())
+
+                    plain_new, plain_value = plain_step()
+                    loss_rel = abs(float(loss) - float(plain_value)) / abs(float(plain_value))
+                    update_err = max(float((new[n].full_tensor() - plain_new[n]).abs().max()) for n in plain_new)
+                    sharded = sum(1 for p in new.values() if "Shard" in str(p.placements))
+                    require(loss_rel <= 1e-6 and update_err <= MP_ADAM_REL * MP_LR,
+                            f"mp_world1 fsdp {name}: FSDP step = plain Adam step (loss {loss_rel}, "
+                            f"updates {update_err} > {MP_ADAM_REL * MP_LR})")
+                    fsdp[name] = {"loss_rel": loss_rel, "update_max_abs_err": update_err, "sharded_leaves": sharded}
+                    ms[f"fsdp_{name}"] = (host_ms(lambda: step(params, opt, inputs, targets), 3),
+                                          host_ms(plain_step, 3))
+            record["fsdp"] = fsdp
+        finally:
+            dist.destroy_process_group()
+    overhead = {name: {"sharded_ms": a, "single_ms": b, "ratio": a / b} for name, (a, b) in ms.items()}
+    print(f"mp_world1 ({smi}): " + ", ".join(f"{k} {v['ratio']:.3f}x" for k, v in overhead.items()), flush=True)
+    emit({"phase": "mp_world1", "card": smi, "backend": backend, "world": 1, "launches": counted,
+          **record, "ring_rel": ring_err, "moe_rel": moe_err, "pipeline_rel": pipe_err, "overhead": overhead,
+          "bounds": {"ring": MP_RING_REL, "moe": MP_MOE_REL, "pipeline": MP_PIPE_REL, "adam": MP_ADAM_REL * MP_LR},
+          "note": "one card: the layer's overhead at world size 1, not scaling"})
+    return launches
+
+
 def _drop_programs() -> None:
     """Forget every cached decode program (their buffers and graphs)."""
     from runia_core_tpu_torch.llm.generate import _PROGRAM_CACHE
@@ -5668,9 +5916,11 @@ def main() -> None:
     dataset, served = timed("score_dataset_rn18", score_dataset_rn18_phase, device, gen, smi)
     dp_world1 = timed("dp_world1", dp_world1_phase, device, gen, smi, served)
     del served
+    torch.cuda.empty_cache()
+    mp_world1 = timed("mp_world1", mp_world1_phase, device, gen, smi)
     launches.update(nms=0, roi_align=0)
     for counts in (flow, evaluation, semantic, speculative, mixed, spec1b, serve7b, spec7b, fused7b, moe, int8_rn18,
-                   vit_b16, train_rn18, objects, yolo, detr, seg, dataset, dp_world1):
+                   vit_b16, train_rn18, objects, yolo, detr, seg, dataset, dp_world1, mp_world1):
         for name, n in counts.items():
             if name in launches:
                 launches[name] += n

@@ -46,6 +46,12 @@ its CUDA kernel for a CUDA tensor and runs its plain twin for a CPU one):
 
 ``convert_hf_llama``, ``convert_hf_gemma`` and ``convert_hf_mixtral`` map a
 ``transformers`` checkpoint onto (LlamaLM, state_dict) without JAX.
+
+``parallel/llama_tp.py::shard_llama_params`` makes a model tensor-parallel
+in place: it cuts the parameters to the rank's share and sets ``tp`` on the
+model and its blocks (None otherwise), the seam through which the forward
+reaches the model axis's collectives (the vocab-sharded lookup, one
+all-reduce after o and after down, the gathered logits and attentions).
 """
 
 from __future__ import annotations
@@ -167,6 +173,7 @@ class _LlamaBlock(nn.Module):
         self.fused = cfg.quantized and cfg.fused_qkv
         self.quantized = cfg.quantized
         self.num_experts, self.top_k = cfg.num_experts, cfg.num_experts_per_tok
+        self.tp = None  # parallel.llama_tp.TensorParallel: num_heads / num_kv_heads are then the rank's
         d, hidden = cfg.d_model, cfg.hidden_dim
         nq, nkv = self.num_heads * self.head_dim, self.num_kv_heads * self.head_dim
         dense = QDense if cfg.quantized else Dense
@@ -203,7 +210,12 @@ class _LlamaBlock(nn.Module):
         hd, nh, ng = self.head_dim, self.num_heads, self.num_kv_heads
         h = self.input_norm(x.to(torch.float32)).to(self.dtype)
         if self.fused:
-            q, k, v = torch.split(self.qkv(h), [nh * hd, ng * hd, ng * hd], dim=-1)
+            # Under tensor parallelism qkv stays whole (JAX's rules do not
+            # name it): the product is computed whole and cut to the rank's heads.
+            n = 1 if self.tp is None else self.tp.size
+            q, k, v = torch.split(self.qkv(h), [n * nh * hd, n * ng * hd, n * ng * hd], dim=-1)
+            if self.tp is not None:
+                q, k, v = (self.tp.columns(part) for part in (q, k, v))
         else:
             q, k, v = self.q(h), self.k(h), self.v(h)
         q = _apply_rope(q.reshape(b, t, nh, hd), cos, sin).to(self.dtype)
@@ -242,16 +254,23 @@ class _LlamaBlock(nn.Module):
             out = ctx.transpose(1, 2).reshape(b, t, nh * hd)
         else:
             out, attn = self._dense_attention(q, k_src, v_src, kv_scales, mask)
-        x = x + self.o(out)
+        x = x + self._reduce(self.o(out))
 
         h2 = self.post_attn_norm(x.to(torch.float32)).to(self.dtype)
         if self.num_experts:
             return x + self._moe_ffn(h2), (attn if need_attn else None)
         if self.fused:
             gate, up = torch.chunk(self.gateup(h2), 2, dim=-1)
+            if self.tp is not None:
+                gate, up = self.tp.columns(gate), self.tp.columns(up)
         else:
             gate, up = self.gate(h2), self.up(h2)
-        return x + self.down(self._act(gate) * up), (attn if need_attn else None)
+        return x + self._reduce(self.down(self._act(gate) * up)), (attn if need_attn else None)
+
+    def _reduce(self, partial: torch.Tensor) -> torch.Tensor:
+        """A row-parallel product's sum over the model axis (itself
+        unsharded)."""
+        return partial if self.tp is None else self.tp.reduce(partial)
 
     def _act(self, gate: torch.Tensor) -> torch.Tensor:
         if self.mlp_act == "silu":
@@ -281,7 +300,7 @@ class _LlamaBlock(nn.Module):
         for e in range(self.num_experts):
             y = self._expert("w_down", e, self._act(self._expert("w_gate", e, flat)) * self._expert("w_up", e, flat))
             out += y.to(torch.float32) * gates[:, e, None].to(torch.float32)
-        return out.to(self.dtype).reshape(b, t, d)
+        return self._reduce(out).to(self.dtype).reshape(b, t, d)
 
     def _dense_attention(self, q, k_src, v_src, kv_scales, mask):
         """Masked softmax attention of q (B, t, H, d) over k/v (B, K, G, d);
@@ -352,6 +371,7 @@ class LlamaLM(nn.Module):
         self.attn_bias, self.sliding_window = attn_bias, sliding_window
         self.embed_scale, self.mlp_act = embed_scale, mlp_act
         self.num_experts, self.num_experts_per_tok = num_experts, num_experts_per_tok
+        self.tp = None  # set by parallel.llama_tp.shard_llama_params
         device = default_device() if device is None else torch.device(device)
         if use_flash and device.type == "cuda" and self.head_dim not in _FLASH_HEAD_DIMS:
             raise ValueError(f"use_flash on {device}: the flash kernel takes heads of {_FLASH_HEAD_DIMS}, "
@@ -451,7 +471,10 @@ class LlamaLM(nn.Module):
             mask = mask & (delta < int(self.sliding_window))
 
         cos, sin = _rope_cos_sin(positions, self.head_dim, self.rope_theta)
-        x = self.embed.embedding[tokens].to(self.dtype)
+        if self.tp is None:
+            x = self.embed.embedding[tokens].to(self.dtype)
+        else:
+            x = self.tp.embed(self.embed.embedding, tokens).to(self.dtype)
         if self.embed_scale:
             x = x * self.embed_multiplier
         hiddens = [x] if need_hiddens else None
@@ -472,12 +495,22 @@ class LlamaLM(nn.Module):
             logits = head_in @ self.embed.embedding.to(self.dtype).T
         else:
             logits = self.lm_head(head_in)
+        attentions = torch.stack(attns) if need_attentions else None
+        if self.tp is not None:
+            # Whole logits and heads, as JAX's global arrays are.
+            logits = self.tp.gather(logits, -1)
+            attentions = None if attentions is None else self.tp.gather(attentions, 2)
         return (
             logits.to(torch.float32),
-            torch.stack(attns) if need_attentions else None,
+            attentions,
             torch.stack(hiddens).to(torch.float32) if need_hiddens else None,
             cache,
         )
+
+    # The forward without ``no_grad``, for a training step that substitutes
+    # parameters which require grad (``parallel/fsdp.py``); inference keeps
+    # the decorated forward.
+    differentiable_forward = forward.__wrapped__
 
 
 _QUANT_KERNELS = ("q", "k", "v", "o", "gate", "up", "down", "lm_head")

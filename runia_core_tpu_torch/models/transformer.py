@@ -29,9 +29,9 @@ not know the positions of a replayed step). ``TorchGenerator`` and
 ``max_len``.
 
 ``num_experts > 0`` swaps every block's MLP for JAX's top-2 MoE FFN with
-capacity routing (a copy of ``runia_core_tpu/parallel/moe.py::
-_dispatch_combine``: ranks in token order, tokens past an expert's capacity
-dropped into a spill column, the top-k weights renormalised). Capacity is
+capacity routing (``parallel/moe.py::_dispatch_combine``, the expert-parallel
+layer's: ranks in token order, tokens past an expert's capacity dropped
+into a spill column, the top-k weights renormalised). Capacity is
 computed per forward call, so prefill and decode agree only where nothing
 overflows, as in JAX.
 """
@@ -130,35 +130,6 @@ def position_embed(table: torch.Tensor, positions: torch.Tensor) -> torch.Tensor
     return torch.where((positions < n)[..., None], rows, torch.full_like(rows, float("nan")))
 
 
-def _dispatch_combine(gate_logits: torch.Tensor, capacity: int, top_k: int):
-    """(T, E, C) dispatch mask and combine weights from (T, E) gate logits:
-    a copy of the JAX ``parallel/moe.py::_dispatch_combine``. A token's slot
-    in an expert is its rank among the tokens routed there, in token order,
-    the first choices of all tokens before the second; a rank at or past
-    ``capacity`` lands in the spill column and is dropped."""
-    t, e = gate_logits.shape
-    dtype, dev = gate_logits.dtype, gate_logits.device
-    probs = torch.softmax(gate_logits, dim=-1)
-    top_p, top_idx = torch.topk(probs, top_k, dim=-1)
-    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
-    dispatch = torch.zeros((t, e, capacity), dtype=dtype, device=dev)
-    combine = torch.zeros((t, e, capacity), dtype=dtype, device=dev)
-    used = torch.zeros((e,), dtype=torch.int64, device=dev)
-    experts, slots = torch.arange(e, device=dev), torch.arange(capacity + 1, device=dev)
-    for choice in range(top_k):
-        idx = top_idx[:, choice]
-        onehot = (idx[:, None] == experts).to(torch.int64)  # (T, E); no host check, unlike F.one_hot
-        pos = torch.cumsum(onehot, dim=0) - 1 + used[None, :]
-        my_pos = pos.gather(1, idx[:, None])[:, 0]
-        spill = torch.where(my_pos < capacity, my_pos, torch.full_like(my_pos, capacity))
-        slot = (spill[:, None] == slots).to(dtype)[:, :capacity]
-        sel = onehot.to(dtype)[:, :, None] * slot[:, None, :]
-        dispatch = dispatch + sel
-        combine = combine + sel * top_p[:, choice][:, None, None]
-        used = used + onehot.sum(dim=0)
-    return dispatch, combine
-
-
 class Block(nn.Module):
     """The JAX pre-LN ``Block``: LayerNorm, q/k/v/attn_out with biases,
     LayerNorm, then the tanh-GELU MLP (``Dense_0``, ``mlp_out``) or the
@@ -196,6 +167,8 @@ class Block(nn.Module):
         return x + self.mlp_out(nn.functional.gelu(self.Dense_0(h2), approximate="tanh")), attn
 
     def _moe_ffn(self, h: torch.Tensor) -> torch.Tensor:
+        from runia_core_tpu_torch.parallel.moe import _dispatch_combine  # the routing of the expert-parallel layer
+
         b, t, d = h.shape
         e = self.num_experts
         flat = h.reshape(b * t, d)
@@ -314,12 +287,16 @@ def init_cache(model, batch: int, max_len: int, device=None) -> Dict:
     ``head_dim`` / ``dtype`` has MHA heads of ``d_model // num_heads`` in
     f32. ``device`` is where the model lives: None is
     ``runia_core_tpu_torch.default_device()``, the GPU, as for the model
-    itself. The model writes into these tensors in place.
+    itself. The model writes into these tensors in place. A model made
+    tensor-parallel by ``parallel.shard_llama_params`` gets its rank's KV
+    heads, as JAX's cache is sharded over heads.
     """
     if device is None:
         device = default_device()
     head_dim = getattr(model, "head_dim", None) or model.d_model // model.num_heads
     kv_heads = getattr(model, "num_kv_heads", None) or model.num_heads
+    if getattr(model, "tp", None) is not None:
+        kv_heads //= model.tp.size  # a tensor-parallel model caches its rank's whole heads
     shape = (batch, max_len, kv_heads, head_dim)
 
     def layer():

@@ -161,6 +161,44 @@ class _GatherColumns(torch.autograd.Function):
         return grad[..., ctx.rank * ctx.width:(ctx.rank + 1) * ctx.width].contiguous(), None
 
 
+class _SumReplicated(torch.autograd.Function):
+    """All-reduce (sum) of each rank's partial value over ``group`` into one
+    that every rank holds alike. The backward is the identity: whatever
+    follows is computed alike on every rank of ``group``, so each partial's
+    gradient is the sum's (the transpose of a sum into a replicated value;
+    ``torch.distributed.nn.functional.all_reduce`` would sum the gradients
+    too, scaling them by the group's size)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _ring_shift(tensors, group, step: int = 1) -> list:
+    """Each rank of ``group`` sends ``tensors`` to the rank ``step`` after it
+    on the ring and returns those of the rank ``step`` before it, in one
+    ``batch_isend_irecv`` (JAX's ``ppermute``). A ring of one sends nothing:
+    NCCL cannot send to its own rank, and the permutation is the identity."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return list(tensors)
+    me = dist.get_rank(group)
+    dst, src = dist.get_global_rank(group, (me + step) % n), dist.get_global_rank(group, (me - step) % n)
+    sent = [t.contiguous() for t in tensors]
+    received = [torch.empty_like(t) for t in sent]
+    ops = [dist.P2POp(dist.isend, t, dst, group) for t in sent] + [dist.P2POp(dist.irecv, t, src, group)
+                                                                    for t in received]
+    for request in dist.batch_isend_irecv(ops):
+        request.wait()
+    return received
+
+
 def sharded_train_step(
     model: torch.nn.Module,
     mesh: DeviceMesh,

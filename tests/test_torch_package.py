@@ -573,13 +573,9 @@ _NO_COUNTERPART = {
     "HAVE_NATIVE": "flags the JAX loader's silent numpy fallback; the port's native= raises where the "
                    "extension does not build",
 }
-# The model-parallel layer, not ported yet: its modules and the names
-# runia_core_tpu/parallel/__init__.py exports from them.
-_PENDING_MODULES = {"parallel.fsdp", "parallel.llama_tp", "parallel.ring_attention", "parallel.pipeline",
-                    "parallel.moe"}
-_PENDING_NAMES = {"fsdp_shard_params", "fsdp_spec", "fsdp_train_step", "ring_attention", "ring_self_attention",
-                  "MoEParams", "init_moe", "moe_ffn", "sharded_moe_ffn", "pipeline_apply", "llama_tp_specs",
-                  "shard_llama_params"}
+# Modules and names not ported yet (none: the model-parallel layer was the last).
+_PENDING_MODULES = set()
+_PENDING_NAMES = set()
 
 
 def _jax_exports():
@@ -621,8 +617,13 @@ def test_every_jax_export_exists_in_the_port(module):
 
 
 def test_the_pending_list_is_the_model_parallel_layer():
-    assert _PENDING_NAMES <= set(_JAX_EXPORTS["parallel"])
-    assert {f"parallel.{m}" for m in ("fsdp", "llama_tp", "ring_attention", "pipeline", "moe")} == _PENDING_MODULES
+    """Nothing is pending, and every module of the JAX ``parallel`` package
+    has a port file at its path."""
+    assert _PENDING_NAMES == set() and _PENDING_MODULES == set()
+    jax_parallel = sorted(p.name for p in (REPO / "runia_core_tpu" / "parallel").glob("*.py"))
+    assert {"fsdp.py", "llama_tp.py", "ring_attention.py", "pipeline.py", "moe.py"} <= set(jax_parallel)
+    for name in jax_parallel:
+        assert (REPO / "runia_core_tpu_torch" / "parallel" / name).is_file(), name
     assert set(_NO_COUNTERPART) <= {n for names in _JAX_EXPORTS.values() for n in names}
 
 
