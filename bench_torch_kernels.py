@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Microbenchmarks of the PyTorch port's four CUDA kernels on one NVIDIA GPU,
+"""Microbenchmarks of the PyTorch port's CUDA kernels on one NVIDIA GPU,
 for tuning them: what ``chip_smoke.py`` does not sweep.
 
 Run from the root of a checkout:
 
-    python3 bench_torch_kernels.py [--kernels entropy fused quant_matmul flash]
+    python3 bench_torch_kernels.py [--kernels entropy fused quant_matmul flash nms roi_align]
                                    [--targets 132 264 330 528]
 
 * ``marginal_entropy`` at (512, n, 512) for n = 16, 32, 64 and (64, 512, 512),
@@ -23,6 +23,16 @@ Run from the root of a checkout:
 * ``flash_prefix_attention`` at the bf16 and KV8 8 x 1024 prefill and the
   chunk case, graph-timed, with ``scaled_dot_product_attention`` beside the
   bf16 prefill.
+* ``nms`` (``nms_keep_cuda``) at 1,000, 8,400 and 30,000 random boxes and on
+  8,400 YOLOv8-style class-offset anchors (80 classes, max_wh 7,680, 30%
+  candidates first, the rest after them), cold and warm, its keep masks
+  against the plain version's, the device time of its two kernels apart;
+  with the scan's block width varied where the checkout has ``_scan_plan``.
+* ``roi_align`` (``roi_align_nhwc_cuda``) at the object scorer's bf16 tap
+  (means), YOLOv8m's p5 (means, pooled) and p3 (means), DETR-R50's (1, 25,
+  38, 2048) map (means, pooled), cold and warm, the largest difference from
+  the plain version as a share of max |feature|; with the tile and the
+  groups halved and doubled where the checkout has ``_plan``.
 
 One JSON line per measurement; the card's name and power limit first. It
 imports nothing of JAX and fails without a CUDA device. The package it
@@ -51,7 +61,7 @@ from runia_core_tpu_torch.evaluation.entropy import neighbors_for  # noqa: E402
 import runia_core_tpu_torch.ops.mc_entropy_cuda as mc  # noqa: E402
 import runia_core_tpu_torch.ops.quant_matmul as qm  # noqa: E402
 from runia_core_tpu_torch.ops.flash_prefill import flash_prefix_attention  # noqa: E402
-from runia_core_tpu_torch.utils import cuda_graph_time_ms  # noqa: E402
+from runia_core_tpu_torch.utils import cuda_graph_time_ms, device_profile  # noqa: E402
 
 QMM_SHAPES = {  # (rows, K, N)
     "qkv": (16, 2048, 4096), "gate_up": (16, 2048, 11264), "o": (16, 2048, 2048), "down": (16, 5632, 2048),
@@ -217,10 +227,115 @@ def flash_bench(device, gen) -> None:
         emit(record)
 
 
+def _boxes(gen, n, size, lo, hi, device):
+    xy = torch.rand((n, 2), generator=gen, device=device) * size
+    wh = torch.rand((n, 2), generator=gen, device=device) * (hi - lo) + lo
+    return torch.cat([xy, xy + wh], dim=1)
+
+
+def _time_variants(module, plan_name, variants, fn, copies, record) -> None:
+    """Cold ms of ``fn`` with ``module.<plan_name>`` replaced by each variant
+    (a function of the plan's arguments returning a plan, or None to skip)."""
+    plan_fn = getattr(module, plan_name, None)
+    if plan_fn is None:
+        return
+    for label, make in variants.items():
+        setattr(module, plan_name, lambda *a, _m=make: _m(plan_fn(*a), *a))
+        try:
+            turns = itertools.cycle(copies)
+            calls = len(copies) * max(1, 24 // len(copies))
+            record[f"cold_ms_{label}"] = min(cuda_graph_time_ms(lambda: fn(*next(turns)), calls) for _ in range(3))
+        finally:
+            setattr(module, plan_name, plan_fn)
+
+
+def nms_bench(device, gen) -> None:
+    import runia_core_tpu_torch.ops.nms as nms
+
+    cases = {}
+    for n in (1000, 8400, 30000):
+        boxes = _boxes(gen, n, 640.0, 8.0, 200.0, device)
+        order = torch.sort(torch.rand(n, generator=gen, device=device), descending=True, stable=True).indices
+        cases[f"random_{n}"] = (boxes[order].contiguous(), 0.45)
+    n = 8400
+    boxes = _boxes(gen, n, 600.0, 4.0, 160.0, device)
+    cls = torch.randint(0, 80, (n,), generator=gen, device=device)
+    scores = torch.rand(n, generator=gen, device=device)
+    scores = torch.where(torch.rand(n, generator=gen, device=device) < 0.3, scores, -torch.inf)
+    order = torch.sort(scores, descending=True, stable=True).indices
+    cases["yolo_class_offsets"] = ((boxes + cls[:, None].float() * 7680.0)[order].contiguous(), 0.7)
+    for name, (boxes, thr) in cases.items():
+        n = boxes.shape[0]
+        keep = nms.nms_keep_cuda(boxes, thr)
+        want = nms.nms_keep_plain(boxes if n <= 8400 else boxes.cpu(), thr).to(device)
+        copies = cold_copies((boxes,), n * 16 + n * (-(-n // 64)) * 8)
+        fn = lambda b: nms.nms_keep_cuda(b, thr)  # noqa: E731
+        record = {"kernel": "nms", "case": name, "n": n, "iou": thr, "kept": int(keep.sum()),
+                  "flips": int((keep != want).sum()), **graph_times(fn, copies)}
+        split = device_profile(lambda: [fn(boxes) for _ in range(5)], 5,
+                               category=lambda k: "mask" if "mask" in k else "scan" if "scan" in k else "other")
+        record["device_ms_by_kernel"] = split.get("device_ms_per_unit_by_category")
+        def width(plan, _n, threads):
+            return plan[0], threads if plan[0] > 1 else 32, plan[2]
+        _time_variants(nms, "_scan_plan", {f"threads{t}": (lambda plan, n_, _t=t: width(plan, n_, _t))
+                                           for t in (256, 512)}, fn, copies, record)
+        emit(record)
+        del copies
+
+
+def roi_align_bench(device, gen) -> None:
+    import runia_core_tpu_torch.ops.roi_align as ra
+
+    rng = torch.Generator(device=device).manual_seed(7)
+    scorer_boxes = []
+    for _ in range(128):  # 20 detections an image at 256 px, sides 8-38 px
+        xy = torch.rand((20, 2), generator=rng, device=device) * 216
+        scorer_boxes.append(torch.cat([xy, xy + torch.rand((20, 2), generator=rng, device=device) * 30 + 8], 1))
+    yolo = _boxes(gen, 300, 512.0, 8.0, 320.0, device)
+    yolo[0] = torch.tensor([0.0, 0.0, 640.0, 640.0])
+    detr = _boxes(gen, 100, 640.0, 16.0, 400.0, device)
+    detr[0] = torch.tensor([0.0, 0.0, 1216.0, 800.0])
+    maps = {"object_scorer": (torch.rand((128, 8, 8, 512), generator=gen, device=device).to(torch.bfloat16),
+                              torch.cat(scorer_boxes), 8 / 256),
+            "yolov8m_p5": (torch.rand((1, 20, 20, 576), generator=gen, device=device), yolo, 20 / 640),
+            "yolov8m_p3": (torch.rand((1, 80, 80, 192), generator=gen, device=device), yolo, 80 / 640),
+            "detr": (torch.rand((1, 25, 38, 2048), generator=gen, device=device), detr, 1 / 32)}
+    for name, (map_name, mean) in {"object_scorer_bf16_mean": ("object_scorer", True),
+                                   "yolov8m_p5_f32_mean": ("yolov8m_p5", True),
+                                   "yolov8m_p5_f32_pooled": ("yolov8m_p5", False),
+                                   "yolov8m_p3_f32_mean": ("yolov8m_p3", True),
+                                   "detr_f32_mean": ("detr", True), "detr_f32_pooled": ("detr", False)}.items():
+        fmap, boxes, scale = maps[map_name]
+        got = ra.roi_align_nhwc_cuda(fmap, boxes, 7, scale, mean=mean)
+        want = ra.roi_align_nhwc_plain(fmap, boxes, 7, scale, mean=mean)
+        copies = cold_copies((fmap, boxes), fmap.numel() * fmap.element_size())
+        fn = lambda f, b: ra.roi_align_nhwc_cuda(f, b, 7, scale, mean=mean)  # noqa: E731
+        record = {"kernel": "roi_align", "case": name, "map": list(fmap.shape), "rois": boxes.shape[0],
+                  "rel_err_of_max_feature": float((got.float() - want.float()).abs().max() / fmap.float().abs().max()),
+                  **graph_times(fn, copies)}
+        if hasattr(ra, "_plan"):
+            record["plan"] = ra._plan(boxes.shape[0], fmap.shape[3], fmap.shape[1], fmap.shape[2], 7, 7,
+                                      fmap.element_size(), mean, True)._asdict()
+
+        def varied(plan, *args, tile=1.0, groups=1.0):
+            t = max(1, int(plan.tile * tile))
+            g = max(1, min(int(plan.groups * groups), 512 // t))
+            vectors = -(-args[1] // plan.width)
+            scratch = 4 * g * t * plan.width if args[7] else args[6] * t * plan.width * args[4] * args[5]
+            weights = 4 * (args[4] * args[2] + args[5] * args[3] + args[2] + args[3] + 2 * (args[4] + args[5]))
+            return plan._replace(tile=t, tiles=-(-vectors // t), groups=g, threads=-(-t * g // 32) * 32,
+                                 smem=weights + scratch)
+        _time_variants(ra, "_plan", {label: (lambda plan, *a, _kw=kw: varied(plan, *a, **_kw)) for label, kw in {
+            "tile_half": dict(tile=0.5), "tile_double": dict(tile=2.0), "groups_half": dict(groups=0.5),
+            "groups_quarter": dict(groups=0.25), "groups_double": dict(groups=2.0)}.items()}, fn, copies, record)
+        emit(record)
+        del copies
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--kernels", nargs="+", default=["entropy", "fused", "quant_matmul", "flash"],
-                        choices=["entropy", "fused", "quant_matmul", "flash"], help="which kernels to time")
+    kernels = ["entropy", "fused", "quant_matmul", "flash", "nms", "roi_align"]
+    parser.add_argument("--kernels", nargs="+", default=kernels, choices=kernels, help="which kernels to time")
     parser.add_argument("--targets", type=int, nargs="+", default=[qm.TARGET_BLOCKS],
                         help="values of the split-K planner's TARGET_BLOCKS to time")
     args = parser.parse_args()
@@ -238,6 +353,10 @@ def main() -> None:
         quant_matmul_bench(device, gen, args.targets)
     if "flash" in args.kernels:
         flash_bench(device, gen)
+    if "nms" in args.kernels:
+        nms_bench(device, gen)
+    if "roi_align" in args.kernels:
+        roi_align_bench(device, gen)
 
 
 if __name__ == "__main__":

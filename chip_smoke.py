@@ -399,6 +399,16 @@ MP_LR, MP_ADAM_REL = 1e-3, 1e-3
 # NMS kernel against plain: random boxes at 640 px, sides 8-200 px.
 NMS_SIZES, NMS_THRESHOLDS = (1000, 8400, 30000), (0.45, 0.7)
 NMS_IOU_OPERATIONS = 13  # f32 operations an IoU and its compare (csrc/nms.cu)
+# YOLOv8's NMS input as YoloV8JaxAdapter builds it: all 8,400 anchors at
+# 640 px, each moved by class * max_wh (80 classes, 7,680), the candidates
+# (a share of them) first by score, the rest after them at -inf; IoU 0.7.
+NMS_YOLO = dict(anchors=8400, classes=80, max_wh=7680.0, candidates=0.3, iou=0.7)
+# The scan's serial floor: a column block of 64 boxes waits for the one
+# before, one hand-off between threads (a barrier or a shared counter) and
+# one shared-memory round trip a block (and, walking kept boxes one at a
+# time, one shuffle a kept box); cycles each, assumed, not measured, at the
+# card's largest SM clock.
+NMS_FLOOR_CYCLES = dict(hand_off=30, shared=30, shuffle=30)
 # ROIAlign kernel against plain: f32 within 1e-5 of max |feature|; bf16
 # within ROI_BF16_REL of it (the plain form rounds its weights and its
 # intermediate to bf16, the kernel sums f32 products of the bf16 map).
@@ -4555,30 +4565,63 @@ def random_boxes(gen, n: int, size: float, lo: float, hi: float, device) -> torc
     return torch.cat([xy, xy + wh], dim=1)
 
 
+def yolo_nms_input(gen, device) -> torch.Tensor:
+    """NMS_YOLO's score-sorted class-offset boxes."""
+    n = NMS_YOLO["anchors"]
+    boxes = random_boxes(gen, n, YOLO_IMG - 40.0, 4.0, 160.0, device)
+    cls = torch.randint(0, NMS_YOLO["classes"], (n,), generator=gen, device=device)
+    scores = torch.rand(n, generator=gen, device=device)
+    scores = torch.where(torch.rand(n, generator=gen, device=device) < NMS_YOLO["candidates"], scores, -torch.inf)
+    order = torch.sort(scores, descending=True, stable=True).indices
+    return (boxes + cls[:, None].float() * NMS_YOLO["max_wh"])[order].contiguous()
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def nms_serial_floor(n: int, kept: int, clock_hz: float) -> dict:
+    """The greedy scan's serial floor (NMS_FLOOR_CYCLES): ceil(n / 64)
+    column blocks x (hand-off + shared round), and with a shuffle a kept box."""
+    blocks = -(-n // 64)
+    per_block = NMS_FLOOR_CYCLES["hand_off"] + NMS_FLOOR_CYCLES["shared"]
+    return {"column_blocks": blocks, "serial_floor_ms": blocks * per_block / clock_hz * 1e3,
+            "serial_floor_with_kept_chain_ms": (blocks * per_block + kept * NMS_FLOOR_CYCLES["shuffle"])
+            / clock_hz * 1e3, "sm_clock_hz": clock_hz}
+
+
 def nms_phase(device, gen) -> dict:
     """The NMS kernel against its plain version (JAX's fixed point) at N =
     1,000, 8,400 (YOLOv8's anchors at 640 px) and 30,000 (ultralytics'
-    max_nms): keep masks identical. Timed cold and L2-warm as replays of a
-    CUDA graph, the plain version by events. Bound: the IoUs the data needs
-    (each kept box against every later box, NMS_IOU_OPERATIONS f32
-    operations each) against the bytes of the boxes and the mask; beside it
-    the bitmask's bytes and all N^2 / 2 IoUs."""
+    max_nms), and on NMS_YOLO's class-offset anchors: keep masks identical.
+    Timed cold and L2-warm as replays of a CUDA graph, the plain version by
+    events. Bound: the IoUs the data needs (each kept box against every
+    later box, NMS_IOU_OPERATIONS f32 operations each) against the bytes of
+    the boxes and the mask; beside it the bitmask's bytes and all N^2 / 2
+    IoUs, and the scan's serial floor."""
     from runia_core_tpu_torch.ops.nms import nms_keep_cuda, nms_keep_plain
 
+    clock_hz = sm_clock_hz()
     flips, timing = {}, {}
+    cases = {}
     for n in NMS_SIZES:
         boxes = random_boxes(gen, n, YOLO_IMG, 8.0, 200.0, device)
         scores = torch.rand(n, generator=gen, device=device)
-        sorted_boxes = boxes[torch.sort(scores, descending=True, stable=True).indices].contiguous()
-        for thr in NMS_THRESHOLDS:
-            got = nms_keep_cuda(sorted_boxes, thr)
-            again = nms_keep_cuda(sorted_boxes, thr)
-            want = nms_keep_plain(sorted_boxes, thr)
+        cases[str(n)] = (boxes[torch.sort(scores, descending=True, stable=True).indices].contiguous(),
+                         NMS_THRESHOLDS, NMS_THRESHOLDS[0])
+    cases["yolo_class_offsets"] = (yolo_nms_input(gen, device), (NMS_YOLO["iou"],), NMS_YOLO["iou"])
+    for name, (sorted_boxes, thresholds, thr) in cases.items():
+        n = sorted_boxes.shape[0]
+        for t in thresholds:
+            got = nms_keep_cuda(sorted_boxes, t)
+            again = nms_keep_cuda(sorted_boxes, t)
+            want = nms_keep_plain(sorted_boxes, t)
             torch.cuda.synchronize()
-            require(torch.equal(got, again), f"nms {n}@{thr}: two runs are bit-identical")
-            flips[f"{n}@{thr}"] = int((got != want).sum())
-            require(flips[f"{n}@{thr}"] == 0, f"nms {n}@{thr}: the kernel's keep mask = plain's: {flips}")
-        thr = NMS_THRESHOLDS[0]
+            require(torch.equal(got, again), f"nms {name}@{t}: two runs are bit-identical")
+            flips[f"{name}@{t}"] = int((got != want).sum())
+            require(flips[f"{name}@{t}"] == 0, f"nms {name}@{t}: the kernel's keep mask = plain's: {flips}")
         keep = nms_keep_cuda(sorted_boxes, thr)
         kept_at = torch.nonzero(keep).flatten()
         needed_ious = int((n - 1 - kept_at).sum())
@@ -4587,13 +4630,19 @@ def nms_phase(device, gen) -> dict:
         times = timed_cold(lambda b: nms_keep_cuda(b, thr), lambda b: nms_keep_plain(b, thr), copies)
         bound = roofline(17 * n, NMS_IOU_OPERATIONS * needed_ious, H100_F32_OPS_PER_S)
         all_pairs = roofline(mask_bytes, NMS_IOU_OPERATIONS * n * (n - 1) / 2, H100_F32_OPS_PER_S)
-        timing[str(n)] = {"iou": thr, "kept": int(keep.sum()), "needed_ious": needed_ious, "copies": len(copies),
-                          **times, **with_share(bound, times["ms"]),
-                          "bound_all_pairs_and_bitmask": with_share(all_pairs, times["ms"])}
-        require(timing[str(n)]["share_of_bound"] <= 1.0, f"nms {n}: faster than its bound: {timing[str(n)]}")
+        timing[name] = {"n": n, "iou": thr, "kept": int(keep.sum()), "needed_ious": needed_ious,
+                        "copies": len(copies), **times, **with_share(bound, times["ms"]),
+                        **nms_serial_floor(n, int(keep.sum()), clock_hz),
+                        "bound_all_pairs_and_bitmask": with_share(all_pairs, times["ms"])}
+        require(timing[name]["share_of_bound"] <= 1.0, f"nms {name}: faster than its bound: {timing[name]}")
         del copies
+    for name, t in timing.items():
+        print(f"nms {name}: {t['ms']:.4f} ms cold ({t['kept']} kept of {t['n']}); roofline bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), serial floor {t['serial_floor_ms']:.4f} ms "
+              f"({t['column_blocks']} column blocks; {t['serial_floor_with_kept_chain_ms']:.4f} with the kept chain)",
+              flush=True)
     top = timing[str(NMS_SIZES[1])]  # YOLOv8's 8,400 anchors, what the adapter's NMS takes
-    emit({"phase": "kernel_nms", "keep_flips": flips, "timing": timing,
+    emit({"phase": "kernel_nms", "keep_flips": flips, "timing": timing, "floor_cycles": NMS_FLOOR_CYCLES,
           "timed_with": "CUDA-graph replays, inputs cold (copies cycled past the L2); ms_l2_warm: one input",
           "library_ms": None, "library": "none: torchvision is not installed, and no PyTorch call is an NMS"})
     return {"max_abs_err": 0.0, "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
@@ -4622,26 +4671,33 @@ def roi_work(fmap: torch.Tensor, boxes: torch.Tensor, out: int, scale: float, me
 
 
 def roi_cases(gen, device) -> dict:
-    """(map, boxes, spatial scale) of the object scorer's bf16 pre_pool tap
-    and YOLOv8m's backbone_p5 and p3 at 640 px (one whole-image box each)."""
+    """(map, boxes, spatial scale) of the object scorer's bf16 pre_pool tap,
+    YOLOv8m's backbone_p5 and p3 at 640 px (one whole-image box each) and
+    DETR-R50's (1, 25, 38, 2048) backbone map at 800 x 1216 (a whole-image
+    box and 99 others)."""
     rng = np.random.RandomState(SEED + 7)
     dets = np.concatenate([make_dets(rng, OBJ_MAX_DET, OBJ_IMG)["boxes"] for _ in range(OBJ_BATCH)])
     yolo_boxes = random_boxes(gen, 300, YOLO_IMG * 0.8, 8.0, 320.0, device)
     yolo_boxes[0] = torch.tensor([0.0, 0.0, YOLO_IMG, YOLO_IMG])
+    h, w = DETR_IMG
+    detr_boxes = random_boxes(gen, 100, h * 0.8, 16.0, 0.5 * h, device)
+    detr_boxes[0] = torch.tensor([0.0, 0.0, w, h])
     return {
         "object_scorer_pre_pool": (torch.rand((OBJ_BATCH, 8, 8, 512), generator=gen, device=device),
                                    torch.from_numpy(dets).to(device), 8 / OBJ_IMG),
         "yolov8m_backbone_p5": (torch.rand((1, 20, 20, 576), generator=gen, device=device), yolo_boxes, 20 / YOLO_IMG),
         "yolov8m_p3": (torch.rand((1, 80, 80, 192), generator=gen, device=device), yolo_boxes, 80 / YOLO_IMG),
+        "detr_backbone": (torch.rand((1, h // 32, w // 32, 2048), generator=gen, device=device), detr_boxes, 1 / 32),
     }
 
 
 def roi_align_phase(device, gen) -> dict:
     """The ROIAlign kernel against its plain version (JAX's separable form)
-    at the object scorer's (128, 8, 8, 512) tap with 2,560 boxes and YOLOv8m's
-    backbone_p5 and p3 with 300, both modes, f32 and bf16; timed where the
-    main paths call it: the scorer's bf16 means, the extractor's f32 means and
-    the MC route's f32 pooled bins."""
+    at the object scorer's (128, 8, 8, 512) tap with 2,560 boxes, YOLOv8m's
+    backbone_p5 and p3 with 300 and DETR's backbone map with 100, both
+    modes, f32 and bf16; timed where the main paths call it: the scorer's
+    bf16 means, the extractors' f32 means and the MC routes' f32 pooled
+    bins."""
     from runia_core_tpu_torch.ops.roi_align import roi_align_nhwc_cuda, roi_align_nhwc_plain
 
     cases = roi_cases(gen, device)
@@ -4664,7 +4720,9 @@ def roi_align_phase(device, gen) -> dict:
     for key, (name, dtype, mean) in {"object_scorer_bf16_mean": ("object_scorer_pre_pool", torch.bfloat16, True),
                                      "yolov8m_p5_f32_mean": ("yolov8m_backbone_p5", torch.float32, True),
                                      "yolov8m_p5_f32_pooled": ("yolov8m_backbone_p5", torch.float32, False),
-                                     "yolov8m_p3_f32_mean": ("yolov8m_p3", torch.float32, True)}.items():
+                                     "yolov8m_p3_f32_mean": ("yolov8m_p3", torch.float32, True),
+                                     "detr_f32_mean": ("detr_backbone", torch.float32, True),
+                                     "detr_f32_pooled": ("detr_backbone", torch.float32, False)}.items():
         fmap, boxes, scale = cases[name]
         fmap = fmap.to(dtype)
         copies = cold_copies((fmap, boxes), fmap.numel() * fmap.element_size())
@@ -5943,7 +6001,7 @@ def main() -> None:
          "replaces": "runia_core_tpu/ops/flash_prefill.py:333",
          "launches": launches["flash_prefix_attention"], **k4},
         {"name": "nms", "route": "cuda", "source": "runia_core_tpu_torch/csrc/nms.cu",
-         "replaces": "runia_core_tpu/ops/nms.py:46", "launches": launches["nms"], **k_nms},
+         "replaces": "runia_core_tpu/ops/nms.py:47", "launches": launches["nms"], **k_nms},
         {"name": "roi_align", "route": "cuda", "source": "runia_core_tpu_torch/csrc/roi_align.cu",
          "replaces": "runia_core_tpu/ops/roi_align.py:90", "launches": launches["roi_align"], **k_roi},
     ]})

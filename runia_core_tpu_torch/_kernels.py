@@ -53,11 +53,13 @@ _SIGNATURES = {
     # (q, k, v, out, q_start, kv_start, k_scale, v_scale, dims[21] int64 on
     #  the host, sm_scale, dtype, kv8, stream)
     "runia_flash_prefix_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _P),
-    # (sorted boxes, mask scratch, keep, n, iou threshold, scan threads, stream)
-    "runia_nms": (_P, _P, _P, _I, _F, _I, _P),
+    # (sorted boxes, mask scratch, keep, n, iou threshold, scan threads, scan
+    #  shared bytes, stream)
+    "runia_nms": (_P, _P, _P, _I, _F, _I, _I, _P),
     # (fmap, boxes, out, K, rois per image, H, W, C, out_h, out_w, spatial scale,
-    #  aligned, sampling ratio, max samples, bf16 map, mean, threads, shared bytes, stream)
-    "runia_roi_align": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _P),
+    #  aligned, sampling ratio, max samples, bf16 map, mean, 16-byte loads,
+    #  channel vectors a block, thread groups, threads, shared bytes, stream)
+    "runia_roi_align": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -9,10 +9,13 @@ by IoU > threshold", whose fixed point is unique.
   convergence on the host, so it is the CPU's route and the reference the
   kernel is held to, nothing on the card's main path.
 * :func:`nms_keep_cuda` wraps ``csrc/nms.cu``: one pass writes the IoU
-  bitmask, one block scans it greedily, on the current stream and with no
-  host sync, so a CUDA graph can capture it. The kernel computes each IoU
-  with the plain version's operation order, rounded step by step, and
-  decides every pair as the plain version does.
+  bitmask, one block scans it greedily (one warp decides each 64-box
+  column block, the recurrence's fixed point found by ballots, while
+  groups of the other warps OR earlier blocks' kept rows into the removed
+  set), on the current stream and with no host sync, so a CUDA graph can
+  capture it. The kernel computes each IoU with the plain version's
+  operation order, rounded step by step, and decides every pair as the
+  plain version does.
 
 :func:`nms_mask` keeps the JAX contract: ``(order, keep)`` of fixed shape,
 ``order`` a stable descending sort of the scores (ties: the lower index
@@ -40,7 +43,25 @@ __all__ = [
 # (537 MB here; 113 MB at ultralytics' max_nms of 30,000), and the scan's
 # bit vector must fit one block's shared memory.
 MAX_NMS_BOXES = 65536
-_SCAN_THREADS = 256
+_SCAN_MAX_THREADS = 1024  # csrc/nms.cu kScanMaxThreads
+_WORD_THREADS = 8  # OR threads wanted for each later word
+_MIN_OR_WARPS = 8  # two for each of the kernel's four groups of OR warps
+
+
+def _scan_plan(n: int) -> Tuple[int, int, int]:
+    """(column blocks, threads, dynamic shared bytes) of the scan over n
+    boxes: warp 0 decides; the OR warps are those with warp % 4 != 0 (off
+    warp 0's scheduler), enough for ``_WORD_THREADS`` a later word and at
+    least ``_MIN_OR_WARPS``, at most ``_SCAN_MAX_THREADS`` threads in all;
+    the removed and kept words, a u64 each a 64-box column block."""
+    col_blocks = -(-n // 64)
+    warps = 1
+    if col_blocks > 1:
+        per_word = -(-(col_blocks - 1) * _WORD_THREADS // 32)
+        want = min(max(per_word, _MIN_OR_WARPS), _SCAN_MAX_THREADS // 32 * 3 // 4)
+        while warps - -(-warps // 4) < want:
+            warps += 1
+    return col_blocks, 32 * warps, 16 * col_blocks
 
 
 def pairwise_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -87,11 +108,12 @@ def nms_keep_cuda(sorted_boxes: torch.Tensor, iou_threshold: float) -> torch.Ten
     boxes = sorted_boxes.contiguous()
     if boxes.data_ptr() % 16:  # float4 loads
         boxes = boxes.clone()
-    mask = torch.empty(n * (-(-n // 64)), dtype=torch.int64, device=boxes.device)
+    col_blocks, threads, smem = _scan_plan(n)
+    mask = torch.empty(n * col_blocks, dtype=torch.int64, device=boxes.device)
     lib = _kernels.library()
     with _kernels.device_guard(boxes.device):
-        code = lib.runia_nms(boxes.data_ptr(), mask.data_ptr(), keep.data_ptr(), n, float(iou_threshold),
-                             _SCAN_THREADS, torch.cuda.current_stream().cuda_stream)
+        code = lib.runia_nms(boxes.data_ptr(), mask.data_ptr(), keep.data_ptr(), n, float(iou_threshold), threads,
+                             smem, torch.cuda.current_stream().cuda_stream)
     _kernels.check(code, "nms")
     count_launch(nms_keep_cuda)
     return keep

@@ -15,9 +15,12 @@ f32 whatever the map's dtype.
   as JAX's two bf16 einsums do.
 * The kernel (``csrc/roi_align.cu``, :func:`roi_align_nhwc_cuda`) takes a
   whole batch of NHWC maps and ``B * M`` boxes in one launch, reads the
-  channels of each map tap as one coalesced row and sums in f32. It writes
-  the pooled bins, or with ``mean=True`` only each ROI's channel means (the
-  bins summed in registers), which is all the object-level scorers keep.
+  channels of each map tap as one coalesced row, 16 bytes a thread, and
+  sums in f32. It writes the pooled bins, or with ``mean=True`` only each
+  ROI's channel means (the bins summed in registers), which is all the
+  object-level scorers keep. :func:`_plan` chooses its launch: the channel
+  tile a block covers and the thread groups the bins (pooled) or the
+  footprint's rows (means) are split over.
 
 :func:`roi_align` keeps the JAX function's contract (one (C, H, W) map,
 (N, C, oh, ow) out) through :func:`roi_align_nhwc`, the batched entry point
@@ -27,7 +30,7 @@ version for a CPU one.
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import NamedTuple, Tuple, Union
 
 import torch
 
@@ -39,8 +42,11 @@ __all__ = [
 ]
 
 MAP_DTYPES = (torch.float32, torch.bfloat16)  # the maps the kernel reads
-_THREADS = 128  # channels a block of the kernel covers (csrc/roi_align.cu kRoiThreads)
+_MAX_THREADS = 512  # csrc/roi_align.cu kRoiMaxThreads
 _MAX_SMEM = 227 * 1024
+_POOLED_GROUPS, _POOLED_TILE = 8, 32  # bin groups, channel vectors of a pooled block
+_MEAN_GROUPS = 32  # footprint-row groups of a means block, at most
+_MIN_BLOCKS = 264  # two blocks an SM of the H100's 132, where the channels allow
 
 
 def _out_hw(output_size: Union[int, Tuple[int, int]]) -> Tuple[int, int]:
@@ -136,9 +142,45 @@ def roi_align_nhwc_plain(
     return pooled
 
 
-def _smem_bytes(out_h: int, out_w: int, h: int, w: int, threads: int, mean: bool) -> int:
-    floats = out_h * h + out_w * w + h + w + 2 * (out_h + out_w) + (0 if mean else threads * out_h * out_w)
-    return 4 * floats
+class _Plan(NamedTuple):
+    """A launch of the ROIAlign kernel: ``width`` channels a load (16 bytes,
+    or 1), ``tile`` channel vectors a block over ``tiles`` blocks a ROI,
+    ``groups`` thread groups (bins or footprint rows), ``threads`` a block,
+    ``smem`` dynamic shared bytes a block."""
+
+    width: int
+    tile: int
+    tiles: int
+    groups: int
+    threads: int
+    smem: int
+
+
+def _plan(k: int, c: int, h: int, w: int, out_h: int, out_w: int, elem: int, mean: bool, vec: bool) -> _Plan:
+    """The kernel's launch for K ROIs on (., h, w, c) maps of ``elem``-byte
+    values: 16-byte loads where ``vec`` (the wrapper checked C and the
+    map's alignment); means blocks split the footprint's rows over one
+    group for every 64 map cells (a large map has large footprints), at
+    most ``_MEAN_GROUPS``; pooled blocks split the bins over
+    ``_POOLED_GROUPS`` groups (more for a narrow tile); the channel vectors
+    cut into equal tiles, narrower where K alone would leave the card with
+    fewer than ``_MIN_BLOCKS`` blocks or the shared memory would not fit."""
+    width = 16 // elem if vec else 1
+    vectors = -(-c // width)
+    bins = out_h * out_w
+    groups = min(max(1, h * w // 64), _MEAN_GROUPS) if mean else min(bins, _POOLED_GROUPS)
+    widest = _MAX_THREADS // groups if mean else _POOLED_TILE
+    tiles = max(-(-vectors // widest), min(-(-_MIN_BLOCKS // k), -(-vectors // 4)))
+    weights = 4 * (out_h * h + out_w * w + h + w + 2 * (out_h + out_w))
+    while True:
+        tile = -(-vectors // tiles)
+        smem = weights + (4 * groups * tile * width if mean else elem * tile * width * bins)
+        if smem <= _MAX_SMEM or tile == 1:
+            break
+        tiles += 1
+    if not mean:  # a narrow tile takes more bin groups, up to 256 threads
+        groups = min(bins, max(groups, 256 // tile))
+    return _Plan(width, tile, -(-vectors // tile), groups, -(-tile * groups // 32) * 32, smem)
 
 
 def roi_align_nhwc_cuda(
@@ -169,18 +211,19 @@ def roi_align_nhwc_cuda(
     out = torch.empty((k, c) if mean else (k, c, out_h, out_w), dtype=fmap.dtype, device=fmap.device)
     if out.numel() == 0:
         return out
-    threads = min(_THREADS, -(-c // 32) * 32)
-    smem = _smem_bytes(out_h, out_w, h, w, threads, mean)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"roi_align_nhwc_cuda: a ({h}, {w}) map with {out_h} x {out_w} bins needs {smem} bytes "
-                         f"of shared memory a block, more than {_MAX_SMEM}")
+    elem = fmap.element_size()
+    vec = c % (16 // elem) == 0 and fmap.data_ptr() % 16 == 0
+    plan = _plan(k, c, h, w, out_h, out_w, elem, mean, vec)
+    if plan.smem > _MAX_SMEM:
+        raise ValueError(f"roi_align_nhwc_cuda: a ({h}, {w}) map with {out_h} x {out_w} bins needs {plan.smem} "
+                         f"bytes of shared memory a block, more than {_MAX_SMEM}")
     lib = _kernels.library()
     boxes = boxes.contiguous()
     with _kernels.device_guard(fmap.device):
         code = lib.runia_roi_align(
             fmap.data_ptr(), boxes.data_ptr(), out.data_ptr(), k, k // b, h, w, c, out_h, out_w, float(spatial_scale),
-            int(aligned), int(sampling_ratio), int(max_samples), int(fmap.dtype == torch.bfloat16), int(mean), threads,
-            smem, torch.cuda.current_stream().cuda_stream,
+            int(aligned), int(sampling_ratio), int(max_samples), int(fmap.dtype == torch.bfloat16), int(mean),
+            int(vec), plan.tile, plan.groups, plan.threads, plan.smem, torch.cuda.current_stream().cuda_stream,
         )
     _kernels.check(code, "roi_align")
     count_launch(roi_align_nhwc_cuda)

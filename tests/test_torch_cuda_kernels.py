@@ -1232,11 +1232,78 @@ def test_nms_kernel_chains_ties_and_degenerate_boxes(gen):
     assert nms_indices(flat.cuda(), torch.rand(70, generator=gen, device="cuda"), 0.0).shape == (70,)
 
 
+def _yolo_like(gen, n, classes=80, max_wh=7680.0, candidates=0.3):
+    """n YOLOv8-style score-sorted boxes as the adapter hands them to NMS:
+    boxes about anchors on a 640-px image, each moved by class * max_wh,
+    the candidates first (by descending score), the rest after them as the
+    adapter's -inf scores sort them."""
+    boxes = _random_boxes(gen, n, size=600.0, lo=4.0, hi=160.0)
+    cls = torch.randint(0, classes, (n,), generator=gen, device="cuda")
+    scores = torch.rand(n, generator=gen, device="cuda")
+    scores = torch.where(torch.rand(n, generator=gen, device="cuda") < candidates, scores, -torch.inf)
+    order = torch.sort(scores, descending=True, stable=True).indices
+    return (boxes + cls[:, None].float() * max_wh)[order].contiguous(), cls[order]
+
+
+def _plain_by_class(sorted_boxes, cls, thr):
+    """nms_keep_plain over each class's boxes apart (in their order): the
+    whole set's keep mask, where boxes of two classes never overlap, without
+    the (N, N) matrices of all N."""
+    from runia_core_tpu_torch.ops.nms import nms_keep_plain
+
+    keep = torch.zeros(sorted_boxes.shape[0], dtype=torch.bool, device=sorted_boxes.device)
+    for c in torch.unique(cls).tolist():
+        rows = torch.nonzero(cls == c).flatten()
+        keep[rows] = nms_keep_plain(sorted_boxes[rows], thr)
+    return keep
+
+
+@pytest.mark.parametrize("case", ["yolo_class_offsets", "ragged_8401", "chain_4000", "identical_5000", "n65536"])
+def test_nms_kernel_structured_cases(gen, case):
+    """Keep masks equal to the plain version's and bit-identical over two
+    runs: YOLOv8's 8,400 class-offset anchors with the non-candidates
+    last; N one past a 64-box edge; a chain in which every box suppresses
+    the next (every other kept, across 63 column blocks); 5,000 identical
+    boxes; N = 65,536 class-offset boxes (the kernel's largest N)."""
+    from runia_core_tpu_torch.ops.nms import nms_keep_cuda, nms_keep_plain
+
+    thr = 0.45
+    if case == "yolo_class_offsets":
+        boxes, cls = _yolo_like(gen, 8400)
+        want = _plain_by_class(boxes, cls, 0.7)
+        thr = 0.7
+    elif case == "n65536":
+        boxes, cls = _yolo_like(gen, 65536, classes=256, candidates=1.0)
+        want = _plain_by_class(boxes, cls, thr)
+    elif case == "ragged_8401":
+        boxes = _random_boxes(gen, 8401)
+        boxes = boxes[torch.randperm(8401, generator=gen, device="cuda")].contiguous()
+        want = nms_keep_plain(boxes, thr)
+    elif case == "chain_4000":
+        n = 4000
+        x = torch.arange(n, device="cuda", dtype=torch.float32) * 6.0
+        boxes = torch.stack([x, torch.zeros_like(x), x + 10, torch.full_like(x, 10.0)], 1)  # IoU(i, i + 1) = 0.25
+        thr = 0.2
+        want = torch.arange(n, device="cuda") % 2 == 0
+        assert torch.equal(nms_keep_plain(boxes[:500], thr), want[:500])
+    else:
+        boxes = torch.tensor([[3.0, 4.0, 50.0, 60.0]], device="cuda").repeat(5000, 1)
+        want = torch.arange(5000, device="cuda") == 0
+        assert torch.equal(nms_keep_plain(boxes[:300], thr), want[:300])
+    before = nms_keep_cuda.launches
+    got = nms_keep_cuda(boxes, thr)
+    again = nms_keep_cuda(boxes, thr)
+    assert nms_keep_cuda.launches == before + 2
+    assert torch.equal(got, again)
+    assert int((got != want).sum()) == 0, case
+
+
 _ROI_CASES = {  # (B, H, W, C, M, image size, out): the bench leg's tap, YOLOv8m's p5 and p3, small edges
     "bench_tap": (128, 8, 8, 512, 20, 256, 7),
     "yolo_p5": (1, 20, 20, 576, 300, 640, 7),
     "yolo_p3": (1, 80, 80, 192, 300, 640, 7),
     "ragged_c": (2, 9, 13, 70, 5, 100, 3),
+    "c100": (2, 20, 20, 100, 50, 640, 7),
 }
 
 
@@ -1265,6 +1332,37 @@ def test_roi_align_kernel_matches_plain(gen, case, dtype, mean):
 
 
 ROI_BF16_REL = 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("mean", [False, True], ids=["pooled", "mean"])
+def test_roi_align_kernel_on_detrs_map_and_a_misaligned_view(gen, dtype, mean):
+    """DETR-R50's (1, 25, 38, 2048) backbone map at 800 x 1216 with a
+    whole-image box and 99 random ones, against the plain form (the map in
+    [0, 1), as the other cases); a bf16 map also against the plain form's
+    f32 sums of the same bf16 values, within one bf16 rounding of the
+    result (the kernel sums in f32 and rounds once); the same map as a view
+    whose base is 4 (f32) or 2 (bf16) bytes past 16-byte alignment takes
+    the kernel's scalar loads and gives the same bits as the 16-byte ones
+    (each channel's sums run in the same order)."""
+    from runia_core_tpu_torch.ops.roi_align import roi_align_nhwc_cuda, roi_align_nhwc_plain
+
+    fmap = torch.rand((1, 25, 38, 2048), generator=gen, device="cuda").to(dtype)
+    boxes = torch.cat([torch.tensor([[0.0, 0.0, 1216.0, 800.0]], device="cuda"),
+                       _random_boxes(gen, 99, size=900.0, lo=8.0, hi=500.0)])
+    got = roi_align_nhwc_cuda(fmap, boxes, 7, 1 / 32, mean=mean)
+    assert torch.equal(got, roi_align_nhwc_cuda(fmap, boxes, 7, 1 / 32, mean=mean))
+    want = roi_align_nhwc_plain(fmap, boxes, 7, 1 / 32, mean=mean)
+    bound = (1e-5 if dtype == torch.float32 else ROI_BF16_REL) * float(fmap.float().abs().max())
+    assert got.shape == want.shape and float((got.float() - want.float()).abs().max()) <= bound
+    if dtype == torch.bfloat16:
+        sums = roi_align_nhwc_plain(fmap.float(), boxes, 7, 1 / 32, mean=mean)
+        assert bool(((got.float() - sums).abs() <= 2**-8 * sums.abs() + 1e-5 * float(fmap.float().abs().max())).all())
+    storage = torch.empty(fmap.numel() + 8, dtype=dtype, device="cuda")
+    view = storage[1: 1 + fmap.numel()].view(fmap.shape)
+    view.copy_(fmap)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    assert torch.equal(roi_align_nhwc_cuda(view, boxes, 7, 1 / 32, mean=mean), got)
 
 
 def test_object_scorer_replays_and_yolo_adapter_on_the_card(gen):

@@ -128,3 +128,37 @@ def test_arrays_go_to_the_requested_device():
     boxes, scores = _boxes(np.random.RandomState(5), 20)
     np.testing.assert_array_equal(nms_indices(boxes, scores, 0.5, device="cpu"),
                                   jax_nms.nms_indices(boxes, scores, 0.5))
+
+
+def _check_scan_plan(n):
+    from runia_core_tpu_torch.ops.nms import _scan_plan
+
+    col_blocks, threads, smem = _scan_plan(n)
+    assert col_blocks * 64 >= n > (col_blocks - 1) * 64
+    assert threads % 32 == 0 and 32 <= threads <= 1024
+    warps = threads // 32
+    or_threads = 32 * (warps - -(-warps // 4))  # warps off warp 0's scheduler (warp % 4 != 0)
+    assert or_threads > 0 or col_blocks == 1  # a column block beyond the first needs OR warps
+    # OR threads: 8 a later word and two warps for each of four groups, or the 768 of a full block
+    assert or_threads >= min(768, max(8 * (col_blocks - 1), 256)) or col_blocks == 1
+    assert smem == 16 * col_blocks  # the removed and kept words
+    static = 3 * 3 * 64 * 8 + 4 * 4 + 4 * 64 + 4 * 4 + 4  # staged blocks, kept lists, counts
+    assert smem + static <= 48 * 1024
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 8400, 30000, 65536])
+def test_scan_plan_at_the_edges(n):
+    """The NMS scan's launch (one deciding warp, OR warps, a removed word a
+    column block) at ragged 64-box edges, YOLOv8's 8,400 anchors and the
+    kernel's largest N."""
+    _check_scan_plan(n)
+
+
+def test_scan_plan_fits_every_n():
+    """Every N the kernel takes gets a launch within one block's 1,024
+    threads and the 48 KB of shared memory a launch gets without opting
+    in."""
+    from runia_core_tpu_torch.ops.nms import MAX_NMS_BOXES
+
+    for n in range(1, MAX_NMS_BOXES + 1):
+        _check_scan_plan(n)

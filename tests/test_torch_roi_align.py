@@ -119,3 +119,67 @@ def test_batched_nhwc_and_mean_mode(dtype):
     want = roi_align_nhwc_plain(fmap.float(), boxes, 7, 15 / 96, mean=True)
     tol = F32_REL if dtype == torch.float32 else 3 * BF16_REL
     _check(means.float().numpy(), want.numpy(), tol)
+
+
+def _covered(plan, c):
+    """How many times each channel is read by the plan's (tile, vector)
+    threads, as the kernel's ``j * V < tile_c`` test admits them."""
+    counts = np.zeros(c, np.int64)
+    for t in range(plan.tiles):
+        c0 = t * plan.tile * plan.width
+        tile_c = min(c - c0, plan.tile * plan.width)
+        for j in range(plan.tile):
+            if j * plan.width < tile_c:
+                counts[c0 + j * plan.width: c0 + min((j + 1) * plan.width, tile_c)] += 1
+    return counts
+
+
+@pytest.mark.parametrize("c", [3, 100, 192, 512, 2048])
+@pytest.mark.parametrize("hw", [(1, 1), (8, 8), (20, 20), (25, 38), (80, 80)])
+@pytest.mark.parametrize("mean", [False, True], ids=["pooled", "mean"])
+def test_launch_plan_covers_every_channel_once_within_the_block_limits(c, hw, mean):
+    """_plan at the object scorer's, YOLOv8m's and DETR's shapes and edges:
+    every channel read by exactly one thread, at most 227 KB of shared
+    memory and 512 threads a block, the groups within the rows or bins,
+    the tiles equal (less than one vector idle a tile)."""
+    from runia_core_tpu_torch.ops.roi_align import _MAX_SMEM, _plan
+
+    h, w = hw
+    for k in (1, 100, 300, 2560):
+        for elem in (4, 2):
+            for out in ((7, 7), (3, 5), (14, 14)):
+                for vec in (False, True):
+                    if vec and c % (16 // elem):
+                        continue
+                    plan = _plan(k, c, h, w, *out, elem, mean, vec)
+                    assert plan.width == (16 // elem if vec else 1)
+                    np.testing.assert_array_equal(_covered(plan, c), 1)
+                    vectors = -(-c // plan.width)
+                    assert plan.tile * plan.tiles - vectors < plan.tiles
+                    assert plan.threads % 32 == 0 and plan.tile * plan.groups <= plan.threads <= 512
+                    assert 1 <= plan.groups <= (max(1, min(h * w // 64, 32)) if mean else out[0] * out[1])
+                    weights = 4 * (out[0] * h + out[1] * w + h + w + 2 * (out[0] + out[1]))
+                    scratch = 4 * plan.groups * plan.tile * plan.width if mean else (
+                        elem * plan.tile * plan.width * out[0] * out[1])
+                    assert plan.smem == weights + scratch <= _MAX_SMEM
+
+
+def test_launch_plan_fills_the_card_at_the_main_paths_shapes():
+    """The grids of the timed shapes: each at least two blocks an SM of the
+    H100's 132, the last tile more than half full (C = 192's tiles full:
+    YOLOv8m's p3), DETR's 2,048 channels in 16 tiles of 32 vectors when
+    pooled."""
+    from runia_core_tpu_torch.ops.roi_align import _plan
+
+    shapes = {  # (K, C, H, W, elem, mean)
+        "object_scorer_bf16_mean": (2560, 512, 8, 8, 2, True), "yolov8m_p5_mean": (300, 576, 20, 20, 4, True),
+        "yolov8m_p5_pooled": (300, 576, 20, 20, 4, False), "yolov8m_p3_mean": (300, 192, 80, 80, 4, True),
+        "detr_mean": (100, 2048, 25, 38, 4, True), "detr_pooled": (100, 2048, 25, 38, 4, False),
+    }
+    for name, (k, c, h, w, elem, mean) in shapes.items():
+        plan = _plan(k, c, h, w, 7, 7, elem, mean, True)
+        assert k * plan.tiles >= 264, name
+        assert 2 * (c // plan.width - (plan.tiles - 1) * plan.tile) > plan.tile, (name, plan)
+    assert _plan(300, 192, 80, 80, 7, 7, 4, True, True)[1:4] == (16, 3, 32)
+    assert _plan(2560, 512, 8, 8, 7, 7, 2, True, True)[1:5] == (64, 1, 1, 64)
+    assert _plan(100, 2048, 25, 38, 7, 7, 4, False, True)[1:4] == (32, 16, 8)
