@@ -22,6 +22,7 @@ Usage::
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from typing import Iterator, Optional, Tuple
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from runia_core_tpu_torch import _kernels
+from runia_core_tpu_torch.utils.profiling import current_span, span
 
 __all__ = [
     "PrefetchLoader",
@@ -264,12 +266,15 @@ class PrefetchLoader:
                     continue
             return False
 
+        consumer = current_span()  # the gather spans belong to the consumer's call
+
         def producer():
             try:
-                for idx in self._index_batches():
+                for i, idx in enumerate(self._index_batches()):
                     if stop.is_set():
                         return
-                    batch = self._assemble(idx)
+                    with span("runia.loader.gather", batch=i, parent=consumer):
+                        batch = self._assemble(idx)
                     lab = self.labels[idx] if self.labels is not None else None
                     if not put((batch, lab)):
                         return
@@ -281,8 +286,9 @@ class PrefetchLoader:
         thread = threading.Thread(target=producer, daemon=True)
         thread.start()
         try:
-            while True:
-                item = out_q.get()
+            for i in itertools.count():
+                with span("runia.loader.wait", batch=i):
+                    item = out_q.get()
                 if item is sentinel:
                     break
                 yield item

@@ -50,6 +50,7 @@ from runia_core_tpu_torch.ops.mc_entropy_cuda import (
 from runia_core_tpu_torch.reduction import PCAState, apply_pca_transform, pca_transform
 from runia_core_tpu_torch.sampling import MCSamplerModule, mc_dropblock_samples
 from runia_core_tpu_torch.utils.graphs import CudaGraph, ProgramCache, drawing_from
+from runia_core_tpu_torch.utils.profiling import span
 
 __all__ = [
     "InferenceModule", "LaRDInference", "LaRExInference", "ObjectDetectionInferenceBase",
@@ -285,17 +286,23 @@ def build_larex_scorer(
     @torch.inference_mode()
     def score(images: torch.Tensor, generator: Optional[torch.Generator] = None,
               weights: Optional[torch.Tensor] = None):
-        if not (use_graph and images.is_cuda):
-            return run(images, generator, weights)
-        inputs = {"images": images} if weights is None else {"images": images, "weights": weights}
-        graph = programs.get_or_build((tuple(images.shape), images.dtype, weights is not None),
-                                      lambda: _capture(images.device, inputs))
-        graph.load(**inputs)
-        if weights is not None:
-            return tuple(t.clone() for t in graph.replay())
-        source = generator or torch.cuda.default_generators[graph.device.index]
-        with drawing_from(graph.generators[0], source):
-            return tuple(t.clone() for t in graph.replay())
+        with span("runia.scorer.call"):
+            if not (use_graph and images.is_cuda):
+                return run(images, generator, weights)
+            inputs = {"images": images} if weights is None else {"images": images, "weights": weights}
+            graph = programs.get_or_build((tuple(images.shape), images.dtype, weights is not None),
+                                          lambda: _capture(images.device, inputs))
+            with span("runia.scorer.load"):
+                graph.load(**inputs)
+            with span("runia.scorer.replay"):
+                if weights is not None:
+                    outputs = graph.replay()
+                else:
+                    source = generator or torch.cuda.default_generators[graph.device.index]
+                    with drawing_from(graph.generators[0], source):
+                        outputs = graph.replay()
+            with span("runia.scorer.copy_out"):
+                return tuple(t.clone() for t in outputs)
 
     def _capture(device: torch.device, inputs: dict) -> CudaGraph:
         """The scorer's graph; one that draws its keep-weights owns the

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from runia_core_tpu_torch.utils.health import NonFiniteError, find_nonfinite
+from runia_core_tpu_torch.utils.profiling import span
 from runia_core_tpu_torch.utils.tree import tree_map
 
 __all__ = ["ScoringService"]
@@ -95,29 +96,31 @@ class ScoringService:
         return torch.Generator(device=self.device).manual_seed(int(word))
 
     def _submit(self, images) -> Tuple[Any, Optional[torch.cuda.Event]]:
-        generator = self.generator_for(self._batch_idx)
-        self._batch_idx += 1
-        if isinstance(images, np.ndarray):
-            images = torch.from_numpy(images)
-        out = self.scorer(images.to(self.device, non_blocking=True), generator)
-        # Start the device->host copies now, so that they overlap the
-        # compute of the batches behind them in the window.
-        host = tree_map(_to_host_async, out)
-        if self.device.type != "cuda":
-            return host, None
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
+        with span("runia.service.submit", batch=self._batch_idx):
+            generator = self.generator_for(self._batch_idx)
+            self._batch_idx += 1
+            if isinstance(images, np.ndarray):
+                images = torch.from_numpy(images)
+            out = self.scorer(images.to(self.device, non_blocking=True), generator)
+            # Start the device->host copies now, so that they overlap the
+            # compute of the batches behind them in the window.
+            host = tree_map(_to_host_async, out)
+            if self.device.type != "cuda":
+                return host, None
+            done = torch.cuda.Event()
+            done.record()
+            return host, done
 
     def _fetch(self, submitted, batch_idx: int):
-        host, done = submitted
-        if done is not None:
-            done.synchronize()
-        if self.check_finite:
-            bad = find_nonfinite(host)
-            if bad:
-                raise NonFiniteError(f"batch {batch_idx}: non-finite in {bad}")
-        return host
+        with span("runia.service.fetch", batch=batch_idx):
+            host, done = submitted
+            if done is not None:
+                done.synchronize()
+            if self.check_finite:
+                bad = find_nonfinite(host)
+                if bad:
+                    raise NonFiniteError(f"batch {batch_idx}: non-finite in {bad}")
+            return host
 
     def score_stream(self, batches: Iterable[Any]) -> Iterator[Any]:
         """Yield one output structure of host tensors per input batch, in
@@ -162,31 +165,33 @@ class ScoringService:
         """
         from runia_core_tpu_torch.data import PrefetchLoader
 
-        n = images_u8.shape[0]
-        pin = self.device.type == "cuda"
-        loader = PrefetchLoader(
-            images_u8,
-            batch_size=batch_size,
-            shuffle=False,
-            drop_remainder=False,
-            scale=scale,
-            offset=offset,
-            device=None,  # the tail batch is padded on the host first
-            resize_to=resize_to,
-            native=native,
-            pin_memory=pin,
-        )
+        with span("runia.service.score_dataset"):
+            n = images_u8.shape[0]
+            pin = self.device.type == "cuda"
+            loader = PrefetchLoader(
+                images_u8,
+                batch_size=batch_size,
+                shuffle=False,
+                drop_remainder=False,
+                scale=scale,
+                offset=offset,
+                device=None,  # the tail batch is padded on the host first
+                resize_to=resize_to,
+                native=native,
+                pin_memory=pin,
+            )
 
-        def padded():
-            for images, _ in loader:
-                if images.shape[0] < batch_size:
-                    full = torch.zeros((batch_size,) + tuple(images.shape[1:]), dtype=images.dtype, pin_memory=pin)
-                    full[: images.shape[0]] = images
-                    images = full
-                yield images
+            def padded():
+                for images, _ in loader:
+                    if images.shape[0] < batch_size:
+                        full = torch.zeros((batch_size,) + tuple(images.shape[1:]), dtype=images.dtype,
+                                           pin_memory=pin)
+                        full[: images.shape[0]] = images
+                        images = full
+                    yield images
 
-        logits_parts, score_parts = [], []
-        for logits, scores in self.score_stream(padded()):
-            logits_parts.append(logits)
-            score_parts.append(scores)
-        return torch.cat(logits_parts)[:n], torch.cat(score_parts)[:n]
+            logits_parts, score_parts = [], []
+            for logits, scores in self.score_stream(padded()):
+                logits_parts.append(logits)
+                score_parts.append(scores)
+            return torch.cat(logits_parts)[:n], torch.cat(score_parts)[:n]

@@ -153,8 +153,18 @@ class CudaGraph:
         if index not in _shared:
             _shared[index] = _SharedPool(index)
         pool = _shared[index]
-        stream = pool.stream
+        from runia_core_tpu_torch.utils.profiling import span  # profiling imports this module, through timing
 
+        with span("runia.graph.capture"):
+            self._capture_into(pool, index, fn, warmup)
+        pool.graphs.add(self)
+        CudaGraph.captures += 1
+        self.replays = 0
+
+    def _capture_into(self, pool: "_SharedPool", index: int, fn: Callable, warmup: int) -> None:
+        """The warm-up calls on ``pool``'s capture stream, then the capture
+        of ``fn`` into ``self.graph`` in ``pool``."""
+        stream = pool.stream
         _active.graph = self
         try:
             # Warm-up on the capture stream, its random draws taken back.
@@ -195,9 +205,6 @@ class CudaGraph:
             torch.cuda.current_stream(index).wait_stream(stream)
         finally:
             _active.graph = None
-        pool.graphs.add(self)
-        CudaGraph.captures += 1
-        self.replays = 0
 
     @staticmethod
     def _as_tuple(result) -> tuple:

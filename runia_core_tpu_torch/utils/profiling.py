@@ -5,8 +5,21 @@ reference's ``record_time`` decorator (defined here and re-exported from
 ``detectors.base``, where the JAX package defines it) and adds the CUDA pieces: a steady-state benchmark timed
 with CUDA events (``utils/timing.py::cuda_time_ms``), a ``torch.profiler``
 trace of a block (:func:`cuda_profile`, the JAX package's ``tpu_profile``),
-named regions in that trace (:func:`trace_annotation`) and the device time
-of each stage of a forward (:func:`profile_taps`).
+the port's spans (:func:`span`, also :func:`trace_annotation`, kept in memory by
+:func:`recording`) and the device time of each stage of a forward
+(:func:`profile_taps`).
+
+Spans. The scoring path opens a span at each layer boundary, named
+``runia.<layer>.<stage>`` (``runia.service.submit``, ``runia.scorer.replay``,
+...). With neither a profiler nor a recording on, a span is one flag check
+and one ``torch.autograd._profiler_enabled()`` call, and returns a shared
+null context. While a ``torch.profiler`` records on the span's thread (the
+profiler's state is per thread), it also opens ``record_function(name)``,
+a ``user_annotation`` in the trace, on the kernels' clock. Inside
+:func:`recording`, each span that ends appends a :class:`SpanRecord`
+(``time.perf_counter_ns`` clock, its parent and the id of its root, shared
+by every span of one call) to every open :class:`Recording`, which also
+counts the graph captures and entropy-kernel launches over its life.
 
 The JAX package's ``enable_compilation_cache`` has no counterpart: it sets
 XLA's persistent compilation cache, and the port compiles no programs
@@ -17,11 +30,13 @@ of their sources).
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import statistics
 import tempfile
+import threading
 import time
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -34,6 +49,11 @@ __all__ = [
     "sync",
     "cuda_profile",
     "trace_annotation",
+    "span",
+    "current_span",
+    "recording",
+    "Recording",
+    "SpanRecord",
     "profile_taps",
 ]
 
@@ -111,9 +131,152 @@ def cuda_profile(log_dir: Optional[str] = None):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def trace_annotation(name: str):
-    """Named region that shows up in profiler traces."""
-    return torch.profiler.record_function(name)
+class SpanRecord(NamedTuple):
+    """One ended span: ids are unique in the process; ``parent`` is None
+    for a root, and ``trace`` is the id of the root the span descends from
+    (its own id for a root)."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: Optional[int]
+    trace: int
+    batch: Optional[int]
+    thread: int
+
+
+def _read_counters() -> Dict[str, int]:
+    """The launches the entropy kernels' wrappers count and the captures
+    ``CudaGraph`` counts, as they stand (imported here: those modules
+    import this one)."""
+    from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda
+    from runia_core_tpu_torch.ops.mc_entropy_cuda import fused_mc_entropy
+    from runia_core_tpu_torch.utils.graphs import CudaGraph
+
+    return {"CudaGraph.captures": CudaGraph.captures, "marginal_entropy_cuda.launches": marginal_entropy_cuda.launches,
+            "fused_mc_entropy.launches": fused_mc_entropy.launches}
+
+
+class Recording:
+    """The spans that ended while it was open (:func:`recording`), in the
+    order they ended, and ``counters``: each counter's rise over the
+    recording (filled when it closes)."""
+
+    def __init__(self):
+        self.spans: List[SpanRecord] = []
+        self.counters: Dict[str, int] = {}
+
+    def summary(self) -> Dict[str, Dict[str, float]]:
+        """Per span name: ``count``, ``total_ms`` and ``self_ms`` (each
+        span's duration less the part of it that its children, on any
+        thread, cover)."""
+        children: Dict[int, List[SpanRecord]] = {}
+        for s in self.spans:
+            if s.parent is not None:
+                children.setdefault(s.parent, []).append(s)
+        out: Dict[str, Dict[str, float]] = {}
+        for s in self.spans:
+            covered, reach = 0, s.start_ns
+            for c in sorted(children.get(s.id, ()), key=lambda c: c.start_ns):
+                start, end = max(c.start_ns, reach), min(c.end_ns, s.end_ns)
+                if end > start:
+                    covered += end - start
+                reach = max(reach, end)
+            entry = out.setdefault(s.name, {"count": 0, "total_ms": 0.0, "self_ms": 0.0})
+            entry["count"] += 1
+            entry["total_ms"] += (s.end_ns - s.start_ns) * 1e-6
+            entry["self_ms"] += (s.end_ns - s.start_ns - covered) * 1e-6
+        return out
+
+
+_recordings: List[Recording] = []  # open recordings; empty: spans record nothing
+_recordings_lock = threading.Lock()
+_open = threading.local()  # .stack: this thread's open recorded spans, innermost last
+_ids = itertools.count(1)
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "batch", "parent", "profiled", "recorded", "id", "trace", "start_ns")
+
+    def __init__(self, name: str, batch: Optional[int], parent: Optional["_Span"]):
+        self.name, self.batch, self.parent = name, batch, parent
+        self.profiled = self.recorded = None
+
+    def __enter__(self):
+        if torch.autograd._profiler_enabled():
+            self.profiled = torch.profiler.record_function(self.name)
+            self.profiled.__enter__()
+        if _recordings:
+            stack = getattr(_open, "stack", None)
+            if stack is None:
+                stack = _open.stack = []
+            if self.parent is None and stack:
+                self.parent = stack[-1]
+            self.id = next(_ids)
+            self.trace = self.id if self.parent is None else self.parent.trace
+            stack.append(self)
+            self.recorded = True
+            self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        if self.recorded:
+            end_ns = time.perf_counter_ns()
+            _open.stack.pop()
+            parent = None if self.parent is None else self.parent.id
+            record = SpanRecord(self.name, self.start_ns, end_ns, self.id, parent, self.trace, self.batch,
+                                threading.get_ident())
+            with _recordings_lock:
+                for rec in _recordings:
+                    rec.spans.append(record)
+        if self.profiled is not None:
+            self.profiled.__exit__(*exc)
+        return False
+
+
+def span(name: str, batch: Optional[int] = None, parent: Optional[_Span] = None):
+    """The port's span: a context manager around one stage of a call.
+
+    Off (no :func:`recording` open, no profiler recording on this thread)
+    it is a shared null context: no ``record_function``, no clock read, no
+    object made. ``batch`` is the batch index, where the stage has one;
+    ``parent`` an open span of another thread (:func:`current_span` read
+    there) that this one belongs to, where it runs on a worker thread;
+    otherwise the innermost span open on this thread is its parent."""
+    if not _recordings and not torch.autograd._profiler_enabled():
+        return _OFF
+    return _Span(name, batch, parent)
+
+
+trace_annotation = span  # the earlier name of the span
+
+
+def current_span() -> Optional[_Span]:
+    """The innermost recorded span open on this thread, or None: what a
+    worker thread's spans are given as ``parent``."""
+    stack = getattr(_open, "stack", None)
+    return stack[-1] if stack else None
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Recording]:
+    """Keep the spans that end inside the block, on every thread, in a
+    :class:`Recording`; its ``counters`` are the rises of
+    ``CudaGraph.captures``, ``marginal_entropy_cuda.launches`` and
+    ``fused_mc_entropy.launches`` over the block. Recordings may nest and
+    overlap; each gets every span that ends while it is open."""
+    rec = Recording()
+    before = _read_counters()
+    with _recordings_lock:
+        _recordings.append(rec)
+    try:
+        yield rec
+    finally:
+        with _recordings_lock:
+            _recordings.remove(rec)
+        rec.counters = {name: value - before[name] for name, value in _read_counters().items()}
 
 
 class _TapReached(Exception):

@@ -554,6 +554,33 @@ def test_scorer_replays_match_eager(gen, fused):
     assert CudaGraph.captures == captures
 
 
+def test_a_recorded_second_scorer_call_replays_with_one_kernel_1_launch(gen):
+    """The first call of a shape captures (a ``runia.graph.capture`` span);
+    a second call of that shape records no capture, one launch of kernel 1,
+    and its stages as children of the call, with answers equal bit for bit
+    to the same call unrecorded."""
+    from runia_core_tpu_torch.inference import build_larex_scorer
+    from runia_core_tpu_torch.utils.profiling import recording
+
+    forward, state = _tiny_scorer_parts()
+    scorer = build_larex_scorer(forward, None, state, 16, 0.5, 3)
+    images = torch.rand((64, 32, 32, 3), generator=gen, device="cuda")
+    with recording() as first:
+        scorer(images, torch.Generator(device="cuda").manual_seed(1))
+    assert first.counters["CudaGraph.captures"] == 1
+    assert [s.name for s in first.spans].count("runia.graph.capture") == 1
+    with recording() as second, no_host_sync():
+        recorded = scorer(images, torch.Generator(device="cuda").manual_seed(2))
+    plain = scorer(images, torch.Generator(device="cuda").manual_seed(2))
+    assert second.counters == {"CudaGraph.captures": 0, "marginal_entropy_cuda.launches": 1,
+                               "fused_mc_entropy.launches": 0}
+    (call,) = [s for s in second.spans if s.name == "runia.scorer.call"]
+    stages = [s for s in second.spans if s is not call]
+    assert [s.name for s in stages] == ["runia.scorer.load", "runia.scorer.replay", "runia.scorer.copy_out"]
+    assert call.parent is None and all(s.parent == call.id and s.trace == call.id for s in stages)
+    assert all(torch.equal(a, b) for a, b in zip(recorded, plain))
+
+
 def test_a_capture_that_fails_raises(gen):
     x = torch.randn((8,), generator=gen, device="cuda")
     with pytest.raises(RuntimeError):

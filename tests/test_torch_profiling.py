@@ -4,6 +4,7 @@ its windows, the last result), the CUDA-only timer, the per-stage
 truncation of a forward (the tap a truncated forward returns equals the JAX
 model's tap) and the profiler trace."""
 
+import contextlib
 import json
 
 import numpy as np
@@ -126,3 +127,146 @@ def test_cuda_profile_writes_a_trace_with_the_annotation(tmp_path):
     trace = json.loads((tmp_path / "trace.json").read_text())
     assert log_dir == str(tmp_path)
     assert any(event.get("name") == "runia_stage" for event in trace["traceEvents"])
+
+
+def _raise(*args, **kwargs):
+    raise AssertionError("called with the spans off")
+
+
+def test_a_span_off_opens_no_record_function_reads_no_clock_and_allocates_nothing(monkeypatch):
+    import tracemalloc
+
+    monkeypatch.setattr(torch.profiler, "record_function", _raise)
+    monkeypatch.setattr(profiling.time, "perf_counter_ns", _raise)
+    assert profiling.span("runia.a") is profiling.span("runia.b", batch=3)  # one shared null context
+    assert profiling.trace_annotation is profiling.span
+
+    def spans(n):
+        for _ in range(n):
+            with profiling.span("runia.service.submit", batch=7):
+                with profiling.span("runia.scorer.call"):
+                    pass
+
+    spans(10)
+    tracemalloc.start()
+    try:
+        start, _ = tracemalloc.get_traced_memory()
+        tracemalloc.reset_peak()
+        spans(10_000)
+        _, peak = tracemalloc.get_traced_memory()
+    finally:
+        tracemalloc.stop()
+    assert peak - start < 1024  # not one object a span: 20,000 spans would take 20,000 x 56 bytes or more
+    with contextlib.ExitStack() as stack:
+        with profiling.span("runia.service.score_dataset"):  # entered off, it ends inside a recording
+            monkeypatch.undo()
+            rec = stack.enter_context(profiling.recording())
+            assert profiling.current_span() is None
+    assert rec.spans == []
+
+
+def test_nested_spans_give_parent_trace_and_self_ms(monkeypatch):
+    """A root of 100 ms with a child at 10-30 ms, and another at 40-90 ms
+    holding a grandchild at 50-60 ms; a span of another thread given the
+    root as its parent at 20-70 ms. Self ms is what no child covers."""
+    import threading
+
+    ticks = iter([0, 10, 30, 40, 50, 60, 90, 100, 20, 70])
+    monkeypatch.setattr(profiling.time, "perf_counter_ns", lambda: next(ticks) * 1_000_000)
+    with profiling.recording() as rec:
+        with profiling.span("runia.root") as root:
+            with profiling.span("runia.a", batch=0):
+                pass
+            with profiling.span("runia.b", batch=1):
+                assert profiling.current_span().name == "runia.b"
+                with profiling.span("runia.c"):
+                    pass
+        assert profiling.current_span() is None
+
+        def worker():
+            with profiling.span("runia.worker", batch=5, parent=root):
+                pass
+
+        thread = threading.Thread(target=worker)
+        thread.start()
+        thread.join(timeout=10)
+        assert not thread.is_alive()
+    by = {s.name: s for s in rec.spans}
+    assert [s.name for s in rec.spans] == ["runia.a", "runia.c", "runia.b", "runia.root", "runia.worker"]
+    assert by["runia.root"].parent is None and {s.trace for s in rec.spans} == {by["runia.root"].id}
+    assert by["runia.a"].parent == by["runia.b"].parent == by["runia.worker"].parent == by["runia.root"].id
+    assert by["runia.c"].parent == by["runia.b"].id
+    assert (by["runia.a"].batch, by["runia.b"].batch, by["runia.c"].batch, by["runia.worker"].batch) == (0, 1, None, 5)
+    assert by["runia.worker"].thread != by["runia.root"].thread == threading.get_ident()
+    summary = rec.summary()
+    # The root's children cover 10-30 and 40-90 on its thread and 20-70 on the other: 10-90 in all.
+    assert summary["runia.root"] == {"count": 1, "total_ms": pytest.approx(100.0), "self_ms": pytest.approx(20.0)}
+    assert summary["runia.b"] == {"count": 1, "total_ms": pytest.approx(50.0), "self_ms": pytest.approx(40.0)}
+    assert summary["runia.a"]["self_ms"] == pytest.approx(20.0)
+
+
+def test_spans_are_user_annotations_in_the_profilers_trace(tmp_path):
+    with profiling.recording() as rec:
+        with cuda_profile(str(tmp_path)):
+            with profiling.span("runia.service.score_dataset"):
+                with profiling.span("runia.service.submit", batch=0):
+                    torch.ones(8) @ torch.ones(8)
+                with trace_annotation("runia.service.fetch", batch=0):
+                    pass
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    names = ["runia.service.score_dataset", "runia.service.submit", "runia.service.fetch"]
+    annotated = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert set(names) <= annotated
+    assert sorted(s.name for s in rec.spans) == sorted(names)  # recorded under the profiler too
+
+
+def test_a_recording_counts_captures_and_launches_over_its_life(monkeypatch):
+    from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda
+    from runia_core_tpu_torch.ops.mc_entropy_cuda import fused_mc_entropy
+    from runia_core_tpu_torch.utils.graphs import CudaGraph
+
+    monkeypatch.setattr(CudaGraph, "captures", 5)
+    monkeypatch.setattr(marginal_entropy_cuda, "launches", 9)
+    monkeypatch.setattr(fused_mc_entropy, "launches", 2)
+    with profiling.recording() as outer:
+        CudaGraph.captures += 1
+        with profiling.recording() as inner:
+            marginal_entropy_cuda.launches += 3
+        fused_mc_entropy.launches += 1
+    assert inner.counters == {"CudaGraph.captures": 0, "marginal_entropy_cuda.launches": 3,
+                              "fused_mc_entropy.launches": 0}
+    assert outer.counters == {"CudaGraph.captures": 1, "marginal_entropy_cuda.launches": 3,
+                              "fused_mc_entropy.launches": 1}
+
+
+def test_spans_of_many_threads_all_reach_the_recording():
+    """More threads than cores, a short switch interval: every span of
+    every thread is recorded once, under its own thread's root."""
+    import os
+    import sys
+    import threading
+
+    threads, per = 2 * (os.cpu_count() or 4), 300
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with profiling.recording() as rec:
+            def work():
+                with profiling.span("runia.root"):
+                    for i in range(per):
+                        with profiling.span("runia.leaf", batch=i):
+                            pass
+
+            workers = [threading.Thread(target=work) for _ in range(threads)]
+            for w in workers:
+                w.start()
+            for w in workers:
+                w.join(timeout=60)
+            assert not any(w.is_alive() for w in workers)
+    finally:
+        sys.setswitchinterval(interval)
+    roots = {s.id: s.thread for s in rec.spans if s.name == "runia.root"}
+    leaves = [s for s in rec.spans if s.name == "runia.leaf"]
+    assert len(roots) == threads and len(leaves) == threads * per
+    assert len({s.id for s in rec.spans}) == len(rec.spans)
+    assert all(s.parent == s.trace and roots[s.parent] == s.thread for s in leaves)

@@ -193,3 +193,55 @@ def test_the_service_runs_on_the_gpu_by_default(scorers, rng):
     assert service.device == torch.device("cuda")
     with pytest.raises((RuntimeError, AssertionError)):
         list(service.score_stream(_batches(rng, 1)))
+
+
+def test_score_dataset_records_one_span_of_each_stage_a_batch(scorers, rng):
+    """Inside a recording: one ``score_dataset`` root, and per batch one
+    submit, fetch, scorer call and gather; the gathers run on the loader's
+    thread and belong to the call (its trace, as their parent)."""
+    import threading
+
+    from runia_core_tpu_torch.utils.profiling import recording
+
+    _, port_scorer = scorers
+    images_u8 = (rng.rand(3 * B + 5, IMG, IMG, 3) * 255).astype(np.uint8)
+    with recording() as rec:
+        ScoringService(port_scorer, seed=6, max_in_flight=2, device="cpu").score_dataset(images_u8, B)
+    spans = {}
+    for s in rec.spans:
+        spans.setdefault(s.name, []).append(s)
+    (root,) = spans["runia.service.score_dataset"]
+    assert root.parent is None and root.trace == root.id and root.thread == threading.get_ident()
+    for name in ("runia.service.submit", "runia.service.fetch", "runia.loader.gather"):
+        assert sorted(s.batch for s in spans[name]) == [0, 1, 2, 3], name
+    assert len(spans["runia.scorer.call"]) == 4
+    assert len(spans["runia.loader.wait"]) == 5  # one a batch, and the one that finds the loader done
+    assert all(s.trace == root.id for s in rec.spans)
+    for s in spans["runia.loader.gather"] + spans["runia.loader.wait"] + spans["runia.service.fetch"]:
+        assert s.parent == root.id
+    submits = {s.id for s in spans["runia.service.submit"]}
+    assert all(s.parent in submits for s in spans["runia.scorer.call"])
+    assert {s.thread for s in spans["runia.loader.gather"]} != {root.thread}
+    summary = rec.summary()
+    assert summary["runia.service.score_dataset"]["count"] == 1
+    assert summary["runia.service.submit"]["self_ms"] < summary["runia.service.submit"]["total_ms"]
+
+
+def test_answers_are_bitwise_equal_with_spans_recorded_profiled_or_off(scorers, rng, tmp_path):
+    from runia_core_tpu_torch.utils import cuda_profile
+    from runia_core_tpu_torch.utils.profiling import recording
+
+    _, port_scorer = scorers
+    images_u8 = (rng.rand(2 * B + 3, IMG, IMG, 3) * 255).astype(np.uint8)
+
+    def call():
+        return ScoringService(port_scorer, seed=8, device="cpu").score_dataset(images_u8, B)
+
+    off = call()
+    with recording() as rec:
+        recorded = call()
+    with cuda_profile(str(tmp_path)):
+        profiled = call()
+    assert rec.spans
+    for got in (recorded, profiled):
+        assert torch.equal(got[0], off[0]) and torch.equal(got[1], off[1])
