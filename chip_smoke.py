@@ -1159,6 +1159,7 @@ def image_flow_rn50_phase(device, gen, smi: str) -> dict:
     from runia_core_tpu_torch.extraction import FastMCDSamplesExtractor, Hook, MCDSamplesExtractor
     from runia_core_tpu_torch.inference import LaRExInference, build_larex_scorer, get_baselines_thresholds
     from runia_core_tpu_torch.models import build_tapped_forward
+    from runia_core_tpu_torch.ops.conv_epilogue import conv_epilogue
     from runia_core_tpu_torch.ops.entropy import marginal_entropy
     from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda, marginal_entropy_plain
     from runia_core_tpu_torch.ops.mc_entropy_cuda import fused_mc_entropy, fused_mc_entropy_plain, mc_dropblock_weights
@@ -1189,7 +1190,7 @@ def image_flow_rn50_phase(device, gen, smi: str) -> dict:
     del hook, taps, want
 
     # ---- (2) fit, counted from here ----
-    marginal_entropy_cuda.launches = fused_mc_entropy.launches = 0
+    marginal_entropy_cuda.launches = fused_mc_entropy.launches = conv_epilogue.launches = 0
     fit_loader = [(images(RN50_BATCH), torch.randint(0, NUM_CLASSES, (RN50_BATCH,), generator=gen, device=device))
                   for _ in range(RN50_FIT // RN50_BATCH)]
     extractor = FastMCDSamplesExtractor(
@@ -1271,9 +1272,12 @@ def image_flow_rn50_phase(device, gen, smi: str) -> dict:
                 f"{route} scorer vs LaRExInference.get_score: rel err {scorer_rel[route]} > {FLOW_SCORER_REL}")
     launches["marginal_entropy_scorer"] = marginal_entropy_cuda.launches - k1
     launches["fused_mc_entropy_scorer"] = fused_mc_entropy.launches - k2
-    totals = {"marginal_entropy": marginal_entropy_cuda.launches, "fused_mc_entropy": fused_mc_entropy.launches}
-    require(launches["marginal_entropy_scorer"] > 0 and launches["fused_mc_entropy_scorer"] > 0,
-            f"the scorer's routes launched kernels 1 and 2: {launches}")
+    totals = {"marginal_entropy": marginal_entropy_cuda.launches, "fused_mc_entropy": fused_mc_entropy.launches,
+              "conv_epilogue": conv_epilogue.launches}
+    launches["conv_epilogue"] = totals["conv_epilogue"]
+    require(launches["marginal_entropy_scorer"] > 0 and launches["fused_mc_entropy_scorer"] > 0
+            and launches["conv_epilogue"] > 0,
+            f"the scorer's routes launched kernels 1 and 2, the forwards the conv-norm epilogue: {launches}")
     # Outside the count: each kernel against its plain version on the flow's
     # own inputs (the fit set's samples, an OoD batch's tap and keep-weights),
     # and the routes' entropies against each other.
@@ -1468,6 +1472,7 @@ def eval_rn50_phase(device, gen, smi: str) -> dict:
         torch_auroc,
     )
     from runia_core_tpu_torch.extraction import FastMCDSamplesExtractor
+    from runia_core_tpu_torch.ops.conv_epilogue import conv_epilogue
     from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda, marginal_entropy_plain
     from runia_core_tpu_torch.ops.linalg import class_means, classwise_center, empirical_covariance
     from runia_core_tpu_torch.reduction import apply_pca_ds_split, apply_pca_transform
@@ -1492,7 +1497,7 @@ def eval_rn50_phase(device, gen, smi: str) -> dict:
         return forward(batch + 0.01 * torch.randn(batch.shape, generator=generator, device=batch.device))[0].float()
 
     # ---- (1) features, logits, MC samples and entropies of every split; counted from here ----
-    marginal_entropy_cuda.launches = 0
+    marginal_entropy_cuda.launches = conv_epilogue.launches = 0
     extractor = FastMCDSamplesExtractor(forward, "Conv", "fullmean", mcd_nro_samples=MC_SAMPLES,
                                         dropblock_probs=DROP_PROB, dropblock_sizes=BLOCK_SIZE, generator=gen)
     data, entropies, predictive, kernel_errors, stage_s = {}, {}, {}, {}, {}
@@ -1557,8 +1562,9 @@ def eval_rn50_phase(device, gen, smi: str) -> dict:
         postprocessors=list(EVAL_POSTPROCESSORS))
     torch.cuda.synchronize()
     stage_s["log_evaluate_larex"] = time.perf_counter() - t0
-    launches = {"marginal_entropy": marginal_entropy_cuda.launches}
-    require(launches["marginal_entropy"] >= len(EVAL_SPLITS), f"get_dl_h_z ran kernel 1 on every split: {launches}")
+    launches = {"marginal_entropy": marginal_entropy_cuda.launches, "conv_epilogue": conv_epilogue.launches}
+    require(launches["marginal_entropy"] >= len(EVAL_SPLITS) and launches["conv_epilogue"] > 0,
+            f"get_dl_h_z ran kernel 1 on every split, the forwards the conv-norm epilogue: {launches}")
     rows = [f"{o} {b}" for b in baselines for o in ood_names]
     rows += [f"{o} {p}{ext}" for ext in ["", *(f" PCA {n}" for n in EVAL_CFG["n_pca_components"])]
              for o in ood_names for p in EVAL_POSTPROCESSORS]
@@ -4743,6 +4749,102 @@ def roi_align_phase(device, gen) -> dict:
             "bound_by": top["bound_by"], "library_ms": None}
 
 
+# The conv-norm epilogue (csrc/conv_epilogue.cu) at ResNet-50 batch-128 and
+# ResNet-18 batch-512 maps: (N, C, H, W), residual (None, "add",
+# "projected"). Against its twin: f32 to 1e-6, bf16 one step (2^-7) of each
+# value, relative to |value| + 1e-6 of the largest (FMAs against
+# multiply-adds).
+EPILOGUE_CASES = {
+    "rn50_b128_stem": ((128, 64, 112, 112), None),
+    "rn50_b128_28x28x128_inner": ((128, 128, 28, 28), None),
+    "rn50_b128_56x56x256_residual": ((128, 256, 56, 56), "add"),
+    "rn50_b128_7x7x2048_projected": ((128, 2048, 7, 7), "projected"),
+    "rn18_b512_32x32x64_residual": ((512, 64, 32, 32), "add"),
+}
+EPILOGUE_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -7}
+
+
+def conv_epilogue_phase(device, gen) -> dict:
+    """The conv-norm epilogue against its plain twin at EPILOGUE_CASES, f32
+    and bf16, in place with the residual untouched; timed in bf16, cold, at
+    the ResNet-50 batch-128 block end with its residual, the inner 28 x 28 x
+    128 conv and the projected 7 x 7 x 2048 block end, against bytes / 3.35
+    TB/s (each map read once, the result written once), beside the module
+    passes it replaces (BatchNorm's eval forward, the residual add, ReLU)."""
+    from runia_core_tpu_torch.models.resnet import BatchNorm
+    from runia_core_tpu_torch.ops.conv_epilogue import conv_epilogue, conv_epilogue_plain
+    from runia_core_tpu_torch.utils import cuda_time_ms
+
+    def inputs(shape, residual, dtype):
+        def fmap():
+            return torch.randn(shape, generator=gen, device=device).to(dtype).contiguous(
+                memory_format=torch.channels_last)
+
+        def norm():
+            bn = BatchNorm(shape[1]).to(device).eval()
+            with torch.no_grad():
+                bn.weight.uniform_(0.5, 1.5, generator=gen)
+                bn.running_var.uniform_(0.5, 1.5, generator=gen)
+                bn.bias.normal_(0.0, 0.1, generator=gen)
+                bn.running_mean.normal_(0.0, 0.1, generator=gen)
+            return bn
+
+        norms = [norm()] + ([norm()] if residual == "projected" else [])
+        maps = [fmap()] + ([fmap()] if residual else [])
+        return maps, norms
+
+    def args(maps, norms):
+        rest = maps[1:] + (list(norms[1].affine()) if len(norms) > 1 else [])
+        return (maps[0], *norms[0].affine(), *rest)
+
+    errors = {}
+    for name, (shape, residual) in EPILOGUE_CASES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            maps, norms = inputs(shape, residual, dtype)
+            kept = [m.clone() for m in maps[1:]]
+            want = conv_epilogue_plain(*args(maps, norms))
+            got = conv_epilogue(*args(maps, norms))
+            torch.cuda.synchronize()
+            key = f"{name}/{str(dtype)[6:]}"
+            top = float(want.float().abs().max())
+            err = float(((got.float() - want.float()).abs() / (want.float().abs() + 1e-6 * top)).max())
+            errors[key] = err
+            require(got.data_ptr() == maps[0].data_ptr() and all(torch.equal(a, b) for a, b in zip(maps[1:], kept)),
+                    f"conv_epilogue {key}: written in place, the residual untouched")
+            require(err <= EPILOGUE_TOL[dtype], f"conv_epilogue {key}: {err} > {EPILOGUE_TOL[dtype]}")
+            del maps, kept, want, got
+    timing = {}
+    for name in ("rn50_b128_56x56x256_residual", "rn50_b128_28x28x128_inner", "rn50_b128_7x7x2048_projected"):
+        shape, residual = EPILOGUE_CASES[name]
+        maps, norms = inputs(shape, residual, torch.bfloat16)
+        per_map = maps[0].numel() * maps[0].element_size()
+        copies = cold_copies(tuple(maps), per_map * len(maps))
+
+        def modules(*m):
+            y = norms[0](m[0])
+            if len(m) == 1:
+                return torch.relu(y)
+            return torch.relu((norms[1](m[1]) if len(norms) > 1 else m[1]) + y)
+
+        times = timed_cold(lambda *m: conv_epilogue(*args(list(m), norms)),
+                           lambda *m: conv_epilogue_plain(*args(list(m), norms)), copies)
+        turns = itertools.cycle(copies)
+        modules_ms = cuda_time_ms(lambda: modules(*next(turns)), 10)
+        bound = roofline(per_map * (len(maps) + 1), 0, H100_F32_OPS_PER_S)
+        timing[name] = {"map": list(shape), "residual": residual, "copies": len(copies), **times,
+                        "modules_ms": modules_ms, **with_share(bound, times["ms"])}
+        require(timing[name]["share_of_bound"] <= 1.0, f"conv_epilogue {name}: faster than its bound: {timing[name]}")
+        del copies, maps, turns
+    top = timing["rn50_b128_56x56x256_residual"]
+    emit({"phase": "kernel_conv_epilogue", "max_rel_err": errors, "bound": {"f32": 1e-6, "bf16": 2.0 ** -7},
+          "timing": timing, "timed_with": "CUDA-graph replays, inputs cold (copies cycled past the L2); "
+          "ms_l2_warm: one input; modules_ms: BatchNorm's eval forward, the residual add and ReLU, eager",
+          "library_ms": None, "library": "none: no one PyTorch call is a norm, residual and ReLU"})
+    worst = max(errors.values())
+    return {"max_rel_err": worst, "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None}
+
+
 def make_dets(rng, n: int, img: int) -> dict:
     """bench.py:213-220's detections: corners in [0, img - 40), sides 8-38 px."""
     xy = rng.rand(n, 2) * (img - 40)
@@ -4760,6 +4862,7 @@ def object_scorer_phase(device, gen, smi: str) -> dict:
     from runia_core_tpu_torch.detectors import MDLatentSpace
     from runia_core_tpu_torch.extraction import batched_roi_features, build_object_scorer, pad_detections
     from runia_core_tpu_torch.models import ResNet18, build_tapped_forward
+    from runia_core_tpu_torch.ops.conv_epilogue import conv_epilogue
     from runia_core_tpu_torch.ops.linalg import mahalanobis_quadform
     from runia_core_tpu_torch.ops.roi_align import roi_align_nhwc_cuda
     from runia_core_tpu_torch.utils import cuda_graph_time_ms, cuda_time_ms, device_profile
@@ -4780,14 +4883,15 @@ def object_scorer_phase(device, gen, smi: str) -> dict:
     scorers = {mode: build_object_scorer(forward, md.state, output_sizes=(7,), img_shape=(OBJ_IMG, OBJ_IMG),
                                          use_graph=mode == "graph") for mode in ("graph", "eager")}
 
-    roi_align_nhwc_cuda.launches = 0
+    roi_align_nhwc_cuda.launches = conv_epilogue.launches = 0
     outs = []
     for _ in range(3):
         with no_host_sync():  # the first call captures the graph; every call replays it
             outs.append(scorers["graph"](images, padded))
     torch.cuda.synchronize()
-    launches = {"roi_align": roi_align_nhwc_cuda.launches}
-    require(launches["roi_align"] > 0, f"object_scorer: the ROIAlign kernel launched: {launches}")
+    launches = {"roi_align": roi_align_nhwc_cuda.launches, "conv_epilogue": conv_epilogue.launches}
+    require(all(n > 0 for n in launches.values()),
+            f"object_scorer: the ROIAlign kernel and the conv-norm epilogue launched: {launches}")
     want = scorers["eager"](images, padded)
     require(all(torch.equal(o, want) for o in outs), "object_scorer: graph = eager, bit for bit")
     require(tuple(want.shape) == (OBJ_BATCH, OBJ_MAX_DET) and bool(torch.isfinite(want).all()),
@@ -5098,6 +5202,7 @@ def detr_r50_flow_phase(device, gen, smi: str) -> dict:
     from runia_core_tpu_torch.evaluation import get_gtu_uu_metrics, get_overall_open_set_results, open_set
     from runia_core_tpu_torch.extraction import BoxFeaturesExtractor, HFDetrAdapter
     from runia_core_tpu_torch.models import DetrAdapter, convert_hf_detr
+    from runia_core_tpu_torch.ops.conv_epilogue import conv_epilogue
     from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda, marginal_entropy_plain
     from runia_core_tpu_torch.ops.roi_align import roi_align_nhwc_cuda, roi_align_nhwc_plain
     from runia_core_tpu_torch.sampling import MCSamplerModule
@@ -5134,7 +5239,7 @@ def detr_r50_flow_phase(device, gen, smi: str) -> dict:
     torch.cuda.synchronize()
 
     # ---- the main path, counted ----
-    roi_align_nhwc_cuda.launches = marginal_entropy_cuda.launches = 0
+    roi_align_nhwc_cuda.launches = marginal_entropy_cuda.launches = conv_epilogue.launches = 0
     start = time.perf_counter()
     extractor = BoxFeaturesExtractor(adapter, "detr-backbone", roi_output_sizes=[7])
     mc_extractor = BoxFeaturesExtractor(adapter, "detr-backbone", roi_output_sizes=[7], extract_noise_entropies=True,
@@ -5179,8 +5284,10 @@ def detr_r50_flow_phase(device, gen, smi: str) -> dict:
             start = time.perf_counter()
             gtu_uu = get_gtu_uu_metrics(**osod)
             seconds[f"gtu_uu_host{call}"] = time.perf_counter() - start
-        launches = {"roi_align": roi_align_nhwc_cuda.launches, "marginal_entropy": marginal_entropy_cuda.launches}
-        require(all(n > 0 for n in launches.values()), f"detr: ROIAlign and kernel 1 launched: {launches}")
+        launches = {"roi_align": roi_align_nhwc_cuda.launches, "marginal_entropy": marginal_entropy_cuda.launches,
+                    "conv_epilogue": conv_epilogue.launches}
+        require(all(n > 0 for n in launches.values()),
+                f"detr: ROIAlign, kernel 1 and the conv-norm epilogue launched: {launches}")
         flat = [v for ds in results.values() for m in ds.values() for v in m.values()]
         require(all(np.isfinite(v) for v in flat) and {"WI", "AOSE", "AP_U", "E_BK"} <= set(results["noise"]["md"]),
                 f"detr: finite open-set metrics {results}")
@@ -5324,6 +5431,7 @@ def deeplabv3p_r50_seg_phase(device, gen, smi: str) -> dict:
     from runia_core_tpu_torch.extraction import FastMCDSamplesExtractor
     from runia_core_tpu_torch.inference import build_larex_scorer, build_pixel_uncertainty_scorer
     from runia_core_tpu_torch.models import DeepLabV3Plus, build_tapped_forward
+    from runia_core_tpu_torch.ops.conv_epilogue import conv_epilogue
     from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda, marginal_entropy_plain
     from runia_core_tpu_torch.ops.mc_entropy_cuda import fused_mc_entropy, fused_mc_entropy_plain, mc_dropblock_weights
     from runia_core_tpu_torch.utils import cuda_graph_time_ms, cuda_time_ms
@@ -5344,7 +5452,7 @@ def deeplabv3p_r50_seg_phase(device, gen, smi: str) -> dict:
     torch.cuda.synchronize()
 
     # ---- the main path, counted ----
-    marginal_entropy_cuda.launches = fused_mc_entropy.launches = 0
+    marginal_entropy_cuda.launches = fused_mc_entropy.launches = conv_epilogue.launches = 0
     seconds = {}
     start = time.perf_counter()
     pixel = build_pixel_uncertainty_scorer(model, mc_samples=SEG_PIXEL_MC)
@@ -5375,8 +5483,10 @@ def deeplabv3p_r50_seg_phase(device, gen, smi: str) -> dict:
                 scores[route].append(scorer(batch, torch.Generator(device=device).manual_seed(SEED + 64 + i))[1])
     torch.cuda.synchronize()
     seconds["larex_scorers_2x2_calls"] = time.perf_counter() - start
-    launches = {"marginal_entropy": marginal_entropy_cuda.launches, "fused_mc_entropy": fused_mc_entropy.launches}
-    require(all(n > 0 for n in launches.values()), f"deeplab: kernels 1 and 2 launched: {launches}")
+    launches = {"marginal_entropy": marginal_entropy_cuda.launches, "fused_mc_entropy": fused_mc_entropy.launches,
+                "conv_epilogue": conv_epilogue.launches}
+    require(all(n > 0 for n in launches.values()),
+            f"deeplab: kernels 1 and 2 and the conv-norm epilogue launched: {launches}")
     for m in maps:
         require(all(tuple(m[k].shape) == (SEG_BATCH, SEG_IMG, SEG_IMG) for k in m) and m["pred"].dtype == torch.int32
                 and all(bool(torch.isfinite(m[k]).all()) for k in ("pred_h", "mi", "msp")),
@@ -5474,6 +5584,7 @@ def score_dataset_rn18_phase(device, gen, smi: str):
     from runia_core_tpu_torch.detectors import MDLatentSpace
     from runia_core_tpu_torch.inference import ScoringService, build_larex_scorer
     from runia_core_tpu_torch.models import build_tapped_forward
+    from runia_core_tpu_torch.ops.conv_epilogue import conv_epilogue
     from runia_core_tpu_torch.ops.entropy import marginal_entropy
     from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda
     from runia_core_tpu_torch.ops.mc_entropy_cuda import fused_mc_entropy
@@ -5498,12 +5609,14 @@ def score_dataset_rn18_phase(device, gen, smi: str):
     torch.cuda.synchronize()
 
     # ---- the main path, counted: a whole dataset through each route ----
-    marginal_entropy_cuda.launches = fused_mc_entropy.launches = 0
+    marginal_entropy_cuda.launches = fused_mc_entropy.launches = conv_epilogue.launches = 0
     start = time.perf_counter()
     served = {route: service.score_dataset(images_u8, BATCH) for route, service in services.items()}
     first_s = time.perf_counter() - start
-    launches = {"marginal_entropy": marginal_entropy_cuda.launches, "fused_mc_entropy": fused_mc_entropy.launches}
-    require(all(n > 0 for n in launches.values()), f"score_dataset: kernels 1 and 2 launched: {launches}")
+    launches = {"marginal_entropy": marginal_entropy_cuda.launches, "fused_mc_entropy": fused_mc_entropy.launches,
+                "conv_epilogue": conv_epilogue.launches}
+    require(all(n > 0 for n in launches.values()),
+            f"score_dataset: kernels 1 and 2 and the conv-norm epilogue launched: {launches}")
     for route, (logits, scores) in served.items():
         require(tuple(logits.shape) == (SERVE_IMAGES, NUM_CLASSES) and tuple(scores.shape) == (SERVE_IMAGES,)
                 and logits.device.type == "cpu" and bool(torch.isfinite(scores).all())
@@ -5592,6 +5705,7 @@ def dp_world1_phase(device, gen, smi: str, served: dict) -> dict:
 
     from runia_core_tpu_torch.detectors import MDLatentSpace
     from runia_core_tpu_torch.detectors.latent import kde_log_density, md_score
+    from runia_core_tpu_torch.ops.conv_epilogue import conv_epilogue
     from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda
     from runia_core_tpu_torch.ops.knn import squared_l2_kth_neighbor
     from runia_core_tpu_torch.ops.mc_entropy_cuda import fused_mc_entropy
@@ -5617,12 +5731,13 @@ def dp_world1_phase(device, gen, smi: str, served: dict) -> dict:
             want = {route: scorer(x, torch.Generator(device=device).manual_seed(SEED + 80))
                     for route, scorer in served["routes"].items()}
             dp = {route: data_parallel_scorer(scorer, mesh) for route, scorer in served["routes"].items()}
-            marginal_entropy_cuda.launches = fused_mc_entropy.launches = 0
+            marginal_entropy_cuda.launches = fused_mc_entropy.launches = conv_epilogue.launches = 0
             got = {route: dp[route](shard_batch(x, mesh), torch.Generator(device=device).manual_seed(SEED + 80))
                    for route in dp}
             launches = {"marginal_entropy": marginal_entropy_cuda.launches,
-                        "fused_mc_entropy": fused_mc_entropy.launches}
-            require(all(n > 0 for n in launches.values()), f"dp_world1: kernels 1 and 2 launched: {launches}")
+                        "fused_mc_entropy": fused_mc_entropy.launches, "conv_epilogue": conv_epilogue.launches}
+            require(all(n > 0 for n in launches.values()),
+                    f"dp_world1: kernels 1 and 2 and the conv-norm epilogue launched: {launches}")
             for route in dp:
                 require(all(torch.equal(a, b) for a, b in zip(got[route], want[route])),
                         f"dp_world1 {route}: the data-parallel scorer = the single-device scorer")
@@ -5967,6 +6082,7 @@ def main() -> None:
     train_rn18 = timed("train_rn18", train_rn18_phase, device, gen, smi)
     k_nms = timed("kernel_nms", nms_phase, device, gen)
     k_roi = timed("kernel_roi_align", roi_align_phase, device, gen)
+    k_epilogue = timed("kernel_conv_epilogue", conv_epilogue_phase, device, gen)
     objects = timed("object_scorer_rn18", object_scorer_phase, device, gen, smi)
     yolo = timed("yolov8m_flow", yolov8m_flow_phase, device, gen, smi)
     detr, _ = timed("detr_r50_flow", detr_r50_flow_phase, device, gen, smi)
@@ -5976,7 +6092,7 @@ def main() -> None:
     del served
     torch.cuda.empty_cache()
     mp_world1 = timed("mp_world1", mp_world1_phase, device, gen, smi)
-    launches.update(nms=0, roi_align=0)
+    launches.update(nms=0, roi_align=0, conv_epilogue=0)
     for counts in (flow, evaluation, semantic, speculative, mixed, spec1b, serve7b, spec7b, fused7b, moe, int8_rn18,
                    vit_b16, train_rn18, objects, yolo, detr, seg, dataset, dp_world1, mp_world1):
         for name, n in counts.items():
@@ -6004,6 +6120,9 @@ def main() -> None:
          "replaces": "runia_core_tpu/ops/nms.py:47", "launches": launches["nms"], **k_nms},
         {"name": "roi_align", "route": "cuda", "source": "runia_core_tpu_torch/csrc/roi_align.cu",
          "replaces": "runia_core_tpu/ops/roi_align.py:90", "launches": launches["roi_align"], **k_roi},
+        {"name": "conv_epilogue", "route": "cuda", "source": "runia_core_tpu_torch/csrc/conv_epilogue.cu",
+         "replaces": "none: XLA fuses the JAX ResNet's norm, residual add and ReLU (runia_core_tpu/models/resnet.py)",
+         "launches": launches["conv_epilogue"], **k_epilogue},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

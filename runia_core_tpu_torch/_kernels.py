@@ -60,6 +60,9 @@ _SIGNATURES = {
     #  aligned, sampling ratio, max samples, bf16 map, mean, 16-byte loads,
     #  channel vectors a block, thread groups, threads, shared bytes, stream)
     "runia_roi_align": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # (y, residual, scale, shift, scale_p, shift_p, rows, channels, bf16 map,
+    #  residual mode, stream)
+    "runia_conv_epilogue": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

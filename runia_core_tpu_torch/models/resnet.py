@@ -27,21 +27,36 @@ backward pass (``torch.utils.checkpoint``). In training mode
 (``model.train()``) :class:`BatchNorm` is flax's: it normalises with the
 batch's biased variance and moves the running statistics as
 ``0.9 * running + 0.1 * batch``.
+
+Where XLA fuses each norm, residual add and ReLU into one loop over the
+conv's output, the port does so with the conv-norm epilogue
+(``ops/conv_epilogue.py``, a hand-written CUDA kernel) on the parameters
+prepared once (:func:`_prepared`): each conv's kernel in the compute dtype,
+each norm's f32 scale and shift, the head in the compute dtype. It serves a
+call that records no gradient, of a module in ``eval()``, on a CUDA
+channels_last map, whose convs and norms no forward hook watches
+(:func:`_epilogue_serves`); every other call (the CPU, training,
+``remat``, an input-gradient baseline, a tapped conv or norm) runs the
+modules one by one.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import weakref
 from functools import partial
 from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.modules import module as _module_hooks
 from torch.utils.checkpoint import checkpoint
 
 from runia_core_tpu_torch import default_device
+from runia_core_tpu_torch.ops import conv_epilogue as epilogue
+from runia_core_tpu_torch.utils.graphs import current_graph
 
 __all__ = [
     "BatchNorm",
@@ -91,10 +106,57 @@ def stem_to_s2d(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tenso
     return {**state_dict, "conv_init.weight": w.permute(3, 2, 0, 1).contiguous()}
 
 
-class Conv(nn.Conv2d):
+def _current(stamp, sources: Sequence[torch.Tensor]) -> bool:
+    return len(stamp) == len(sources) and all(
+        ref() is t and version == t._version and ptr == t.data_ptr() for (ref, version, ptr), t in zip(stamp, sources))
+
+
+def _prepared(owner: nn.Module, key, sources: Sequence[torch.Tensor], make: Callable[[], object]):
+    """``make()``, kept on ``owner`` for ``key`` (the compute dtype) and made
+    again when a source is replaced, edited in place or moved (its object,
+    held weakly, its ``_version`` or its storage). An edit through
+    ``.data``, which keeps the tensor's version, is not seen: edit under
+    ``torch.no_grad()``. For calls that record no gradient.
+
+    Nothing is kept from inside a stream capture, whose kernels have not run
+    yet: :class:`CudaGraph`'s warm-up calls make the copy. A graph being
+    warmed up or captured holds what it read (``workspaces``), so a copy
+    made later for new weights leaves it reading the old one, as a jitted
+    JAX program keeps the constants it closed over; a ``ProgramCache``
+    drops such a graph when it builds one over the new copy."""
+    kept = owner.__dict__.setdefault("_prepared", {})
+    entry = kept.get(key)
+    if entry is not None and _current(entry[0], sources):
+        value = entry[1]
+    else:
+        value = make()
+        if not (sources[0].is_cuda and torch.cuda.is_current_stream_capturing()):
+            kept[key] = (tuple((weakref.ref(t), t._version, t.data_ptr()) for t in sources), value)
+    graph = current_graph()
+    if graph is not None:
+        graph.workspaces[("prepared", id(owner), key)] = value
+    return value
+
+
+class _KeepsPrepared:
+    """A module whose :func:`_prepared` copies go when it is moved or cast,
+    and are not pickled or copied with it."""
+
+    def _apply(self, fn, *args, **kwargs):
+        self.__dict__.pop("_prepared", None)
+        return super()._apply(fn, *args, **kwargs)
+
+    def __getstate__(self):
+        state = dict(super().__getstate__())
+        state.pop("_prepared", None)
+        return state
+
+
+class Conv(_KeepsPrepared, nn.Conv2d):
     """Bias-free convolution with XLA "SAME" padding (``padding="SAME"``), a
     fixed symmetric padding (an int) or explicit ``((top, bottom), (left,
-    right))``. Computes in the input's dtype."""
+    right))``. Computes in the input's dtype, with the kernel ``weight``
+    where given (:meth:`prepared`), else the parameter cast."""
 
     def __init__(self, in_features: int, features: int, kernel: int, stride: int = 1,
                  dilation: int = 1, padding="SAME"):
@@ -103,7 +165,13 @@ class Conv(nn.Conv2d):
         self.explicit = None if self.same or isinstance(padding, int) else tuple(map(tuple, padding))
         self.fixed_padding = padding if isinstance(padding, int) else 0
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def prepared(self, dtype: torch.dtype) -> torch.Tensor:
+        """The kernel in ``dtype``, channels_last, made once per version of
+        the weight (:func:`_prepared`)."""
+        return _prepared(self, dtype, (self.weight,),
+                         lambda: self.weight.detach().to(dtype=dtype, memory_format=torch.channels_last, copy=True))
+
+    def forward(self, x: torch.Tensor, weight: Optional[torch.Tensor] = None) -> torch.Tensor:
         padding = self.fixed_padding
         if self.explicit is not None:
             (h_lo, h_hi), (w_lo, w_hi) = self.explicit
@@ -118,7 +186,8 @@ class Conv(nn.Conv2d):
             else:
                 x = F.pad(x, (w_lo, w_hi, h_lo, h_hi))
                 padding = 0
-        return F.conv2d(x, self.weight.to(x.dtype), None, self.stride, padding, self.dilation)
+        weight = self.weight.to(x.dtype) if weight is None else weight
+        return F.conv2d(x, weight, None, self.stride, padding, self.dilation)
 
 
 def _padding_rule(torch_padding: bool) -> Callable[..., object]:
@@ -126,7 +195,7 @@ def _padding_rule(torch_padding: bool) -> Callable[..., object]:
     return (lambda k, d=1: d * (k // 2)) if torch_padding else (lambda k, d=1: "SAME")
 
 
-class BatchNorm(nn.Module):
+class BatchNorm(_KeepsPrepared, nn.Module):
     """flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW.
 
     Inference (``eval()``): ``x * s + (bias - mean * s)`` with
@@ -152,9 +221,18 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             return self._train_forward(x)
-        scale = torch.rsqrt(self.running_var + self.eps) * self.weight
-        shift = self.bias - self.running_mean * scale
+        scale, shift = self._fold()
         return torch.addcmul(shift.to(x.dtype)[:, None, None], x, scale.to(x.dtype)[:, None, None])
+
+    def _fold(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        scale = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return scale, self.bias - self.running_mean * scale
+
+    def affine(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The f32 ``(s, bias - mean * s)`` of inference, made once per
+        version of the norm's tensors (:func:`_prepared`)."""
+        return _prepared(self, self.eps, (self.weight, self.bias, self.running_mean, self.running_var),
+                         lambda: tuple(t.detach() for t in self._fold()))
 
     def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.to(torch.float32)
@@ -184,6 +262,40 @@ def _frozen_statistics(module: nn.Module):
             norm.frozen = False
 
 
+def _epilogue_serves(module: nn.Module, x: torch.Tensor, channels: Sequence[int], parts: Sequence[nn.Module]) -> bool:
+    """True if the prepared parameters and the conv-norm epilogue serve a
+    call of ``module`` on ``x`` whose convs give ``channels`` channels: the
+    module in ``eval()``, no gradient recorded, a map the epilogue's kernel
+    reads (``ops/conv_epilogue.py::serves``), and no forward hook on the
+    convs and norms ``parts`` nor one registered for all modules (the
+    epilogue calls no norm and rewrites its conv's output, so a hook there
+    would see another tensor than the modules give it)."""
+    return (not module.training and not torch.is_grad_enabled() and epilogue.serves(x, channels)
+            and not (_module_hooks._global_forward_hooks or _module_hooks._global_forward_pre_hooks)
+            and not any(m._forward_hooks or m._forward_pre_hooks for m in parts))
+
+
+def _conv_epilogue(conv: Conv, norm: BatchNorm, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                   proj_norm: Optional[BatchNorm] = None) -> torch.Tensor:
+    """``relu(norm(conv(x)) [+ residual | + proj_norm(residual)])``: ``conv``
+    on its prepared kernel, then one epilogue pass over its output."""
+    y = conv(x, conv.prepared(x.dtype)).contiguous(memory_format=torch.channels_last)
+    scale, shift = norm.affine()
+    scale_p, shift_p = (None, None) if proj_norm is None else proj_norm.affine()
+    if residual is not None:
+        residual = residual.contiguous(memory_format=torch.channels_last)
+    return epilogue.conv_epilogue(y, scale, shift, residual, scale_p, shift_p)
+
+
+def _block_end(block: nn.Module, conv: Conv, norm: BatchNorm, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A block's last conv over ``y`` with its residual, the block input
+    ``x`` or its projection, in one epilogue pass."""
+    if block.has_proj:
+        proj = block.conv_proj
+        return _conv_epilogue(conv, norm, y, proj(x, proj.prepared(x.dtype)), block.norm_proj)
+    return _conv_epilogue(conv, norm, y, x)
+
+
 class ResNetBlock(nn.Module):
     """Basic residual block (two 3x3 convs, both dilated by ``dilation``)."""
 
@@ -203,6 +315,9 @@ class ResNetBlock(nn.Module):
             self.norm_proj = BatchNorm(filters)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _epilogue_serves(self, x, (self.Conv_1.out_channels,), tuple(self.children())):
+            y = _conv_epilogue(self.Conv_0, self.BatchNorm_0, x)
+            return _block_end(self, self.Conv_1, self.BatchNorm_1, y, x)
         y = torch.relu(self.BatchNorm_0(self.Conv_0(x)))
         y = self.BatchNorm_1(self.Conv_1(y))
         residual = self.norm_proj(self.conv_proj(x)) if self.has_proj else x
@@ -231,6 +346,10 @@ class BottleneckResNetBlock(nn.Module):
             self.norm_proj = BatchNorm(filters * 4)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _epilogue_serves(self, x, (self.Conv_0.out_channels, self.Conv_2.out_channels), tuple(self.children())):
+            y = _conv_epilogue(self.Conv_0, self.BatchNorm_0, x)
+            y = _conv_epilogue(self.Conv_1, self.BatchNorm_1, y)
+            return _block_end(self, self.Conv_2, self.BatchNorm_2, y, x)
         y = torch.relu(self.BatchNorm_0(self.Conv_0(x)))
         y = torch.relu(self.BatchNorm_1(self.Conv_1(y)))
         y = self.BatchNorm_2(self.Conv_2(y))
@@ -238,7 +357,7 @@ class BottleneckResNetBlock(nn.Module):
         return torch.relu(residual + y)
 
 
-class ResNet(nn.Module):
+class ResNet(_KeepsPrepared, nn.Module):
     """ResNet with taps; NHWC in and out; computes in ``dtype`` while the
     parameters stay f32 (as flax's ``dtype`` / ``param_dtype``). They are
     made on ``device``: None is ``runia_core_tpu_torch.default_device()``,
@@ -252,7 +371,17 @@ class ResNet(nn.Module):
     :func:`space_to_depth_2x2` of the input. ``remat``: while gradients are
     recorded, each block runs under ``torch.utils.checkpoint`` and is
     recomputed in the backward pass, its batch-norm statistics moved once.
-    A new model is in ``eval()`` mode; ``train()`` selects batch statistics."""
+    A new model is in ``eval()`` mode; ``train()`` selects batch statistics.
+
+    A call that records no gradient, in ``eval()``, on a CUDA NHWC batch
+    runs each conv's norm, residual and ReLU as one epilogue pass over
+    parameters prepared once per weights version (the module docstring).
+    A CUDA graph captured over the model reads the prepared copy it found at
+    capture, as a jitted JAX program holds the constants it closed over:
+    after an edit of the weights, build the graph (the scorer) again. A
+    scorer's ``ProgramCache`` drops its graphs over an older copy when it
+    captures one over a newer. An edit through ``.data`` is not seen (edit
+    under ``torch.no_grad()``)."""
 
     def __init__(
         self,
@@ -326,7 +455,11 @@ class ResNet(nn.Module):
             images = space_to_depth_2x2(images)
         x = images.permute(0, 3, 1, 2)  # NHWC -> NCHW view
         taps: Dict[str, torch.Tensor] = {}
-        x = torch.relu(self.bn_init(self.conv_init(x)))
+        prepared = _epilogue_serves(self, x, (self.conv_init.out_channels,), (self.conv_init, self.bn_init))
+        if prepared:
+            x = _conv_epilogue(self.conv_init, self.bn_init, x)
+        else:
+            x = torch.relu(self.bn_init(self.conv_init(x)))
         if not self.cifar_stem:
             x = self._max_pool(x)
         taps["stem"] = x.permute(0, 2, 3, 1)
@@ -339,8 +472,13 @@ class ResNet(nn.Module):
         taps["penultimate"] = x
         if not self.include_head:
             return None, taps
-        logits = F.linear(x, self.head.weight.to(x.dtype), self.head.bias.to(x.dtype))
-        return logits, taps
+        head = self.head
+        if prepared:
+            weight, bias = _prepared(self, x.dtype, (head.weight, head.bias), lambda: (
+                head.weight.detach().to(x.dtype, copy=True), head.bias.detach().to(x.dtype, copy=True)))
+        else:
+            weight, bias = head.weight.to(x.dtype), head.bias.to(x.dtype)
+        return F.linear(x, weight, bias), taps
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None) -> "ResNet":

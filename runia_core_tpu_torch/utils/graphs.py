@@ -231,7 +231,12 @@ class ProgramCache:
     least recently used go past ``maxsize`` entries, or while the entries'
     device buffers (a program's ``nbytes``) add up to more than
     ``max_bytes``; the newest entry always stays. A caller that still holds
-    a dropped program keeps it working."""
+    a dropped program keeps it working.
+
+    A new program whose graph read prepared parameters (a ResNet's,
+    ``models/resnet.py::_prepared``) drops the programs that read another
+    copy of the same parameters: the weights were edited between the two
+    captures, and one cache never serves both versions."""
 
     def __init__(self, maxsize: int, max_bytes: Optional[int] = None):
         self.maxsize = maxsize
@@ -266,6 +271,10 @@ class ProgramCache:
         program = self.get(key)
         if program is None:
             program = build()
+            read = _prepared_reads(program)
+            if read:
+                self.discard(lambda k: any(read.get(name, copy) is not copy
+                                           for name, copy in _prepared_reads(self.entries[k]).items()))
             self.put(key, program)
         return program
 
@@ -273,6 +282,13 @@ class ProgramCache:
         """Drop every entry whose key ``match`` accepts."""
         for key in [key for key in self.entries if match(key)]:
             del self.entries[key]
+
+
+def _prepared_reads(program) -> dict:
+    """The prepared parameters a program (a :class:`CudaGraph`) read, by
+    ``("prepared", owner id, key)``."""
+    workspaces = getattr(program, "workspaces", {})
+    return {name: copy for name, copy in workspaces.items() if isinstance(name, tuple) and name[:1] == ("prepared",)}
 
 
 @contextlib.contextmanager

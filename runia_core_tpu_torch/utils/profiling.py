@@ -19,7 +19,8 @@ a ``user_annotation`` in the trace, on the kernels' clock. Inside
 :func:`recording`, each span that ends appends a :class:`SpanRecord`
 (``time.perf_counter_ns`` clock, its parent and the id of its root, shared
 by every span of one call) to every open :class:`Recording`, which also
-counts the graph captures and entropy-kernel launches over its life.
+counts the graph captures and the entropy kernels' and conv-norm
+epilogue's launches over its life.
 
 The JAX package's ``enable_compilation_cache`` has no counterpart: it sets
 XLA's persistent compilation cache, and the port compiles no programs
@@ -147,15 +148,16 @@ class SpanRecord(NamedTuple):
 
 
 def _read_counters() -> Dict[str, int]:
-    """The launches the entropy kernels' wrappers count and the captures
-    ``CudaGraph`` counts, as they stand (imported here: those modules
-    import this one)."""
+    """The launches the entropy kernels' and the conv-norm epilogue's
+    wrappers count and the captures ``CudaGraph`` counts, as they stand
+    (imported here: those modules import this one)."""
+    from runia_core_tpu_torch.ops.conv_epilogue import conv_epilogue
     from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda
     from runia_core_tpu_torch.ops.mc_entropy_cuda import fused_mc_entropy
     from runia_core_tpu_torch.utils.graphs import CudaGraph
 
     return {"CudaGraph.captures": CudaGraph.captures, "marginal_entropy_cuda.launches": marginal_entropy_cuda.launches,
-            "fused_mc_entropy.launches": fused_mc_entropy.launches}
+            "fused_mc_entropy.launches": fused_mc_entropy.launches, "conv_epilogue.launches": conv_epilogue.launches}
 
 
 class Recording:
@@ -264,8 +266,9 @@ def current_span() -> Optional[_Span]:
 def recording() -> Iterator[Recording]:
     """Keep the spans that end inside the block, on every thread, in a
     :class:`Recording`; its ``counters`` are the rises of
-    ``CudaGraph.captures``, ``marginal_entropy_cuda.launches`` and
-    ``fused_mc_entropy.launches`` over the block. Recordings may nest and
+    ``CudaGraph.captures``, ``marginal_entropy_cuda.launches``,
+    ``fused_mc_entropy.launches`` and ``conv_epilogue.launches`` over the
+    block. Recordings may nest and
     overlap; each gets every span that ends while it is open."""
     rec = Recording()
     before = _read_counters()

@@ -7,6 +7,7 @@ so on a machine without it they run with the repository's conftest left out:
 """
 
 import contextlib
+import copy
 
 import numpy as np
 import pytest
@@ -556,8 +557,9 @@ def test_scorer_replays_match_eager(gen, fused):
 
 def test_a_recorded_second_scorer_call_replays_with_one_kernel_1_launch(gen):
     """The first call of a shape captures (a ``runia.graph.capture`` span);
-    a second call of that shape records no capture, one launch of kernel 1,
-    and its stages as children of the call, with answers equal bit for bit
+    a second call of that shape records no capture, one launch of kernel 1
+    (and the forward's 17 of the conv-norm epilogue), and its stages as
+    children of the call, with answers equal bit for bit
     to the same call unrecorded."""
     from runia_core_tpu_torch.inference import build_larex_scorer
     from runia_core_tpu_torch.utils.profiling import recording
@@ -573,7 +575,7 @@ def test_a_recorded_second_scorer_call_replays_with_one_kernel_1_launch(gen):
         recorded = scorer(images, torch.Generator(device="cuda").manual_seed(2))
     plain = scorer(images, torch.Generator(device="cuda").manual_seed(2))
     assert second.counters == {"CudaGraph.captures": 0, "marginal_entropy_cuda.launches": 1,
-                               "fused_mc_entropy.launches": 0}
+                               "fused_mc_entropy.launches": 0, "conv_epilogue.launches": 17}
     (call,) = [s for s in second.spans if s.name == "runia.scorer.call"]
     stages = [s for s in second.spans if s is not call]
     assert [s.name for s in stages] == ["runia.scorer.load", "runia.scorer.replay", "runia.scorer.copy_out"]
@@ -1551,3 +1553,220 @@ def test_native_open_set_matcher_on_the_card_machine(gen):
     got = open_set._mark_unknown_overlaps(400, image_ids, bb, recs, 0.5)
     want = open_set._mark_unknown_overlaps(400, image_ids, bb, recs, 0.5, native=False)
     np.testing.assert_array_equal(got[2], want[2])
+
+
+# ---- the conv-norm epilogue (csrc/conv_epilogue.cu) and the ResNet path over it ----
+
+# The kernel's FMAs against the twin's multiply-adds on the card: f32 within
+# a few steps of the largest term; bf16 one step of the result (2^-7 of it)
+# where an f32 difference crosses a rounding boundary.
+EPILOGUE_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -7}
+
+_EPILOGUE_CASES = {  # (N, C, H, W), residual: None, "add" or "projected"
+    "rn50_b128_stem": ((128, 64, 112, 112), None),
+    "rn50_b128_28x28x128_inner": ((128, 128, 28, 28), None),
+    "rn50_b128_56x56x256_residual": ((128, 256, 56, 56), "add"),
+    "rn50_b128_56x56x256_projected": ((128, 256, 56, 56), "projected"),
+    "rn50_b128_7x7x2048_projected": ((128, 2048, 7, 7), "projected"),
+    "rn18_b512_32x32x64_residual": ((512, 64, 32, 32), "add"),
+    "rn18_b512_4x4x512_projected": ((512, 512, 4, 4), "projected"),
+    "odd_channels_24": ((3, 24, 5, 7), "projected"),
+}
+
+
+def _epilogue_inputs(gen, shape, residual, dtype):
+    """y, scale, shift and the residual's arguments: none; the map; the
+    map, scale_p and shift_p."""
+    def fmap():
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype).contiguous(memory_format=torch.channels_last)
+
+    def affine():
+        c = shape[1]
+        return [torch.rand(c, generator=gen, device="cuda") + 0.5, 0.3 * torch.randn(c, generator=gen, device="cuda")]
+
+    y, (scale, shift) = fmap(), affine()
+    rest = [] if residual is None else [fmap()] + (affine() if residual == "projected" else [])
+    return y, scale, shift, rest
+
+
+def _epilogue_error(got, want, top):
+    return float(((got.float() - want.float()).abs() / (want.float().abs() + 1e-6 * top)).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(_EPILOGUE_CASES))
+def test_conv_epilogue_kernel_matches_its_twin(gen, case, dtype):
+    """In place over the map, the residual untouched, against the plain twin
+    at the ResNet-50 batch-128 and ResNet-18 batch-512 maps."""
+    from runia_core_tpu_torch.ops.conv_epilogue import conv_epilogue, conv_epilogue_plain
+
+    shape, residual = _EPILOGUE_CASES[case]
+    y, scale, shift, rest = _epilogue_inputs(gen, shape, residual, dtype)
+    kept = [t.clone() for t in rest[:1]]
+    want = conv_epilogue_plain(y, scale, shift, *rest)
+    before = conv_epilogue.launches
+    got = conv_epilogue(y, scale, shift, *rest)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == y.data_ptr() and conv_epilogue.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(rest[:1], kept))
+    top = float(want.float().abs().max())
+    assert _epilogue_error(got, want, top) <= EPILOGUE_TOL[dtype]
+
+
+def test_conv_epilogue_refuses_what_it_does_not_read(gen):
+    from runia_core_tpu_torch.ops.conv_epilogue import conv_epilogue
+
+    y, scale, shift, (r, sp, bp) = _epilogue_inputs(gen, (2, 16, 4, 4), "projected", torch.bfloat16)
+    nchw = y.contiguous()
+    narrow, s12, b12, _ = _epilogue_inputs(gen, (2, 12, 4, 4), None, torch.bfloat16)
+    half = y.to(torch.float16)
+    misaligned = _offset_view(y.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+    for args in [(nchw, scale, shift), (narrow, s12, b12), (half, scale, shift), (misaligned, scale, shift),
+                 (y, scale, shift, y), (y, scale, shift, r.contiguous()), (y, scale, shift, r.float()),
+                 (y, scale, shift, None, sp, bp), (y, scale, shift, r, sp), (y, scale.double(), shift),
+                 (y, scale[:8], shift)]:
+        with pytest.raises(ValueError, match="conv_epilogue"):
+            conv_epilogue(*args)
+
+
+def _rn(depth, dtype, **kw):
+    """A seeded ResNet-18 or -50 on the card, channels_last, in eval(), its
+    norms' statistics and scales away from the identity (a wrong fold or a
+    lost residual shows)."""
+    from runia_core_tpu_torch.models import ResNet18, ResNet50
+    from runia_core_tpu_torch.models.resnet import BatchNorm
+
+    g = torch.Generator(device="cuda").manual_seed(depth)
+    model = (ResNet50 if depth == 50 else ResNet18)(num_classes=10, dtype=dtype, device="cuda", **kw)
+    model.init_weights(g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+                m.bias.normal_(0.0, 0.1, generator=g)
+                m.running_mean.normal_(0.0, 0.1, generator=g)
+    return model.to(memory_format=torch.channels_last).eval()
+
+
+@pytest.mark.parametrize("depth,launches", [(50, 49), (18, 17)])
+def test_the_resnet_path_counts_one_epilogue_a_conv_and_none_elsewhere(gen, depth, launches):
+    """An eval, no-gradient call on the card launches the epilogue once for
+    the stem and once for each conv that is not a projection (ResNet-50 49,
+    ResNet-18 17) and matches the modules' path on the CPU (f32, TF32 off);
+    ``train()``, a call recording a gradient and the CPU launch none."""
+    from runia_core_tpu_torch.ops.conv_epilogue import conv_epilogue
+
+    torch.backends.cudnn.allow_tf32 = False
+    model = _rn(depth, torch.float32, **({"cifar_stem": True} if depth == 18 else {}))
+    size = 32 if depth == 18 else 64
+    x = torch.rand((4, size, size, 3), generator=gen, device="cuda")
+    cpu = copy.deepcopy(model).cpu()
+    before = conv_epilogue.launches
+    with torch.inference_mode():
+        logits, taps = model(x)
+    assert conv_epilogue.launches == before + launches
+    with torch.no_grad():
+        want_logits, want_taps = cpu(x.cpu())
+    torch.testing.assert_close(logits.cpu(), want_logits, rtol=1e-4, atol=1e-4 * float(want_logits.abs().max()))
+    torch.testing.assert_close(taps["pre_pool"].cpu(), want_taps["pre_pool"], rtol=1e-4,
+                               atol=1e-4 * float(want_taps["pre_pool"].abs().max()))
+    before = conv_epilogue.launches
+    model(x.clone().requires_grad_(True))[0].sum().backward()
+    model.train()
+    with torch.no_grad():
+        model(x)
+    assert conv_epilogue.launches == before
+
+
+def test_a_resnet50_graph_replay_equals_the_eager_call_and_keeps_its_weights(gen):
+    """A bf16 ResNet-50 forward captured (its warm-up prepares the
+    parameters): a replay equals the eager call, 49 launches a replay; after
+    an in-place edit of a conv weight an eager call reads the new weights
+    and the replay still the copy it was captured with."""
+    from runia_core_tpu_torch.models import build_tapped_forward
+    from runia_core_tpu_torch.ops.conv_epilogue import conv_epilogue
+
+    model = _rn(50, torch.bfloat16)
+    forward = build_tapped_forward(model, ("pre_pool",))
+
+    def fn(images):
+        logits, taps = forward(images)
+        return logits, taps["pre_pool"]
+
+    x = torch.rand((16, 224, 224, 3), generator=gen, device="cuda")
+    graph = CudaGraph(fn, {"images": x})
+    graph.load(images=x)
+    before = conv_epilogue.launches
+    with no_host_sync():
+        replayed = [t.clone() for t in graph.replay()]
+    assert conv_epilogue.launches == before + 49
+    eager = fn(x)
+    for got, want in zip(replayed, eager):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * float(want.float().abs().max()))
+    with torch.no_grad():
+        model.stage4_block2.Conv_2.weight.mul_(-1.0)
+    edited = fn(x)
+    assert not torch.equal(edited[1], eager[1])
+    for got, want in zip(graph.replay(), eager):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * float(want.float().abs().max()))
+
+
+def test_taps_of_a_conv_and_a_norm_equal_the_modules_path(gen):
+    """``tap_torch_model`` hooks on a conv and a norm of a ResNet-50: on an
+    inference-mode call (the epilogue's) they equal the same taps of a call
+    that records a gradient (the modules' path), and the two hooked blocks
+    decline the epilogue (49 - 6 launches)."""
+    from runia_core_tpu_torch.extraction import tap_torch_model
+    from runia_core_tpu_torch.ops.conv_epilogue import conv_epilogue
+
+    torch.backends.cudnn.allow_tf32 = False
+    model = _rn(50, torch.float32)
+    names = ("stage4_block2.Conv_2", "stage1_block0.BatchNorm_1")
+    tapped = tap_torch_model(model, names, device="cuda")
+    x = torch.rand((4, 64, 64, 3), generator=gen, device="cuda")
+    before = conv_epilogue.launches
+    (logits, _), taps = tapped(x)
+    assert conv_epilogue.launches == before + 49 - 6
+    kept = {}
+    handles = [model.get_submodule(n).register_forward_hook(lambda m, a, out, n=n: kept.__setitem__(n, out.detach()))
+               for n in names]
+    try:
+        with torch.enable_grad():
+            want_logits = model(x.clone().requires_grad_(True))[0].detach()
+    finally:
+        for h in handles:
+            h.remove()
+    for n in names:
+        torch.testing.assert_close(taps[n], kept[n], rtol=1e-4, atol=1e-4 * float(kept[n].abs().max()))
+    torch.testing.assert_close(logits, want_logits, rtol=1e-4, atol=1e-4 * float(want_logits.abs().max()))
+
+
+def test_a_scorer_drops_its_graphs_over_weights_edited_since(gen):
+    """A LaREx scorer over a ResNet-18: graphs of one batch shape, then an
+    in-place edit of the weights, then a new batch shape's capture. The new
+    shape's graph reads the new weights, the old shape's graph is dropped
+    and captured again over them: both replays equal the eager call."""
+    from runia_core_tpu_torch.inference import build_larex_scorer
+    from runia_core_tpu_torch.models import build_tapped_forward
+
+    torch.backends.cudnn.allow_tf32 = False
+    model = _rn(18, torch.float32, cifar_stem=True)
+    forward = build_tapped_forward(model, ("pre_pool",))
+    state = {"feats_mean": torch.zeros(512, device="cuda"), "precision": torch.eye(512, device="cuda")}
+    scorer = build_larex_scorer(forward, None, state, 16, 0.5, 3)
+    eager = build_larex_scorer(forward, None, state, 16, 0.5, 3, use_graph=False)
+    small, large = (torch.rand((n, 32, 32, 3), generator=gen, device="cuda") for n in (8, 16))
+    captures = CudaGraph.captures
+    with no_host_sync():
+        scorer(small, torch.Generator(device="cuda").manual_seed(1))
+    with torch.no_grad():
+        model.stage2_block0.Conv_0.weight.mul_(-1.0)
+        model.stage3_block1.BatchNorm_1.running_var.mul_(3.0)
+    for x in (large, small):
+        with no_host_sync():
+            got = scorer(x, torch.Generator(device="cuda").manual_seed(2))
+        want = eager(x, torch.Generator(device="cuda").manual_seed(2))
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6 * float(w.float().abs().max()))
+    assert CudaGraph.captures == captures + 3

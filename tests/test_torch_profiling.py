@@ -221,6 +221,7 @@ def test_spans_are_user_annotations_in_the_profilers_trace(tmp_path):
 
 
 def test_a_recording_counts_captures_and_launches_over_its_life(monkeypatch):
+    from runia_core_tpu_torch.ops.conv_epilogue import conv_epilogue
     from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda
     from runia_core_tpu_torch.ops.mc_entropy_cuda import fused_mc_entropy
     from runia_core_tpu_torch.utils.graphs import CudaGraph
@@ -228,15 +229,17 @@ def test_a_recording_counts_captures_and_launches_over_its_life(monkeypatch):
     monkeypatch.setattr(CudaGraph, "captures", 5)
     monkeypatch.setattr(marginal_entropy_cuda, "launches", 9)
     monkeypatch.setattr(fused_mc_entropy, "launches", 2)
+    monkeypatch.setattr(conv_epilogue, "launches", 4)
     with profiling.recording() as outer:
         CudaGraph.captures += 1
         with profiling.recording() as inner:
             marginal_entropy_cuda.launches += 3
+            conv_epilogue.launches += 17
         fused_mc_entropy.launches += 1
     assert inner.counters == {"CudaGraph.captures": 0, "marginal_entropy_cuda.launches": 3,
-                              "fused_mc_entropy.launches": 0}
+                              "fused_mc_entropy.launches": 0, "conv_epilogue.launches": 17}
     assert outer.counters == {"CudaGraph.captures": 1, "marginal_entropy_cuda.launches": 3,
-                              "fused_mc_entropy.launches": 1}
+                              "fused_mc_entropy.launches": 1, "conv_epilogue.launches": 17}
 
 
 def test_spans_of_many_threads_all_reach_the_recording():
