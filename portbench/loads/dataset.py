@@ -9,7 +9,10 @@ time, the last call's overrun included.
 Parameters (``traffic/<name>.json``): ``images``, ``batch``,
 ``max_in_flight``, ``warmup_calls``, ``trace_seconds`` (the traced stretch:
 whole calls until it has passed), ``sample`` (answers compared with the
-reference).
+reference) and, optionally, ``stored_size``: the [height, width] at which the
+images are stored, which the loader resizes to the configuration's size in
+its host pass (``score_dataset(resize_to=...)``), and which the reference
+resizes with its own code (``reference/resize.py``).
 """
 
 from __future__ import annotations
@@ -21,13 +24,16 @@ import numpy as np
 import torch
 
 from portbench import inputs
+from portbench.reference import resize
 
 
 class Load:
     def __init__(self, cfg: dict, traffic: dict, seed: int, program, device):
         self.cfg, self.traffic, self.seed, self.program, self.device = cfg, traffic, seed, program, device
         size = cfg["image_size"]
-        self.images_u8 = inputs.images_u8(traffic["images"], size, size, device, seed,
+        self.resize_to = (size, size) if "stored_size" in traffic else None
+        height, width = traffic.get("stored_size", (size, size))
+        self.images_u8 = inputs.images_u8(traffic["images"], height, width, device, seed,
                                           inputs.TAGS["data"]).cpu().numpy()
         self.calls = 0
         self.results: List[Tuple[int, torch.Tensor, torch.Tensor]] = []  # (call, logits, scores) of the window
@@ -42,7 +48,7 @@ class Load:
         self.calls += 1
         service = ScoringService(self.program.scorer, seed=self.service_seed(call),
                                  max_in_flight=self.traffic["max_in_flight"], device=self.device)
-        logits, scores = service.score_dataset(self.images_u8, self.traffic["batch"])
+        logits, scores = service.score_dataset(self.images_u8, self.traffic["batch"], resize_to=self.resize_to)
         return call, logits, scores
 
     def warmup(self) -> None:
@@ -70,9 +76,16 @@ class Load:
             calls += 1
         return calls, calls * self.traffic["images"]
 
+    def floats(self, rows) -> torch.Tensor:
+        """The images ``rows`` of the dataset as the scorer takes them, on the
+        device: scaled to [0, 1] and, where they are stored at another size,
+        resized by the reference."""
+        images = torch.from_numpy(self.images_u8[rows]).to(self.device)
+        return inputs.to_float(images) if self.resize_to is None else resize.bilinear(images, self.resize_to)
+
     def batch_images(self) -> torch.Tensor:
         """One batch of the dataset as the loader makes it, on the device."""
-        return inputs.to_float(torch.from_numpy(self.images_u8[: self.traffic["batch"]]).to(self.device))
+        return self.floats(slice(0, self.traffic["batch"]))
 
     def sample(self, rng: np.random.Generator) -> List[dict]:
         """The answers to compare, drawn over all of the window's calls: for
@@ -89,7 +102,7 @@ class Load:
             call, logits, scores = self.results[result]
             idx = np.asarray(images)
             blocks.append({
-                "images": inputs.to_float(torch.from_numpy(self.images_u8[idx]).to(self.device)),
+                "images": self.floats(idx),
                 "draw": (batch, (self.service_seed(call), batch_index)),
                 "rows": torch.as_tensor(idx - batch_index * batch, device=self.device),
                 "logits": logits[idx], "scores": scores[idx],

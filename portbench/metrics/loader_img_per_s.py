@@ -1,6 +1,7 @@
 """loader_img_per_s: images a second of the port's loader alone
 (``data.PrefetchLoader``, the native gather into pinned host memory) over
-the cell's whole dataset at its batch, as ``score_dataset`` runs it; host
+the cell's whole dataset at its batch, resizing where the traffic stores
+the images at another size, as ``score_dataset`` runs it; host
 clock. It moves ``img_per_s`` where the loader, not the card, sets the pace."""
 
 import time
@@ -10,7 +11,8 @@ def read(ctx):
     from runia_core_tpu_torch.data import PrefetchLoader
 
     images = ctx.load.images_u8
-    loader = PrefetchLoader(images, batch_size=ctx.traffic["batch"], device=None, pin_memory=True)
+    loader = PrefetchLoader(images, batch_size=ctx.traffic["batch"], device=None, pin_memory=True,
+                            resize_to=ctx.load.resize_to)
     start = time.perf_counter()
     for _ in loader:
         pass

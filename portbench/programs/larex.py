@@ -39,6 +39,12 @@ from portbench import inputs
 from portbench.reference import larex as ref_larex
 from portbench.reference.precision import CONTROLS
 
+# The numbers :func:`judge` returns, each held to a limit of the cell
+# (``cells/<cell>.json``'s ``limits``), and the parameters it reads from the
+# cell's ``compare``.
+CHECKS = ("logit_gap", "score_off_share", "pca_gap")
+COMPARE = ("tau",)
+
 
 def reference_family(cfg: dict):
     return importlib.import_module(f"portbench.reference.{cfg['family']}")

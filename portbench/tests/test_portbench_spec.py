@@ -2,18 +2,21 @@
 a file, and a new cell, configuration, traffic mix or metric is found by
 name without an edit to a file that is there."""
 
+import contextlib
+import hashlib
+import importlib
 import json
 import re
 import shutil
-import time
+import sys
 
 import pytest
-import torch
 
 from portbench import harness
+from portbench.tests import cellchecks
 
 BENCH = harness.load_json(harness.ROOT / "BENCHMARK.json")
-NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+NAME = cellchecks.NAME
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 CELLS = [w["name"] for w in BENCH["workloads"]]
 KEYS = {
@@ -57,33 +60,17 @@ def test_bounds():
     assert any(m["name"] == "setup_s" and "workloads" not in m for m in BENCH["end_to_end"])
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", [w["name"] for w in cellchecks.with_left_out(BENCH)["workloads"]])
 def test_cell_files_resolve(cell):
-    spec = harness.Spec(cell)
-    workload = spec.workload
-    assert workload["chips"] == 1 and NAME.match(workload["config"]) and NAME.match(workload["traffic"])
-    assert (harness.HERE / "loads" / f"{spec.traffic['kind']}.py").exists()
-    assert (harness.HERE / "programs" / f"{spec.traffic['program']}.py").exists()
-    assert (harness.HERE / "families" / f"{spec.cfg['family']}.py").exists()
-    assert (harness.HERE / "reference" / f"{spec.cfg['family']}.py").exists()
-    assert set(spec.limits) == {"logit_gap", "score_off_share", "pca_gap"}
-    assert spec.compared["tau"] > 0.0
-    reported = [m["name"] for m in spec.end_to_end()]
-    assert "setup_s" in reported and len(reported) >= 2
-    layers = spec.per_layer()
-    assert layers
-    for metric in layers:
-        assert harness.metric_file(metric["name"]).exists()
-        assert metric["moves"] in reported
+    cellchecks.check_files(cellchecks.with_left_out(BENCH), cell)
 
 
 def test_configs_are_files_of_their_own():
     files = [c["file"] for c in BENCH["configs"]]
     assert len(files) == len(set(files))
     for entry in BENCH["configs"]:
-        assert entry["file"].startswith("portbench/configs/") and entry["reduced"] == []
         assert any(w["config"] == entry["name"] for w in BENCH["workloads"])
-        harness.load_json(harness.ROOT / entry["file"])
+        cellchecks.check_config(BENCH, entry["name"])
 
 
 def test_metrics_of_one_layer_share_its_name():
@@ -94,72 +81,100 @@ def test_metrics_of_one_layer_share_its_name():
     assert all(len(names) == 1 for names in layers.values())
 
 
-PROGRAM = """
-from types import SimpleNamespace
+NEW_CELL = harness.HERE / "tests" / "newcell"
+TOY = "toy.rows"
 
 
-def make_inputs(cfg, traffic, seed, device):
-    return {}
+def digests(folder):
+    return {str(path.relative_to(folder)): hashlib.sha256(path.read_bytes()).hexdigest()
+            for path in sorted(folder.rglob("*")) if path.is_file() and "__pycache__" not in path.parts}
 
 
-def build(cfg, traffic, seed, made, device):
-    return SimpleNamespace(value=float(seed % 7))
+@contextlib.contextmanager
+def portbench_at(root):
+    """``portbench`` imported afresh from ``root``, and the one imported
+    before put back afterwards."""
+    def ours(name):
+        return name == "portbench" or name.startswith("portbench.")
+
+    saved = {name: module for name, module in sys.modules.items() if ours(name)}
+    for name in saved:
+        del sys.modules[name]
+    sys.path.insert(0, str(root))
+    try:
+        yield importlib.import_module("portbench.tests.cellchecks")
+    finally:
+        sys.path.remove(str(root))
+        for name in [name for name in sys.modules if ours(name)]:
+            del sys.modules[name]
+        sys.modules.update(saved)
 
 
-def checked_state(program):
-    return None
-
-
-def release(program):
-    pass
-
-
-def judge(cfg, traffic, seed, made, blocks, state, device, compared, controls=(), record=()):
-    return {"numbers": {"gap": abs(blocks[0] - seed % 7)}, "controls": {}}
-"""
-
-LOAD = """
-class Load:
-    def __init__(self, cfg, traffic, seed, program, device):
-        self.program = program
-
-    def warmup(self):
-        pass
-
-    def window(self, seconds):
-        return {"seconds": seconds, "images": 3, "attempted": 3, "failed": 0,
-                "end_to_end": {"img_per_s": 3.0 / seconds}}
-
-    def traced(self):
-        return 1, 3
-
-    def sample(self, rng):
-        return [self.program.value]
-"""
-
-
-def test_a_new_cell_traffic_program_and_metric_are_found_by_name(tmp_path, monkeypatch):
-    """A copy of the harness's folder gains a traffic mix, a program, a load
-    generator, a cell, its limits and a per-layer metric as new files and
-    entries only, and a run of the new cell goes through them."""
+def copy_with_a_new_cell(tmp_path, edit=None):
+    """A copy of the harness's folder, its tests included, and of
+    ``BENCHMARK.json``, to which the toy cell of ``tests/newcell`` (a
+    program, a traffic kind and mix, a configuration family with its
+    reference, a reduced key, its limits, CPU sizes, faults and a per-layer
+    reader) is added as new files and entries only; ``edit(root)`` then
+    changes what it will. Returns the copy's root, the digests of every
+    file that was in the copy before, and its benchmark."""
     copy = tmp_path / "portbench"
-    shutil.copytree(harness.HERE, copy, ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    (copy / "traffic" / "constant.json").write_text(json.dumps({"program": "constant", "kind": "once"}))
-    (copy / "programs" / "constant.py").write_text(PROGRAM)
-    (copy / "loads" / "once.py").write_text(LOAD)
-    (copy / "cells" / "constant.once.json").write_text(json.dumps({"limits": {"gap": 0.0}}))
-    (copy / "metrics" / "calls.py").write_text("def read(ctx):\n    return 7.0\n")
+    shutil.copytree(harness.HERE, copy, ignore=shutil.ignore_patterns("__pycache__"))
+    before = digests(copy)
+    for path in sorted(NEW_CELL.rglob("*")):
+        relative = path.relative_to(NEW_CELL)
+        if path.is_file() and "__pycache__" not in relative.parts and relative.name != "bench.json":
+            target = copy / relative
+            assert not target.exists(), relative
+            target.parent.mkdir(parents=True, exist_ok=True)
+            shutil.copy(path, target)
     bench = json.loads(json.dumps(BENCH))
-    bench["workloads"].append({"name": "constant.once", "config": "resnet18_cifar10", "traffic": "constant",
-                               "chips": 1, "why": "a new system under test"})
-    bench["end_to_end"][0]["workloads"].append("constant.once")
-    bench["per_layer"].append({"name": "calls.once", "unit": "1", "better": "higher", "source": "host_clock",
-                               "layer": "loader", "moves": "img_per_s", "workloads": ["constant.once"]})
-    monkeypatch.setattr(harness, "HERE", copy)
-    spec = harness.Spec("constant.once", bench=bench)
-    assert spec.limits == {"gap": 0.0} and spec.compared == {}
-    assert "calls.once" in [m["name"] for m in spec.per_layer()]
-    assert harness.metric_file("calls.once") == copy / "metrics" / "calls.py"
-    assert harness.read_metric("calls.once", None) == 7.0
-    out = harness.execute(spec, 2**40 + 5, 0.5, False, torch.device("cpu"), time.perf_counter())
-    assert out["numbers"] == {"gap": 0.0} and out["metrics"]["img_per_s"]["value"] == 6.0
+    for section, entries in harness.load_json(NEW_CELL / "bench.json").items():
+        bench[section] += entries
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench, indent=1))
+    if edit is not None:
+        edit(tmp_path)
+    return tmp_path, before, bench
+
+
+def test_a_new_cell_traffic_program_and_metric_are_found_by_name(tmp_path):
+    """A copy of the harness's folder, its tests included, gains a cell of
+    a new program and a new configuration family as new files and entries
+    only: every per-cell check passes on it, a run goes through its
+    program, load and per-layer reader, and no file that was in the copy
+    changes."""
+    root, before, bench = copy_with_a_new_cell(tmp_path)
+    with portbench_at(root) as checks:
+        copied = checks.harness
+        assert copied.HERE == root / "portbench"
+        cell_spec = copied.Spec(TOY)
+        assert cell_spec.limits == {"gap": 0.01} and cell_spec.compared == {"scale": 1.0}
+        assert [m["name"] for m in cell_spec.end_to_end()] == ["setup_s", "rows_per_s"]
+        assert [m["name"] for m in cell_spec.per_layer()] == ["rows_calls.rows"]
+        assert copied.metric_file("rows_calls.rows") == root / "portbench" / "metrics" / "rows_calls.py"
+        assert copied.read_metric("rows_calls.rows", None) == 7.0
+        checks.check_files(bench, TOY)
+        checks.check_fault_cases(bench, TOY)
+        out = checks.tiny_run(bench, TOY, controls=[checks.CONTROL])
+        assert out["metrics"]["rows_per_s"]["value"] > 0.0 and out["attempted"] >= 16 and out["failed"] == 0
+        checks.check_f32_agreement(bench, TOY, out)
+        checks.check_control_fails(bench, TOY, out)
+        for fault in checks.fault_names(TOY):
+            checks.check_fault_fails(bench, TOY, fault)
+    after = digests(root / "portbench")
+    assert {name: after[name] for name in before} == before
+
+
+def test_a_reduced_key_needs_its_published_value(tmp_path):
+    """The same cell, its configuration's cut stated without the published
+    value: the cell's files check fails."""
+    def unpublished(root):
+        path = root / "portbench" / "configs" / "toy_affine.json"
+        cfg = json.loads(path.read_text())
+        del cfg["reduced"]["layers"]["published"]
+        path.write_text(json.dumps(cfg))
+
+    root, _, bench = copy_with_a_new_cell(tmp_path, unpublished)
+    with portbench_at(root) as checks:
+        with pytest.raises(AssertionError, match="published"):
+            checks.check_files(bench, TOY)
