@@ -471,6 +471,21 @@ MOE_CFG = dict(vocab_size=32000, num_layers=2, num_heads=32, num_kv_heads=8, d_m
 MOE_PREFILL_BATCH, MOE_PREFILL_LEN, MOE_PREFILL_NEW = 4, 512, 8
 MOE_DECODE_BATCH, MOE_DECODE_PROMPT, MOE_DECODE_NEW = 16, 64, 64
 MOE_XCHECK_LAYERS, MOE_XCHECK_PROMPT, MOE_XCHECK_STEPS = 1, 128, 4
+# JetBrains/Mellum2-12B-A2.5B-Instruct config.json, at the shapes of the
+# benchmark cell mellum2_a2.5b.complete8: 64 experts of 896 over 2,304, top
+# 8; 32 / 4 heads of 128, a window of 1,024 on three layers of four; a
+# decode step's 8 slots, a 512-token prefill lane, four lanes at once, their
+# q_start over the engine's 12,800-slot cache.
+MELLUM = dict(d_model=2304, expert_width=896, num_experts=64, top_k=8, num_heads=32, num_kv_heads=4, head_dim=128,
+              window=1024, lane=512, max_ctx=12800)
+MELLUM_TOKENS = {"decode_8": 8, "lane_512": 512, "lanes_2048": 2048}
+MELLUM_LANE_STARTS = [0, 512, 4096, 11776]
+# The grouped experts against their twin, relative to the output's RMS: both
+# round the f32 hidden product to bf16 before the down projection, and a sum
+# in another order rounds a hidden value to the neighbouring bf16 now and
+# then. A pair sent to the wrong expert or a tile left out moves its row by
+# about its RMS.
+MOE_GROUPED_REL = 2e-2
 # Speculative decoding on the production Llama (bench.py:767-871): gamma 4,
 # 32 new tokens after a 32-token prompt from RandomState(2), then a 256-token
 # prompt (kernel 4 in the target's prefill), 5 sampled continuations, and
@@ -1833,23 +1848,30 @@ def int8pack_mm_ms(x, wq, scale):
     return cuda_graph_time_ms(lambda: fn(x, wt, sc), 30)
 
 
-def _window_pairs(q_start, kv_start, tq, kk) -> int:
-    """Query-key pairs inside the windows kv_start <= j <= q_start + i < K."""
+def _lowest_key(kvs: int, pos: int, window: int) -> int:
+    return max(kvs, pos - window + 1) if window else kvs
+
+
+def _window_pairs(q_start, kv_start, tq, kk, window: int = 0) -> int:
+    """Query-key pairs inside the windows kv_start <= j <= q_start + i < K
+    (and, with a sliding ``window``, j > q_start + i - window)."""
     total = 0
     for qs, kvs in zip(q_start, kv_start):
         for i in range(tq):
-            total += max(0, min(kk - 1, qs + i) - kvs + 1)
+            total += max(0, min(kk - 1, qs + i) - _lowest_key(kvs, qs + i, window) + 1)
     return total
 
 
-def _keys_read(q_start, kv_start, tq, kk) -> int:
+def _keys_read(q_start, kv_start, tq, kk, window: int = 0) -> int:
     """Keys some query of its batch row attends, summed over the rows."""
-    return sum(max(0, min(kk - 1, qs + tq - 1) - kvs + 1) for qs, kvs in zip(q_start, kv_start))
+    return sum(max(0, min(kk - 1, qs + tq - 1) - _lowest_key(kvs, qs, window) + 1)
+               for qs, kvs in zip(q_start, kv_start))
 
 
-def rounding_spread(q, k, v, q_start, kv_start, k_scale, v_scale):
+def rounding_spread(q, k, v, q_start, kv_start, k_scale, v_scale, window: int = 0):
     """sqrt(sum_j p_j^2 v_j^2) per output element of the (B, Hq, Tq, D)
-    attention, from its f32 probabilities (v_j * v_scale_j in KV8)."""
+    attention, from its f32 probabilities (v_j * v_scale_j in KV8), the
+    keys masked as the kernel's with its sliding ``window``."""
     b, hq, tq, d = q.shape
     g, kk = k.shape[1], k.shape[2]
     kf, vf = k.float(), v.float()
@@ -1860,6 +1882,8 @@ def rounding_spread(q, k, v, q_start, kv_start, k_scale, v_scale):
     starts = torch.zeros_like(q_start) if kv_start is None else kv_start
     keys = torch.arange(kk, device=q.device)
     mask = (keys <= rows) & (keys >= starts.long()[:, None, None])  # (B, Tq, K)
+    if window:
+        mask &= rows - keys < window
     probs = torch.softmax(logits.masked_fill(~mask[:, None, None], float("-inf")), dim=-1).nan_to_num(0.0)
     return torch.einsum("bgrtk,bgkd->bgrtd", probs.square(), vf.square()).sqrt().reshape(b, hq, tq, d)
 
@@ -2047,6 +2071,162 @@ def flash_phase(device, gen) -> dict:
     top = timings["prefill"]
     return {"max_abs_err": max(errors.values()), "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"], "library_ms": top["library_ms"]}
+
+
+def flash_window_phase(device, gen) -> dict:
+    """Kernel 4 at Mellum's prefill lanes: 4 lanes of 512 queries at q_start
+    0 / 512 / 4,096 / 11,776 over the 12,800-slot cache (the model's
+    transposed view, NaN past the written prefix), 32 / 4 heads of 128,
+    bf16, with the sliding layers' window of 1,024 and with none (the full
+    layers): against the twin with the same window, lane by lane, at the
+    flash phase's bf16 bound with the window in its mask; two runs
+    bit-identical; the device's work counts equal to the pairs, keys and
+    queries counted here; timed by CUDA-graph replays against the larger of
+    the attended pairs' operations and q / out and the attended keys' k / v
+    bytes. Launches counted from zero over the phase."""
+    from runia_core_tpu_torch.ops.flash_prefill import flash_prefix_attention, reference_prefix_attention
+    from runia_core_tpu_torch.utils import cuda_graph_time_ms, cuda_time_ms
+
+    hq, g, d, tq, kk = MELLUM["num_heads"], MELLUM["num_kv_heads"], MELLUM["head_dim"], MELLUM["lane"], MELLUM["max_ctx"]
+    starts = MELLUM_LANE_STARTS
+    b = len(starts)
+    q = torch.randn((b, hq, tq, d), generator=gen, device=device).to(torch.bfloat16)
+    k = torch.randn((b, g, kk, d), generator=gen, device=device).to(torch.bfloat16)
+    v = torch.randn((b, g, kk, d), generator=gen, device=device).to(torch.bfloat16)
+    k_in, v_in = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    written = max(starts) + tq
+    k_in[:, written:], v_in[:, written:] = float("nan"), float("nan")
+    k_in, v_in = k_in.transpose(1, 2), v_in.transpose(1, 2)
+    qs = torch.tensor(starts, dtype=torch.int32, device=device)
+    flash_prefix_attention.launches = flash_prefix_attention.window_launches = 0
+    errors, err_over_bound, timing = {}, {}, {}
+    for window in (MELLUM["window"], 0):
+        name = f"window_{window}" if window else "full"
+        work = flash_prefix_attention.work.get(device)
+        before = [0, 0, 0] if work is None else work.tolist()
+        got = flash_prefix_attention(q, k_in, v_in, qs, window=window)
+        counted = [a - b_ for a, b_ in zip(flash_prefix_attention.work[device].tolist(), before)]
+        again = flash_prefix_attention(q, k_in, v_in, qs, window=window)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(got).all()), f"flash {name}: finite past a NaN tail")
+        require(torch.equal(got, again), f"flash {name}: two runs on the same inputs are bit-identical")
+        pairs = _window_pairs(starts, [0] * b, tq, kk, window)
+        keys = _keys_read(starts, [0] * b, tq, kk, window)
+        require(counted == [pairs, keys, b * tq],
+                f"flash {name}: the device's work counts {counted} are the pairs, keys and queries {pairs, keys, b * tq}")
+        worst_abs, worst_rel = 0.0, 0.0
+        for row in range(b):  # the twin's logits take (Hq, Tq, K) f32 a lane
+            sl = slice(row, row + 1)
+            want = reference_prefix_attention(q[sl], k[sl], v[sl], qs[sl], None, None, None, None, window)
+            diff = (got[sl].float() - want.float()).abs()
+            tol = FLASH_BF16_RTOL * want.float().abs() + FLASH_BF16_ATOL_OF_S * rounding_spread(
+                q[sl], k[sl], v[sl], qs[sl], None, None, None, window)
+            worst_abs = max(worst_abs, float(diff.max()))
+            worst_rel = max(worst_rel, float((diff / tol.clamp_min(1e-30)).max()))
+            del want, diff, tol
+        errors[name], err_over_bound[name] = worst_abs, worst_rel
+        require(worst_rel <= 1.0, f"flash {name}: max abs err {worst_abs} beyond its bound ({worst_rel:.3f} of it)")
+        ms = cuda_graph_time_ms(lambda: flash_prefix_attention(q, k_in, v_in, qs, window=window), 20)
+        plain_ms = cuda_time_ms(lambda: [reference_prefix_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], qs[i:i + 1],
+                                                                    None, None, None, None, window)
+                                         for i in range(b)], 2, warmup=1)
+        bound = roofline(4.0 * b * tq * hq * d + 4.0 * keys * g * d, 4.0 * pairs * hq * d, H100_BF16_OPS_PER_S)
+        timing[name] = {"window": window, "pairs_a_head": pairs, "keys": keys, "ms": ms, "plain_ms": plain_ms,
+                        "in_window_TFLOPs": 4.0 * pairs * hq * d / (ms * 1e-3) / 1e12, **with_share(bound, ms)}
+        require(timing[name]["share_of_bound"] <= 1.0, f"flash {name}: faster than its bound: {timing[name]}")
+    launches = {"flash_prefix_attention": flash_prefix_attention.launches,
+                "flash_prefix_attention_window": flash_prefix_attention.window_launches}
+    require(launches["flash_prefix_attention_window"] > 0, f"the windowed kernel 4 launched: {launches}")
+    emit({"phase": "kernel_flash_window", "config": MELLUM, "q_start": starts, "max_abs_err": errors,
+          "max_err_over_bound": err_over_bound,
+          "bound": {"bf16_rtol": FLASH_BF16_RTOL, "bf16_atol": f"{FLASH_BF16_ATOL_OF_S} * sqrt(sum_j p_j^2 v_j^2)"},
+          "timing": timing, "launches": launches, "deterministic": True,
+          "timed_with": "CUDA-graph replays of 20 calls; plain: the twin lane by lane, events",
+          "library": "none: scaled_dot_product_attention has no sliding window"})
+    top = timing[f"window_{MELLUM['window']}"]
+    return {"max_abs_err": max(errors.values()), "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"], "window_launches": launches[
+                "flash_prefix_attention_window"], "full_ms": timing["full"]["ms"], "full_bound_ms": timing["full"]["bound_ms"]}
+
+
+def moe_grouped_phase(device, gen) -> dict:
+    """The grouped expert kernel at Mellum's widths (64 experts of 896 over
+    2,304, top 8, softmax renormalised) on a decode step's 8 tokens, a
+    prefill lane's 512 and four lanes' 2,048, and four lanes with one expert
+    given no token: ``routed_experts`` (the counting sort, the kernel, the
+    combine) and the kernel alone against the twin (``reference_moe_grouped``
+    over the pairs sorted by ``argsort``, combined by hand), within
+    MOE_GROUPED_REL of the output's RMS; two routed calls bit-identical; the
+    device's work counts equal to the pairs and the touched experts; the
+    kernel and its slices' sum timed by CUDA-graph replays against the
+    larger of pairs x 6 d I operations and the touched experts' bytes with
+    each pair's row in (bf16) and out (f32). Launches counted from zero over
+    the phase."""
+    from runia_core_tpu_torch.ops.moe_grouped import moe_grouped, plan, reference_moe_grouped, routed_experts
+    from runia_core_tpu_torch.utils import cuda_graph_time_ms, cuda_time_ms
+
+    e, top, d, width = MELLUM["num_experts"], MELLUM["top_k"], MELLUM["d_model"], MELLUM["expert_width"]
+    w_gate, w_up = ((torch.randn((e, d, width), generator=gen, device=device) / d**0.5).to(torch.bfloat16)
+                    for _ in range(2))
+    w_down = (torch.randn((e, width, d), generator=gen, device=device) / width**0.5).to(torch.bfloat16)
+    cases = {**{name: (t, None) for name, t in MELLUM_TOKENS.items()}, "lanes_2048_expert_5_idle": (2048, 5)}
+    moe_grouped.launches = 0
+    errors, timing = {}, {}
+    for name, (t, idle) in cases.items():
+        x = torch.randn((t, d), generator=gen, device=device).to(torch.bfloat16)
+        logits = torch.randn((t, e), generator=gen, device=device)
+        if idle is not None:
+            logits[:, idle] = float("-inf")
+        top_v, top_i = torch.topk(torch.softmax(logits, -1), top, dim=-1)
+        top_w = top_v / top_v.sum(-1, keepdim=True)
+        flat = top_i.reshape(-1)
+        counts = torch.bincount(flat, minlength=e)
+        offsets = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
+        order = torch.argsort(flat, stable=True)
+        tok = (order // top).to(torch.int32)
+        inverse = torch.empty_like(order)
+        inverse[order] = torch.arange(order.numel(), device=device)
+        rows_want = reference_moe_grouped(x, tok, offsets, w_gate, w_up, w_down)
+        want = (rows_want[inverse].view(t, top, d) * top_w[:, :, None]).sum(1)
+        rows = moe_grouped(x, tok, offsets, w_gate, w_up, w_down)
+        work = moe_grouped.work.get(device)
+        before = [0, 0] if work is None else work.tolist()
+        got = routed_experts(x, top_i, top_w, w_gate, w_up, w_down)
+        counted = [a - b for a, b in zip(moe_grouped.work[device].tolist(), before)]
+        again = routed_experts(x, top_i, top_w, w_gate, w_up, w_down)
+        torch.cuda.synchronize()
+        touched = int((counts > 0).sum())
+        require(torch.equal(got, again), f"moe_grouped {name}: two routed calls are bit-identical")
+        require(counted == [t * top, touched], f"moe_grouped {name}: work counts {counted}, want {[t * top, touched]}")
+        require(idle is None or int(counts[idle]) == 0, f"moe_grouped {name}: expert {idle} got no token")
+        errors[name] = {"kernel": float((rows - rows_want).abs().max()) / float(rows_want.square().mean().sqrt()),
+                        "routed": float((got - want).abs().max()) / float(want.square().mean().sqrt())}
+        require(max(errors[name].values()) <= MOE_GROUPED_REL,
+                f"moe_grouped {name}: {errors[name]} of the RMS beyond {MOE_GROUPED_REL}")
+        if idle is not None:
+            continue
+        ms = cuda_graph_time_ms(lambda: moe_grouped(x, tok, offsets, w_gate, w_up, w_down), 10)
+        routed_ms = cuda_graph_time_ms(lambda: routed_experts(x, top_i, top_w, w_gate, w_up, w_down), 10)
+        plain_ms = cuda_time_ms(lambda: reference_moe_grouped(x, tok, offsets, w_gate, w_up, w_down), 3, warmup=1)
+        bound = roofline(6.0 * d * width * touched + 6.0 * d * t * top, 6.0 * d * width * t * top, H100_BF16_OPS_PER_S)
+        timing[name] = {"tokens": t, "pairs": t * top, "experts_touched": touched,
+                        "plan_tile_stages_slices": list(plan(t * top, e, width, d)), "ms": ms, "routed_ms": routed_ms,
+                        "plain_ms": plain_ms, **with_share(bound, ms)}
+        require(timing[name]["share_of_bound"] <= 1.0, f"moe_grouped {name}: faster than its bound: {timing[name]}")
+        del x, logits, rows, rows_want, want, got, again
+    launches = moe_grouped.launches
+    require(launches > 0, "moe_grouped launched")
+    emit({"phase": "kernel_moe_grouped", "config": MELLUM, "max_err_over_rms": errors, "bound": MOE_GROUPED_REL,
+          "timing": timing, "launches": launches, "deterministic": True,
+          "timed_with": "CUDA-graph replays of 10 calls (the kernel and, past one slice, the slices' sum); "
+          "routed_ms: the counting sort, the kernel and the combine; plain: the twin, events",
+          "library": "none: no grouped product the port may call"})
+    top_case = timing["lanes_2048"]
+    return {"max_err_over_rms": max(max(v.values()) for v in errors.values()), "ms": top_case["ms"],
+            "plain_ms": top_case["plain_ms"], "bound_ms": top_case["bound_ms"], "bound_by": top_case["bound_by"],
+            "library_ms": None, "phase_launches": launches,
+            "ms_by_case": {n: c["ms"] for n, c in timing.items()},
+            "bound_ms_by_case": {n: c["bound_ms"] for n, c in timing.items()}}
 
 
 def build_llms(device, num_layers: int, dtype):
@@ -3002,6 +3182,7 @@ def moe_slice_phase(device) -> dict:
     from runia_core_tpu_torch.llm import TorchGenerator
     from runia_core_tpu_torch.models import init_cache
     from runia_core_tpu_torch.ops.flash_prefill import flash_prefix_attention
+    from runia_core_tpu_torch.ops.moe_grouped import moe_grouped
     from runia_core_tpu_torch.ops.quant_matmul import quant_matmul
     from runia_core_tpu_torch.utils import cuda_time_ms
 
@@ -3013,7 +3194,7 @@ def moe_slice_phase(device) -> dict:
     gens = {name: TorchGenerator(m, max_new_tokens=MOE_DECODE_NEW) for name, m in models.items()}
 
     # ---- the main path, counted ----
-    quant_matmul.launches = 0
+    quant_matmul.launches = moe_grouped.launches = 0
     flash_prefix_attention.launches = flash_prefix_attention.kv8_launches = 0
     greedy = {}
     with no_host_sync():
@@ -3024,10 +3205,11 @@ def moe_slice_phase(device) -> dict:
             greedy[name] = gen.generate_batch(prompts, output_scores=False)
     torch.cuda.synchronize()
     launches = {"quant_matmul": quant_matmul.launches, "flash_prefix_attention": flash_prefix_attention.launches,
-                "flash_prefix_attention_kv8": flash_prefix_attention.kv8_launches}
+                "flash_prefix_attention_kv8": flash_prefix_attention.kv8_launches, "moe_grouped": moe_grouped.launches}
     require(launches["quant_matmul"] > 0 and launches["flash_prefix_attention_kv8"] > 0
-            and launches["flash_prefix_attention"] > launches["flash_prefix_attention_kv8"],
-            f"moe: kernels 3 and 4 (bf16 and KV8) launched on the main path: {launches}")
+            and launches["flash_prefix_attention"] > launches["flash_prefix_attention_kv8"]
+            and launches["moe_grouped"] > 0,
+            f"moe: kernels 3 and 4 (bf16 and KV8) and the grouped experts (bf16) launched on the main path: {launches}")
 
     # ---- replay against the eager loop ----
     record = {}
@@ -6043,6 +6225,8 @@ def main() -> None:
     k2 = timed("kernel_fused_mc_entropy", fused_phase, device, gen)
     k3 = timed("kernel_quant_matmul", quant_matmul_phase, device, gen)
     k4 = timed("kernel_flash_prefix_attention", flash_phase, device, gen)
+    k4_window = timed("kernel_flash_window", flash_window_phase, device, gen)
+    k_moe = timed("kernel_moe_grouped", moe_grouped_phase, device, gen)
     launches = timed("slice", slice_phase, device, gen)
     flow = timed("image_flow_rn50", image_flow_rn50_phase, device, gen, smi)
     evaluation = timed("eval_rn50", eval_rn50_phase, device, gen, smi)
@@ -6092,7 +6276,7 @@ def main() -> None:
     del served
     torch.cuda.empty_cache()
     mp_world1 = timed("mp_world1", mp_world1_phase, device, gen, smi)
-    launches.update(nms=0, roi_align=0, conv_epilogue=0)
+    launches.update(nms=0, roi_align=0, conv_epilogue=0, moe_grouped=0)
     for counts in (flow, evaluation, semantic, speculative, mixed, spec1b, serve7b, spec7b, fused7b, moe, int8_rn18,
                    vit_b16, train_rn18, objects, yolo, detr, seg, dataset, dp_world1, mp_world1):
         for name, n in counts.items():
@@ -6115,7 +6299,8 @@ def main() -> None:
         {"name": "flash_prefix_attention", "route": "cuda",
          "source": "runia_core_tpu_torch/csrc/flash_prefill.cu",
          "replaces": "runia_core_tpu/ops/flash_prefill.py:333",
-         "launches": launches["flash_prefix_attention"], **k4},
+         "launches": launches["flash_prefix_attention"], **k4,
+         "window": {"launches": k4_window.pop("window_launches"), **k4_window}},
         {"name": "nms", "route": "cuda", "source": "runia_core_tpu_torch/csrc/nms.cu",
          "replaces": "runia_core_tpu/ops/nms.py:47", "launches": launches["nms"], **k_nms},
         {"name": "roi_align", "route": "cuda", "source": "runia_core_tpu_torch/csrc/roi_align.cu",
@@ -6123,6 +6308,9 @@ def main() -> None:
         {"name": "conv_epilogue", "route": "cuda", "source": "runia_core_tpu_torch/csrc/conv_epilogue.cu",
          "replaces": "none: XLA fuses the JAX ResNet's norm, residual add and ReLU (runia_core_tpu/models/resnet.py)",
          "launches": launches["conv_epilogue"], **k_epilogue},
+        {"name": "moe_grouped", "route": "cuda", "source": "runia_core_tpu_torch/csrc/moe_grouped.cu",
+         "replaces": "none: the JAX model runs every expert on every token (runia_core_tpu/models/llama.py:413)",
+         "launches": launches["moe_grouped"], **k_moe},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

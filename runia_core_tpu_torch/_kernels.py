@@ -51,8 +51,8 @@ _SIGNATURES = {
     #  K per split, dtype, stream)
     "runia_quant_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # (q, k, v, out, q_start, kv_start, k_scale, v_scale, dims[21] int64 on
-    #  the host, sm_scale, dtype, kv8, stream)
-    "runia_flash_prefix_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _P),
+    #  the host, sm_scale, dtype, kv8, window, work counters, stream)
+    "runia_flash_prefix_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _P, _P),
     # (sorted boxes, mask scratch, keep, n, iou threshold, scan threads, scan
     #  shared bytes, stream)
     "runia_nms": (_P, _P, _P, _I, _F, _I, _I, _P),
@@ -63,6 +63,9 @@ _SIGNATURES = {
     # (y, residual, scale, shift, scale_p, shift_p, rows, channels, bf16 map,
     #  residual mode, stream)
     "runia_conv_epilogue": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (x, tok, offsets, w_gate, w_up, w_down, partial, work counters, pairs,
+    #  d, I, experts, splits, pairs a tile, ring stages, tiles, stream)
+    "runia_moe_grouped": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

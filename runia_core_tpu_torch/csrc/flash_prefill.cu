@@ -1,8 +1,9 @@
 // Flash attention of a query chunk over a KV cache prefix, with per-row
 // windows: q (B, Hq, Tq, D) bf16/f32; k, v (B, G, K, D) in q's type or int8
 // (KV8, with per-key scales k_scale, v_scale (B, K, G) f32); query i of row b
-// sits at position q_start[b] + i and attends keys kv_start[b] <= j <=
-// q_start[b] + i. Out (B, Hq, Tq, D) in q's type; a row with an empty window
+// sits at position q_start[b] + i and attends keys max(kv_start[b], q_start[b]
+// + i - window + 1) <= j <= q_start[b] + i (window 0: no lower edge but
+// kv_start[b]). Out (B, Hq, Tq, D) in q's type; a row with an empty window
 // is written as zeros.
 //
 // Replaces: runia_core_tpu/ops/flash_prefill.py::flash_prefix_attention
@@ -52,6 +53,18 @@
 // f32 q (flash_kernel) keeps the CUDA-core body: Q, K, V staged as f32,
 // scalar FMAs, a 64 x 32 tile. TF32 would not hold its 2e-5 bound.
 //
+// A sliding window (Mistral's, Mellum's windowed layers) gives each query its
+// own lower edge: a block visits the key tiles from its first query's edge,
+// a warp skips a tile wholly below its rows' edges as it skips one wholly
+// after them, and only tiles that cross an edge are masked. A windowed
+// block of 64 queries thus reads about window / 64 + 2 tiles, not all
+// those before it.
+//
+// Where work is given, the kernels count the benchmark's work (one atomic
+// add a block, by its first thread): the (query, key) pairs of head 0's
+// blocks, and, once a batch row, the keys any of its queries attends and its
+// queries.
+//
 // Tq, K and the windows are masked inside the kernels, so any Tq and K are
 // taken. k, v, q and out are read through strides, so the model passes its
 // (B, K, G, D) cache as a transposed view with no copy. D is a template
@@ -78,8 +91,32 @@ struct Params {
   long long q_sb, q_sh, q_st, k_sb, k_sg, k_sk, v_sb, v_sg, v_sk, o_sb, o_sh, o_st;
   long long s_sb, s_sk, s_sg;
   float sm_scale;
+  int window;  // keys less than window positions before the query (0: none)
+  unsigned long long* work;  // pairs, keys, queries (null: not counted)
   int q_vec, kv_vec, o_vec;  // 16-byte loads/stores are aligned (bf16 q only)
 };
+
+// The lowest key the query at position pos may attend.
+__device__ __forceinline__ int window_lo(const Params& p, int kvstart, int pos) {
+  return p.window > 0 ? max(kvstart, pos - p.window + 1) : kvstart;
+}
+
+// The block's share of the benchmark's work counts (see the note above):
+// rows q0 .. q0 + nq - 1 of batch row blockIdx.z.
+__device__ void count_work(const Params& p, int q0, int nq, int qstart, int kvstart) {
+  if (p.work == nullptr || blockIdx.y != 0 || threadIdx.x != 0) return;
+  long long pairs = 0;
+  for (int r = 0; r < nq; ++r) {
+    const int pos = qstart + q0 + r;
+    pairs += max(0, min(pos, p.K - 1) - max(window_lo(p, kvstart, pos), 0) + 1);
+  }
+  atomicAdd(p.work, static_cast<unsigned long long>(pairs));
+  if (q0 == 0) {
+    const int keys = min(qstart + p.Tq - 1, p.K - 1) - max(window_lo(p, kvstart, qstart), 0) + 1;
+    atomicAdd(p.work + 1, static_cast<unsigned long long>(max(keys, 0)));
+    atomicAdd(p.work + 2, static_cast<unsigned long long>(p.Tq));
+  }
+}
 
 // ---------------------------------------------------------------------------
 // bf16 q: tensor cores.
@@ -166,9 +203,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_mma_kernel(const Params p) 
 
   // Keys any row of this block may see: [lo, hi].
   const int q_last = min(q0 + BQ, p.Tq) - 1;
-  const int lo = max(kvstart, 0);
+  const int lo = max(window_lo(p, kvstart, qstart + q0), 0);
   const int hi = min(p.K - 1, qstart + q_last);
   const int tile0 = lo / BK;
+  count_work(p, q0, q_last - q0 + 1, qstart, kvstart);
   const int ntiles = hi >= lo ? hi / BK - tile0 + 1 : 0;
   const KV* kg = static_cast<const KV*>(p.k) + b * p.k_sb + g * p.k_sg;
   const KV* vg = static_cast<const KV*>(p.v) + b * p.v_sb + g * p.v_sg;
@@ -293,6 +331,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_mma_kernel(const Params p) 
     const int row_first = q0 + warp * 16;            // this warp's first query row
     const int pos_first = qstart + row_first;        // and its position
     const int pos_row[2] = {pos_first + gid, pos_first + gid + 8};
+    const int lo_row[2] = {window_lo(p, kvstart, pos_row[0]), window_lo(p, kvstart, pos_row[1])};
+    const int lo_first = window_lo(p, kvstart, pos_first);     // the warp's lowest edge
+    const int lo_last = window_lo(p, kvstart, pos_first + 15);  // and its highest
 
     for (int i = 0; i < ntiles; ++i) {
       const int stage = i & 1;
@@ -304,7 +345,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_mma_kernel(const Params p) 
       const float next_scale = more ? kv_begin(tile0 + i + 1, stage ^ 1) : 0.f;
 
       const int k0 = (tile0 + i) * BK;
-      if (k0 <= pos_first + 15) {  // else the tile lies after every row of this warp
+      // else the tile lies after every row of this warp, or below every row's edge
+      if (k0 <= pos_first + 15 && k0 + BK - 1 >= lo_first) {
         const __nv_bfloat16* ks = kv_s + stage * 2 * BK * LD;
         const __nv_bfloat16* vs = ks + BK * LD;
         const float* kscale = scale_s + stage * 2 * BK;
@@ -327,7 +369,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_mma_kernel(const Params p) 
         }
 
         // Base-2 logits, masked where the tile crosses a window edge.
-        const bool edge = k0 < kvstart || k0 + BK - 1 > min(pos_first, p.K - 1);
+        const bool edge = k0 < lo_last || k0 + BK - 1 > min(pos_first, p.K - 1);
         float row_max[2] = {kNegInf, kNegInf};
 #pragma unroll
         for (int nt = 0; nt < BK / 8; ++nt) {
@@ -337,7 +379,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_mma_kernel(const Params p) 
             float val = s[nt][e] * (KV8 ? kscale[col] : scale_log2);
             if (edge) {
               const int key = k0 + col;
-              const bool valid = key >= kvstart && key <= pos_row[e >> 1] && key < p.K;
+              const bool valid = key >= lo_row[e >> 1] && key <= pos_row[e >> 1] && key < p.K;
               val = valid ? val : kNegInf;
             }
             s[nt][e] = val;
@@ -506,8 +548,9 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Params p) {
 
   // Keys any row of this tile may see: [lo, hi].
   const int q_last = min(q0 + BQ, p.Tq) - 1;
-  const int lo = max(kvstart, 0);
+  const int lo = max(window_lo(p, kvstart, qstart + q0), 0);
   const int hi = min(p.K - 1, qstart + q_last);
+  count_work(p, q0, q_last - q0 + 1, qstart, kvstart);
   const KV* kg = static_cast<const KV*>(p.k) + b * p.k_sb + g * p.k_sg;
   const KV* vg = static_cast<const KV*>(p.v) + b * p.v_sb + g * p.v_sg;
 
@@ -561,7 +604,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Params p) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int key = k0 + tx + 16 * j;
-        valid[j] = (q0 + row < p.Tq) && key >= kvstart && key <= pos && key < p.K;
+        valid[j] = (q0 + row < p.Tq) && key >= window_lo(p, kvstart, pos) && key <= pos && key < p.K;
         float val = s[i][j] * p.sm_scale;
         if (KV8) val *= kscale[tx + 16 * j];
         s[i][j] = valid[j] ? val : kNegInf;
@@ -654,12 +697,13 @@ int dispatch(const Params& p, int dtype, int kv8, cudaStream_t stream) {
 // dims: B, Hq, G, Tq, K, D, then the element strides q (b, h, t), k (b, g, j),
 // v (b, g, j), out (b, h, t) and the scales (b, j, g); the last dimension of
 // q, k, v and out is contiguous. dtype: 0 = float32, 1 = bfloat16 (q, out and
-// non-KV8 k, v); kv8: k and v are int8 with per-key scales.
+// non-KV8 k, v); kv8: k and v are int8 with per-key scales; window: the
+// sliding window (0: none); work: 3 uint64 counters or null.
 extern "C" int runia_flash_prefix_attention(const void* q, const void* k, const void* v, void* out,
                                             const void* q_start, const void* kv_start,
                                             const void* k_scale, const void* v_scale,
                                             const long long* dims, float sm_scale, int dtype, int kv8,
-                                            void* stream) {
+                                            int window, void* work, void* stream) {
   runia::flash::Params p;
   p.q = q; p.k = k; p.v = v; p.out = out;
   p.q_start = static_cast<const int*>(q_start);
@@ -675,6 +719,8 @@ extern "C" int runia_flash_prefix_attention(const void* q, const void* k, const 
   p.o_sb = dims[15]; p.o_sh = dims[16]; p.o_st = dims[17];
   p.s_sb = dims[18]; p.s_sk = dims[19]; p.s_sg = dims[20];
   p.sm_scale = sm_scale;
+  p.window = window;
+  p.work = static_cast<unsigned long long*>(work);
   p.q_vec = p.kv_vec = p.o_vec = 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p.G <= 0 || p.Hq % p.G != 0) return static_cast<int>(cudaErrorInvalidValue);

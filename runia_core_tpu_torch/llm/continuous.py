@@ -66,6 +66,12 @@ active or not; a prefix copy brings the donor's whole row). That is legal
 because each row's owner rewrites it before anything attends it; the engine
 keeps every write position of the JAX engine (parked clocks) for that.
 
+**Spans** (``utils.profiling.span``, free when no recording or profiler is
+on): ``runia.engine.refill`` (an admission pass), ``runia.engine.prefill``
+(a lane program call, ``batch`` = its lanes), ``runia.engine.decode`` (a
+decode chunk's dispatch) and ``runia.engine.harvest`` (the wait for a
+chunk's harvest and the host bookkeeping after it, in the pipelined drain).
+
 **Speculative rounds** (``draft_model=``): a draft model proposes ``gamma``
 tokens per slot on its own cache, one (S, gamma + 1) target forward
 verifies them, and each slot advances by its own acceptance on the vector
@@ -104,6 +110,7 @@ import torch
 from runia_core_tpu_torch.llm.generate import sample_logits
 from runia_core_tpu_torch.models.transformer import init_cache
 from runia_core_tpu_torch.utils.graphs import CudaGraph, ProgramCache, copy_to_host, drawing_from, host_sync, upload
+from runia_core_tpu_torch.utils.profiling import span
 
 __all__ = ["ContinuousBatchingEngine", "speculative_breakeven"]
 
@@ -346,7 +353,8 @@ class ContinuousBatchingEngine:
         results = eng.generate_all(prompts)   # any number of prompts
 
     Each result dict carries ``tokens`` (generated ids, EOS-stripped),
-    ``log_probs`` (one per generated token), ``prompt_length``, and two
+    ``log_probs`` and ``entropies`` (one per generated token),
+    ``prompt_length``, and two
     sequence-level uncertainty scores computed in the decode loop:
     ``perplexity`` and ``generation_entropy`` (``llm.scores`` semantics);
     with ``collect_rauq`` also ``rauq``, with ``collect_hidden`` also
@@ -827,7 +835,8 @@ class ContinuousBatchingEngine:
         whole prompts here)."""
         t0 = time.perf_counter()
         try:
-            self._refill_inner()
+            with span("runia.engine.refill"):
+                self._refill_inner()
         finally:
             self._stats["t_prefill_s"] += time.perf_counter() - t0
 
@@ -913,8 +922,9 @@ class ContinuousBatchingEngine:
             parked = req["write_pos"] + len(take)
             args[i, C:] = (slot, req["write_pos"], len(take) - 1, not req["pending"],
                            min(len(req["prompt"]) + req["max_new"], self.max_ctx), int(req["sample"]), parked)
-        self._lane_args[W].copy_(upload(args, self.device))
-        self._lane_progs[W]()
+        with span("runia.engine.prefill", batch=W):
+            self._lane_args[W].copy_(upload(args, self.device))
+            self._lane_progs[W]()
         self._stats["prefill_chunks"] += 1
         for i, (slot, req) in enumerate(group):
             req["write_pos"] = int(args[i, C + 6])
@@ -951,6 +961,7 @@ class ContinuousBatchingEngine:
             # of their steps. nan for zero-token results.
             "perplexity": float(-lps_arr.mean()) if len(toks) else float("nan"),
             "generation_entropy": float(ents_arr.mean()) if len(toks) else float("nan"),
+            "entropies": ents_arr,  # each generated token's step: its vocab-normalised entropy
         }
         self._stats["requests_finished"] += 1
         if self.collect_hidden is not None:
@@ -1168,12 +1179,13 @@ class ContinuousBatchingEngine:
         ]
         t0 = time.perf_counter()
         harvest = self._harvest_pool.pop() if self._harvest_pool else _Harvest(self)
-        if self._gen_own is not None:
-            with drawing_from(self._gen_own, self.generator):
+        with span("runia.engine.decode"):
+            if self._gen_own is not None:
+                with drawing_from(self._gen_own, self.generator):
+                    self._chunk_prog()
+            else:
                 self._chunk_prog()
-        else:
-            self._chunk_prog()
-        harvest.start()
+            harvest.start()
         self._stats["t_dispatch_s"] += time.perf_counter() - t0
         return harvest, owners
 
@@ -1181,6 +1193,12 @@ class ContinuousBatchingEngine:
         """Read one chunk's harvest, advance the host mirrors, append the
         emissions and finish completed requests. The events are yielded at
         the end, so ``t_sched_s`` times this engine's bookkeeping only."""
+        with span("runia.engine.harvest"):
+            events = self._read_harvest(harvest, owners)
+        yield from events
+
+    def _read_harvest(self, harvest: _Harvest, owners) -> list:
+        """:meth:`_process_harvest`'s work; returns its events."""
         t1 = time.perf_counter()
         packed_np, atts, hid_np = harvest.wait(self.device)
         self._stats["t_fetch_s"] += time.perf_counter() - t1
@@ -1229,7 +1247,7 @@ class ContinuousBatchingEngine:
                 self._finish_slot(slot, hid_np)
         self._harvest_pool.append(harvest)
         self._stats["t_sched_s"] += time.perf_counter() - t_sched
-        yield from events
+        return events
 
     def _maybe_disable_spec(self) -> None:
         """The drain-boundary break-even check (``spec_min_acceptance``):
@@ -1282,6 +1300,14 @@ class ContinuousBatchingEngine:
 
     def result(self, request_id: int) -> dict:
         return self._results[request_id]
+
+    def finished(self, request_id: int) -> bool:
+        """Whether the request's result is in (and not yet popped)."""
+        return request_id in self._results
+
+    def pop_result(self, request_id: int) -> dict:
+        """The request's result, dropped from the engine's store."""
+        return self._results.pop(request_id)
 
     def clear_results(self) -> None:
         """Drop stored results (a persistent server calls this after reading
@@ -1401,6 +1427,7 @@ class ContinuousBatchingEngine:
                 "prompt_length": len(prompts[i]),
                 "perplexity": float(-lps.mean()) if len(toks) else float("nan"),
                 "generation_entropy": float(ents.mean()) if len(toks) else float("nan"),
+                "entropies": ents,
             })
             self._stats["requests_finished"] += 1
             # What the device emitted, an EOS included, as the interactive

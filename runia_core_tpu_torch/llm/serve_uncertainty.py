@@ -21,11 +21,18 @@ per call; this module serves the same scores for a batch of prompts through
 the device), without RAUQ, eigen_score, a draft model or prefix-cache reuse
 in the sampled pass. Engines carry their own weights, so there is no
 ``params`` argument; everything else is JAX's.
+
+Online serving (the port's own; JAX's server takes whole batches):
+:meth:`UncertaintyServer.submit` enqueues one prompt and
+:meth:`UncertaintyServer.stream` yields ``(id, scores)`` as each prompt's
+requests finish, the engine refilling its slots from the queue as they
+free, so a client may submit its next prompt as soon as it has its last
+scores. Each prompt's scoring runs in a ``runia.uncertainty.score`` span.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -36,6 +43,7 @@ from runia_core_tpu_torch.llm.scores import (
     perplexity,
     semantic_entropy,
 )
+from runia_core_tpu_torch.utils.profiling import span
 
 __all__ = ["UncertaintyServer", "serve_uncertainties"]
 
@@ -225,25 +233,75 @@ class UncertaintyServer:
                 if eigen_layer is not None:
                     mode["collect_hidden"] = eigen_layer
                 self.samp_engine = _make_engine(*build, False, engine_kwargs, **mode)
+        self._open: Dict[int, List[int]] = {}  # submitted prompt id -> its sampled requests' ids
+        self._completions: Dict[int, dict] = {}  # streamed prompt id -> its deterministic result, until taken
+
+    def submit(self, prompt: Sequence[int]) -> int:
+        """Enqueue one prompt: its deterministic request and, in the merged
+        mode, its samples, together (the first admission prefills, the rest
+        hit the prefix cache). Returns its id; its scores come out of
+        :meth:`stream`. The fused mode and a speculative engine with a
+        separate sampled engine serve whole batches only (:meth:`serve`)."""
+        if self.fused or self.samp_engine is not None:
+            raise NotImplementedError("submit / stream serve one engine's drain: not with fused=True or a "
+                                      "separate sampled engine; use serve")
+        eng, prompt = self.det_engine, list(prompt)
+        if not self._merged:
+            rid = eng.submit(prompt)
+            self._open[rid] = []
+            return rid
+        rid = eng.submit(prompt, sample=False)
+        self._open[rid] = [eng.submit(prompt, sample=True) for _ in range(self.num_samples)]
+        return rid
+
+    def stream(self) -> Iterator[Tuple[int, Dict[str, Any]]]:
+        """Serve what was submitted, yielding ``(id, scores)`` as each
+        prompt's requests finish, until none is left. A prompt submitted
+        while it runs (between two of its yields) joins the same drain. The
+        deterministic completion (the engine's result: ``tokens``,
+        ``log_probs``, ``entropies``, ...) waits in :meth:`completion`."""
+        for rid, _, scores in self._drain():
+            yield rid, scores
+
+    def completion(self, request_id: int) -> dict:
+        """A streamed prompt's deterministic result, handed over once."""
+        return self._completions.pop(request_id)
+
+    def _drain(self, keep: bool = True) -> Iterator[Tuple[int, Any, Dict[str, Any]]]:
+        """(id, text, scores) of each submitted prompt as it finishes; with
+        ``keep``, its deterministic result waits in :meth:`completion`."""
+        eng = self.det_engine
+        while self._open:
+            done = eng.stats()["requests_finished"]
+            for _ in eng.stream():
+                yield from self._finished(keep)
+            if eng.stats()["requests_finished"] == done:
+                raise RuntimeError(f"the engine drained with prompts {sorted(self._open)} unfinished")
+            yield from self._finished(keep)
+
+    def _finished(self, keep: bool) -> Iterator[Tuple[int, Any, Dict[str, Any]]]:
+        eng = self.det_engine
+        for rid in [r for r, samples in self._open.items()
+                    if eng.finished(r) and all(eng.finished(i) for i in samples)]:
+            samples = self._open.pop(rid)
+            with span("runia.uncertainty.score"):
+                det = eng.pop_result(rid)
+                text, scores = self._score_one(det, [eng.pop_result(i) for i in samples])
+            if keep:
+                self._completions[rid] = det
+            yield rid, text, scores
 
     def serve(self, prompts: Sequence[Sequence[int]]) -> Tuple[List[Any], List[Dict[str, Any]]]:
         """One batch: the deterministic pass, the sampled pass (if a method
         needs it), the scores. Returns ``(texts, scores)`` as
-        :func:`serve_uncertainties`."""
-        if self._merged:
-            # A prompt's deterministic request and its samples are submitted
-            # together: the first admission prefills, the rest hit the
-            # prefix cache.
-            eng = self.det_engine
-            det_ids, samp_ids = [], []
-            for p in prompts:
-                det_ids.append(eng.submit(p, sample=False))
-                samp_ids.append([eng.submit(p, sample=True) for _ in range(self.num_samples)])
-            eng.run_until_drained()
-            det = [eng.result(r) for r in det_ids]
-            samp = [[eng.result(r) for r in rs] for rs in samp_ids]
-            eng.clear_results()
-            return self._score(prompts, det, samp)
+        :func:`serve_uncertainties`. Where :meth:`submit` serves, the batch
+        is submitted whole and drained."""
+        if not self.fused and self.samp_engine is None:
+            for p in prompts:  # the whole batch is checked before anything is enqueued
+                self.det_engine._validate_request(list(p), None)
+            ids = [self.submit(p) for p in prompts]
+            done = {rid: (text, scores) for rid, text, scores in self._drain(keep=False)}
+            return [done[rid][0] for rid in ids], [done[rid][1] for rid in ids]
 
         det = self.det_engine.generate_all_fused(prompts) if self.fused else self.det_engine.generate_all(prompts)
         self.det_engine.clear_results()
@@ -264,36 +322,38 @@ class UncertaintyServer:
 
     def _score(self, prompts, det: List[dict], samp: List[List[dict]]) -> Tuple[List[Any], List[Dict[str, Any]]]:
         """One batch's engine results as (texts, score dicts)."""
+        scored = [self._score_one(det_res, samp[i]) for i, det_res in enumerate(det)]
+        return [text for text, _ in scored], [scores for _, scores in scored]
+
+    def _score_one(self, det_res: dict, samp: List[dict]) -> Tuple[Any, Dict[str, Any]]:
+        """One prompt's (text, score dict) from its deterministic result and
+        its samples' results."""
         decode = (lambda t: self.tokenizer.decode(t)) if self.tokenizer is not None else (lambda t: list(t))
-        det_texts = [decode(r["tokens"]) for r in det]
-        scores: List[Dict[str, Any]] = []
-        for i, det_res in enumerate(det):
-            out: Dict[str, Any] = {}
-            for req in self.requests:
-                name = req["method_name"]
-                if name == "perplexity":
-                    out[name] = perplexity(det_res["log_probs"])
-                elif name == "generation_entropy":
-                    out[name] = det_res["generation_entropy"]  # computed in the decode loop
-                elif name == "RAUQ":
-                    out["RAUQ_original_original"] = det_res["rauq"]
-                elif name == "normalized_entropy":
-                    lens = [len(r["log_probs"]) for r in samp[i]]
-                    lp = np.full((len(samp[i]), max(max(lens), 1)), -np.inf, np.float32)
-                    for j, r in enumerate(samp[i]):
-                        lp[j, :lens[j]] = r["log_probs"]
-                    out[name] = normalized_entropy(lp)
-                elif name == "eigen_score":
-                    embs = [r["hidden"] for r in samp[i] if r.get("hidden") is not None]
-                    out[name] = eigen_score_from_embeddings(np.stack(embs)) if len(embs) >= 2 else float("nan")
-                elif name == "semantic_entropy":
-                    texts = [decode(r["tokens"]) for r in samp[i]]
-                    ent, clusters = semantic_entropy(self.entailment_model, self.entailment_tokenizer, texts)
-                    out[name] = ent
-                    out["clusters"] = {(tuple(t) if isinstance(t, list) else t): c
-                                       for c, idxs in clusters.items() for j in idxs for t in [texts[j]]}
-            scores.append(out)
-        return det_texts, scores
+        out: Dict[str, Any] = {}
+        for req in self.requests:
+            name = req["method_name"]
+            if name == "perplexity":
+                out[name] = perplexity(det_res["log_probs"])
+            elif name == "generation_entropy":
+                out[name] = det_res["generation_entropy"]  # computed in the decode loop
+            elif name == "RAUQ":
+                out["RAUQ_original_original"] = det_res["rauq"]
+            elif name == "normalized_entropy":
+                lens = [len(r["log_probs"]) for r in samp]
+                lp = np.full((len(samp), max(max(lens), 1)), -np.inf, np.float32)
+                for j, r in enumerate(samp):
+                    lp[j, :lens[j]] = r["log_probs"]
+                out[name] = normalized_entropy(lp)
+            elif name == "eigen_score":
+                embs = [r["hidden"] for r in samp if r.get("hidden") is not None]
+                out[name] = eigen_score_from_embeddings(np.stack(embs)) if len(embs) >= 2 else float("nan")
+            elif name == "semantic_entropy":
+                texts = [decode(r["tokens"]) for r in samp]
+                ent, clusters = semantic_entropy(self.entailment_model, self.entailment_tokenizer, texts)
+                out[name] = ent
+                out["clusters"] = {(tuple(t) if isinstance(t, list) else t): c
+                                   for c, idxs in clusters.items() for j in idxs for t in [texts[j]]}
+        return decode(det_res["tokens"]), out
 
     def stats(self) -> dict:
         """Cumulative engine counters: ``{"deterministic": ...}`` (the merged

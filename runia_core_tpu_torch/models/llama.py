@@ -24,8 +24,9 @@ its CUDA kernel for a CUDA tensor and runs its plain twin for a CPU one):
   as the JAX version does off the kernel;
 * attention of a ``use_flash`` model goes through
   ``ops/flash_prefill.py`` when the call has at least 128 tokens, the plain
-  causal case (no padding mask, no custom positions, no sliding window) and
-  no attention probabilities are asked for. The kernel is built for heads of
+  causal case (no padding mask, no custom positions) and no attention
+  probabilities are asked for; a sliding layer passes its window to the
+  kernel. The kernel is built for heads of
   32, 64, 128 and 256 (the port's models); a ``use_flash`` model made on a
   GPU with another head size raises when it is built. Prefill into an empty cache and
   chunked prefill over a live one are one route: the chunk's K/V are written
@@ -34,15 +35,20 @@ its CUDA kernel for a CUDA tensor and runs its plain twin for a CPU one):
   dense path's numbers; the JAX TPU branch attends the call's unquantized
   k/v instead). Everything else, decode steps included, takes the dense
   path with the -1e30 mask and an f32 softmax;
-* a sparse-MoE block (``num_experts > 0``, Mixtral) computes what the JAX
-  ``_moe_ffn`` computes (router in the compute dtype, softmax in f32 over
-  all experts, top-k renormalised, no token dropped) as a loop over the
-  experts: each expert's SwiGLU on every token, weighted by its gate (zero
-  where the token did not pick it), summed. The shapes are static, so the
-  decode step stays capturable (a routed form gathers each expert's tokens,
-  whose counts live on the host), the work is that of JAX's dense einsum,
-  and the working memory is (tokens, hidden), not (tokens, experts,
-  hidden). Quantized expert slices follow ``QDense``'s rule.
+* layers may differ in kind (``layer_types``: "full" or "sliding", the
+  latter attending keys less than ``sliding_window`` positions back) and
+  each kind has its RoPE (``rope_parameters``: plain or YaRN); the forward
+  makes each kind's mask and cos/sin tables once a call;
+* a sparse-MoE block (``num_experts > 0``: Mixtral, Mellum) computes what
+  the JAX ``_moe_ffn`` computes (router in the compute dtype, softmax in f32
+  over all experts, top-k renormalised, no token dropped). Float SwiGLU
+  experts run routed: the (token, expert) pairs sorted by expert on the
+  device, each expert over its own tokens only, in one grouped kernel
+  (``ops/moe_grouped.py``), with nothing read back to the host, so the
+  decode step stays capturable. int8 experts keep the loop over the
+  experts, each on every token, weighted by its gate (zero where the token
+  did not pick it), as JAX's dense einsum: kernel 3 takes a fixed weight per
+  call, and a routed form would need one launch per expert.
 
 ``convert_hf_llama``, ``convert_hf_gemma`` and ``convert_hf_mixtral`` map a
 ``transformers`` checkpoint onto (LlamaLM, state_dict) without JAX.
@@ -57,7 +63,7 @@ all-reduce after o and after down, the gathered logits and attentions).
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
@@ -66,6 +72,7 @@ from runia_core_tpu_torch import default_device
 from runia_core_tpu_torch.models.layers import Dense, hf_kernel, hf_vector, param
 from runia_core_tpu_torch.ops.flash_prefill import _HEAD_DIMS as _FLASH_HEAD_DIMS
 from runia_core_tpu_torch.ops.flash_prefill import flash_prefix_attention
+from runia_core_tpu_torch.ops.moe_grouped import routed_experts
 from runia_core_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_supported
 
 __all__ = [
@@ -124,13 +131,62 @@ def _int8_matmul(x: torch.Tensor, kernel_q: torch.Tensor, scale: torch.Tensor) -
     return x @ (kernel_q.to(x.dtype) * scale.to(x.dtype)[None, :])
 
 
-def _rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
-    """cos/sin tables (B, T, head_dim) in f32 for the rotate-half convention."""
+def _rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float, yarn: Optional[Mapping] = None):
+    """cos/sin tables (B, T, head_dim) in f32 for the rotate-half convention.
+
+    ``yarn`` (a ``rope_parameters`` entry of ``rope_type`` "yarn") rescales
+    the inverse frequencies and the tables as Hugging Face's
+    ``_compute_yarn_parameters`` does: between the correction dimensions of
+    ``beta_fast`` and ``beta_slow`` rotations over
+    ``original_max_position_embeddings`` positions (floor and ceil unless
+    ``truncate`` is False) a linear ramp blends the extrapolated
+    frequencies (below) into the interpolated ones (1 / ``factor`` of them,
+    above), and cos and sin are multiplied by ``attention_factor`` (by
+    default 0.1 ln(factor) + 1)."""
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
-    inv_freq = 1.0 / (theta ** exponent)
+    pos_freqs = theta ** exponent
+    inv_freq = 1.0 / pos_freqs
+    scale = 1.0
+    if yarn is not None:
+        inv_freq, scale = _yarn_inv_freq(pos_freqs, head_dim, theta, yarn)
     angles = positions[..., None].to(torch.float32) * inv_freq
     emb = torch.cat([angles, angles], dim=-1)
-    return torch.cos(emb), torch.sin(emb)
+    if scale == 1.0:
+        return torch.cos(emb), torch.sin(emb)
+    return torch.cos(emb) * scale, torch.sin(emb) * scale
+
+
+def yarn_attention_factor(yarn: Mapping) -> float:
+    """YaRN's scale on the cos/sin tables: ``attention_factor`` where given,
+    else 0.1 ln(factor) + 1 (1 for a factor of at most 1)."""
+    if yarn.get("attention_factor") is not None:
+        return float(yarn["attention_factor"])
+    if yarn.get("mscale") and yarn.get("mscale_all_dim"):
+        raise NotImplementedError("YaRN with mscale / mscale_all_dim")
+    factor = float(yarn["factor"])
+    return 0.1 * math.log(factor) + 1.0 if factor > 1.0 else 1.0
+
+
+def _yarn_inv_freq(pos_freqs: torch.Tensor, head_dim: int, theta: float, yarn: Mapping):
+    """(YaRN's inverse frequencies, its attention factor) from the plain
+    wavelengths' ``pos_freqs`` = theta^(2i / head_dim)."""
+    factor = float(yarn["factor"])
+    original = float(yarn["original_max_position_embeddings"])
+    beta_fast, beta_slow = float(yarn.get("beta_fast") or 32.0), float(yarn.get("beta_slow") or 1.0)
+
+    def correction_dim(rotations: float) -> float:
+        return head_dim * math.log(original / (rotations * 2 * math.pi)) / (2 * math.log(theta))
+
+    low, high = correction_dim(beta_fast), correction_dim(beta_slow)
+    if yarn.get("truncate", True):
+        low, high = math.floor(low), math.ceil(high)
+    low, high = max(low, 0), min(high, head_dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(head_dim // 2, dtype=torch.float32, device=pos_freqs.device) - low) / (high - low)).clamp(0, 1)
+    extrapolated = 1.0 - ramp  # the share of each frequency left as it is
+    inv_freq = (1.0 / (factor * pos_freqs)) * (1.0 - extrapolated) + (1.0 / pos_freqs) * extrapolated
+    return inv_freq, yarn_attention_factor(yarn)
 
 
 def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -205,7 +261,9 @@ class _LlamaBlock(nn.Module):
             self.up = dense(d, hidden, self.dtype)
             self.down = dense(hidden, d, self.dtype)
 
-    def forward(self, x, mask, cos, sin, cache=None, cache_index=None, flash_ok=False, need_attn=True):
+    def forward(self, x, mask, cos, sin, cache=None, cache_index=None, flash_ok=False, need_attn=True, window=None):
+        """``mask`` already holds the layer's window; the flash route takes
+        ``window`` (keys less than ``window`` positions back) itself."""
         b, t, _ = x.shape
         hd, nh, ng = self.head_dim, self.num_heads, self.num_kv_heads
         h = self.input_norm(x.to(torch.float32)).to(self.dtype)
@@ -249,7 +307,7 @@ class _LlamaBlock(nn.Module):
                 start = torch.full((b,), int(cache_index), dtype=torch.int32, device=x.device)
             ctx = flash_prefix_attention(
                 q.transpose(1, 2), k_src.transpose(1, 2), v_src.transpose(1, 2), start, None,
-                *(kv_scales or (None, None)), sm_scale=1.0 / math.sqrt(hd),
+                *(kv_scales or (None, None)), sm_scale=1.0 / math.sqrt(hd), window=int(window or 0),
             )
             out = ctx.transpose(1, 2).reshape(b, t, nh * hd)
         else:
@@ -286,31 +344,41 @@ class _LlamaBlock(nn.Module):
     def _moe_ffn(self, h: torch.Tensor) -> torch.Tensor:
         """Mixtral's sparse-MoE SwiGLU (``MixtralSparseMoeBlock``): the
         router softmax in f32 over all experts, the top-k weights
-        renormalised and cast to the compute dtype, every token through
-        every expert with the gates of the experts it did not pick zero
-        (the JAX einsum's arithmetic, expert by expert). The gated expert
-        outputs are summed in f32."""
+        renormalised (:func:`_route`) and cast to the compute dtype. Float
+        SwiGLU experts run routed (``ops/moe_grouped.py``: each expert over
+        its own tokens only, one grouped kernel on the card, its plain twin
+        on the CPU), bf16 on the card and any float type on the CPU; the
+        gated expert outputs are summed in f32. int8 experts, f32 experts on
+        the card (the kernel is bf16) and GeGLU experts keep the loop over
+        every expert on every token with the gates of the experts a token
+        did not pick zero (the JAX einsum's arithmetic, expert by expert)."""
         b, t, d = h.shape
         flat = h.reshape(b * t, d)
-        probs = torch.softmax(self.router(flat).to(torch.float32), dim=-1)
-        top_v, top_i = torch.topk(probs, self.top_k, dim=-1)
-        top_v = top_v / top_v.sum(dim=-1, keepdim=True)
-        gates = torch.zeros_like(probs).scatter_(1, top_i, top_v).to(self.dtype)
+        top_v, top_i = _route(self.router(flat).to(torch.float32), self.top_k)
+        gates = top_v.to(self.dtype)
+        if not self.quantized and self.mlp_act == "silu" and (flat.device.type == "cpu" or self.dtype == torch.bfloat16):
+            out = routed_experts(flat, top_i, gates.to(torch.float32), self.w_gate, self.w_up, self.w_down)
+            return self._reduce(out).to(self.dtype).reshape(b, t, d)
+        dense = torch.zeros((b * t, self.num_experts), dtype=self.dtype, device=h.device).scatter_(1, top_i, gates)
         out = torch.zeros((b * t, d), dtype=torch.float32, device=h.device)
         for e in range(self.num_experts):
             y = self._expert("w_down", e, self._act(self._expert("w_gate", e, flat)) * self._expert("w_up", e, flat))
-            out += y.to(torch.float32) * gates[:, e, None].to(torch.float32)
+            out += y.to(torch.float32) * dense[:, e, None].to(torch.float32)
         return self._reduce(out).to(self.dtype).reshape(b, t, d)
 
     def _dense_attention(self, q, k_src, v_src, kv_scales, mask):
         """Masked softmax attention of q (B, t, H, d) over k/v (B, K, G, d);
-        returns the (B, t, H*d) context and the (B, H, t, K) f32 probabilities."""
+        returns the (B, t, H*d) context and the (B, H, t, K) f32 probabilities.
+        Each KV group's products are one batched product over the cache as
+        it lies, a strided (B, K, d) view: broadcasting the group over its
+        query heads would copy the cache once per head."""
         b, t, nh, hd = q.shape
         ng, kk = self.num_kv_heads, k_src.shape[1]
         rep = nh // ng
-        qg = q.reshape(b, t, ng, rep, hd).permute(0, 2, 3, 1, 4)  # (B, G, rep, t, d)
-        k_all = k_src.to(self.dtype).permute(0, 2, 3, 1)[:, :, None]  # (B, G, 1, d, K)
-        logits = (qg @ k_all) / math.sqrt(hd)
+        qg = q.permute(0, 2, 1, 3).reshape(b, ng, rep * t, hd)  # heads g*rep .. g*rep + rep - 1 of group g
+        k_all, v_all = k_src.to(self.dtype), v_src.to(self.dtype)
+        logits = torch.stack([torch.bmm(qg[:, g], k_all[:, :, g].transpose(1, 2)) for g in range(ng)], dim=1)
+        logits = logits.reshape(b, ng, rep, t, kk) / math.sqrt(hd)
         if kv_scales is not None:
             logits = logits * kv_scales[0].permute(0, 2, 1)[:, :, None, None, :]
         logits = logits.reshape(b, nh, t, kk).to(torch.float32)
@@ -319,9 +387,19 @@ class _LlamaBlock(nn.Module):
         ag = attn.reshape(b, ng, rep, t, kk)
         if kv_scales is not None:
             ag = ag * kv_scales[1].permute(0, 2, 1)[:, :, None, None, :]
-        v_all = v_src.to(self.dtype).permute(0, 2, 1, 3)[:, :, None]  # (B, G, 1, K, d)
-        out = (ag.to(self.dtype) @ v_all).permute(0, 3, 1, 2, 4).reshape(b, t, nh * hd)
+        ag = ag.to(self.dtype).reshape(b, ng, rep * t, kk)
+        out = torch.stack([torch.bmm(ag[:, g], v_all[:, :, g]) for g in range(ng)], dim=1)  # (B, G, rep*t, d)
+        out = out.reshape(b, ng, rep, t, hd).permute(0, 3, 1, 2, 4).reshape(b, t, nh * hd)
         return out, attn
+
+
+def _route(logits: torch.Tensor, k: int):
+    """(weights, experts) of each token's top ``k`` of the f32 router
+    ``logits``: softmax over every expert, the k largest renormalised to
+    sum to 1 (``norm_topk_prob``)."""
+    probs = torch.softmax(logits, dim=-1)
+    top_v, top_i = torch.topk(probs, k, dim=-1)
+    return top_v / top_v.sum(dim=-1, keepdim=True), top_i
 
 
 class LlamaLM(nn.Module):
@@ -355,6 +433,8 @@ class LlamaLM(nn.Module):
         mlp_act: str = "silu",
         num_experts: int = 0,
         num_experts_per_tok: int = 2,
+        layer_types: Optional[Sequence[str]] = None,
+        rope_parameters: Optional[Mapping[str, Mapping]] = None,
         device=None,
     ):
         super().__init__()
@@ -371,6 +451,23 @@ class LlamaLM(nn.Module):
         self.attn_bias, self.sliding_window = attn_bias, sliding_window
         self.embed_scale, self.mlp_act = embed_scale, mlp_act
         self.num_experts, self.num_experts_per_tok = num_experts, num_experts_per_tok
+        # Each layer's attention: "sliding" (keys less than sliding_window
+        # positions back) or "full"; None is one kind for every layer, as
+        # sliding_window says. Each kind has its RoPE (rope_theta, and for
+        # YaRN rope_type "yarn" with its factor, original positions, betas
+        # and attention factor); a kind not given takes plain rope_theta.
+        self.layer_types = list(layer_types) if layer_types is not None else (
+            ["sliding" if sliding_window is not None else "full"] * num_layers)
+        if len(self.layer_types) != num_layers or not set(self.layer_types) <= {"full", "sliding"}:
+            raise ValueError(f"layer_types must name 'full' or 'sliding' for each of {num_layers} layers, "
+                             f"got {self.layer_types}")
+        if "sliding" in self.layer_types and sliding_window is None:
+            raise ValueError("sliding layers need sliding_window")
+        self.rope_parameters = {kind: {"rope_theta": rope_theta} for kind in ("full", "sliding")}
+        for kind, spec in (rope_parameters or {}).items():
+            if kind not in self.rope_parameters or spec.get("rope_type", "default") not in ("default", "yarn"):
+                raise NotImplementedError(f"rope_parameters[{kind!r}] = {spec!r}")
+            self.rope_parameters[kind] = dict(spec)
         self.tp = None  # set by parallel.llama_tp.shard_llama_params
         device = default_device() if device is None else torch.device(device)
         if use_flash and device.type == "cuda" and self.head_dim not in _FLASH_HEAD_DIMS:
@@ -437,7 +534,7 @@ class LlamaLM(nn.Module):
         """
         b, t = tokens.shape
         dev = tokens.device
-        flash_ok = token_valid is None and positions is None and self.sliding_window is None
+        flash_ok = token_valid is None and positions is None
         per_row = isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1
         arange_t = torch.arange(t, device=dev)
         if cache is None:
@@ -463,14 +560,20 @@ class LlamaLM(nn.Module):
                 positions = q_phys.expand(b, t)
             if token_valid is not None:
                 mask = mask & token_valid[:, None, None, :]
-        if self.sliding_window is not None:
-            if cache is None:
-                delta = positions[:, None, :, None] - positions[:, None, None, :]
-            else:
-                delta = q_phys[:, None, :, None] - torch.arange(kv_len, device=dev)[None, None, None, :]
-            mask = mask & (delta < int(self.sliding_window))
+        # Each kind of layer's mask and RoPE tables, made once a call.
+        masks, tables = {}, {}
+        for kind in dict.fromkeys(self.layer_types):
+            masks[kind] = mask
+            if kind == "sliding":
+                if cache is None:
+                    delta = positions[:, None, :, None] - positions[:, None, None, :]
+                else:
+                    delta = q_phys[:, None, :, None] - torch.arange(kv_len, device=dev)[None, None, None, :]
+                masks[kind] = mask & (delta < int(self.sliding_window))
+            spec = self.rope_parameters[kind]
+            yarn = spec if spec.get("rope_type") == "yarn" else None
+            tables[kind] = _rope_cos_sin(positions, self.head_dim, float(spec["rope_theta"]), yarn)
 
-        cos, sin = _rope_cos_sin(positions, self.head_dim, self.rope_theta)
         if self.tp is None:
             x = self.embed.embedding[tokens].to(self.dtype)
         else:
@@ -479,9 +582,10 @@ class LlamaLM(nn.Module):
             x = x * self.embed_multiplier
         hiddens = [x] if need_hiddens else None
         attns = [] if need_attentions else None
-        for i, block in enumerate(self.blocks()):
+        for i, (block, kind) in enumerate(zip(self.blocks(), self.layer_types)):
             layer_cache = cache["layers"][i] if cache is not None else None
-            x, attn = block(x, mask, cos, sin, layer_cache, cache_index, flash_ok, need_attentions)
+            window = self.sliding_window if kind == "sliding" else None
+            x, attn = block(x, masks[kind], *tables[kind], layer_cache, cache_index, flash_ok, need_attentions, window)
             if need_hiddens:
                 hiddens.append(x)
             if need_attentions:
@@ -590,42 +694,61 @@ def _finish(model: LlamaLM, state: Dict[str, torch.Tensor], quantize: bool):
     return model.eval(), state
 
 
+def _hf_rope(cfg, default_theta: float) -> Optional[Dict[str, Dict]]:
+    """The config's RoPE as ``rope_parameters`` for every kind of layer:
+    None for plain ``rope_theta``, YaRN taken; any other scaling raises, as
+    the JAX converter does."""
+    scaling = getattr(cfg, "rope_scaling", None)
+    rope_type = None if scaling in (None, {}) else scaling.get("rope_type", scaling.get("type"))
+    if rope_type in (None, "default"):
+        return None
+    if rope_type != "yarn":
+        raise NotImplementedError(f"rope_scaling {scaling!r} not supported")
+    spec = {key: scaling[key] for key in ("factor", "original_max_position_embeddings", "beta_fast", "beta_slow",
+                                          "attention_factor", "mscale", "mscale_all_dim", "truncate")
+            if scaling.get(key) is not None}
+    spec.setdefault("original_max_position_embeddings", cfg.max_position_embeddings)
+    spec.update(rope_type="yarn", rope_theta=float(getattr(cfg, "rope_theta", default_theta)))
+    yarn_attention_factor(spec)  # raises on the mscale form
+    return {"full": spec, "sliding": spec}
+
+
+def _hf_windows(cfg):
+    """(sliding_window, layer_types) of a Llama-layout config: Qwen2's
+    ``layer_types`` (its ``max_window_layers`` split: layers from that index
+    on slide) where ``use_sliding_window`` is on, Mistral's window on every
+    layer, else none."""
+    sw = getattr(cfg, "sliding_window", None)
+    if not sw:
+        return None, None
+    if hasattr(cfg, "use_sliding_window"):  # Qwen2's switch
+        if not cfg.use_sliding_window:
+            return None, None
+        kinds = getattr(cfg, "layer_types", None) or [
+            "sliding_attention" if i >= (getattr(cfg, "max_window_layers", 0) or 0) else "full_attention"
+            for i in range(cfg.num_hidden_layers)]
+        types = ["sliding" if kind == "sliding_attention" else "full" for kind in kinds]
+        return (int(sw), types) if "sliding" in types else (None, None)
+    return int(sw), None  # Mistral: the window is always on
+
+
 def convert_hf_llama(hf_model, max_len: Optional[int] = None, dtype: torch.dtype = torch.float32,
                      use_flash: bool = False, quantize: bool = False, quantize_kv: bool = False, device=None):
     """A ``transformers`` Llama-family causal LM (``LlamaForCausalLM``, and
     the Mistral and Qwen2 layouts) -> (LlamaLM, state_dict), the model
     holding the state.
 
-    The JAX ``convert_hf_llama``'s mapping and refusals: rope scaling other
-    than plain ``rope_theta`` raises; a sliding window is taken when it is
-    uniform (Mistral: always; Qwen2: when ``use_sliding_window`` and no
-    ``max_window_layers`` split the stack, which raises) and refuses
-    ``use_flash``; q/k/v biases (Qwen2) are found in the checkpoint.
+    The JAX ``convert_hf_llama``'s mapping, and more than it takes: YaRN
+    rope scaling (any other scaling raises, as there); a sliding window on
+    every layer (Mistral) or on those Qwen2's ``layer_types`` name (its
+    ``max_window_layers`` split), with ``use_flash`` too (the flash kernel
+    takes the window); q/k/v biases (Qwen2) are found in the checkpoint.
     Kernels and the embedding are stored in ``dtype``, norm scales and
     biases in f32; ``quantize`` makes the int8 form of
     :func:`quantize_llama_params`. ``device`` None is the GPU."""
     cfg = hf_model.config
-    scaling = getattr(cfg, "rope_scaling", None)
-    if scaling not in (None, {}) and scaling.get("rope_type", scaling.get("type")) not in (None, "default"):
-        raise NotImplementedError(f"rope_scaling {scaling!r} not supported")
-    window = None
-    sw = getattr(cfg, "sliding_window", None)
-    if sw:
-        if hasattr(cfg, "use_sliding_window"):  # Qwen2's switch
-            if cfg.use_sliding_window:
-                mwl = getattr(cfg, "max_window_layers", 0) or 0
-                if 0 < mwl < cfg.num_hidden_layers:
-                    raise NotImplementedError(
-                        f"mixed per-layer sliding windows (max_window_layers={mwl} of {cfg.num_hidden_layers})"
-                    )
-                if mwl < cfg.num_hidden_layers:
-                    window = int(sw)
-        else:  # Mistral: the window is always on
-            window = int(sw)
-    if window is not None and use_flash:
-        raise NotImplementedError(
-            "use_flash with sliding-window attention (the flash kernel is plain-causal); convert with use_flash=False"
-        )
+    rope = _hf_rope(cfg, 10000.0)
+    window, layer_types = _hf_windows(cfg)
     hf = hf_model.model
     attn_bias = hf.layers[0].self_attn.q_proj.bias is not None
     model = LlamaLM(
@@ -634,7 +757,8 @@ def convert_hf_llama(hf_model, max_len: Optional[int] = None, dtype: torch.dtype
         max_len=max_len or cfg.max_position_embeddings, head_dim=_head_dim(cfg),
         rope_theta=float(getattr(cfg, "rope_theta", 10000.0)), rms_eps=float(cfg.rms_norm_eps),
         tie_embeddings=bool(cfg.tie_word_embeddings), dtype=dtype, use_flash=use_flash, quantized=quantize,
-        quantized_kv=quantize_kv, attn_bias=attn_bias, sliding_window=window, device=device,
+        quantized_kv=quantize_kv, attn_bias=attn_bias, sliding_window=window, layer_types=layer_types,
+        rope_parameters=rope, device=device,
     )
     dev = model.embed.embedding.device
     state = {"embed.embedding": hf_vector(hf.embed_tokens.weight, dev, dtype),
@@ -718,16 +842,12 @@ def convert_hf_mixtral(hf_model, max_len: Optional[int] = None, dtype: torch.dty
     into (E, d, h) / (E, d, h) / (E, h, d) ``w_gate`` / ``w_up`` /
     ``w_down``. ``quantize`` stores the attention projections, lm_head and
     the expert stacks int8 (one scale per expert and out-channel); the
-    router stays in ``dtype``. A non-SiLU activation raises, and so does
-    ``use_flash`` with a sliding window."""
+    router stays in ``dtype``. A non-SiLU activation raises; a sliding
+    window is taken with ``use_flash`` too."""
     cfg = hf_model.config
     if getattr(cfg, "hidden_act", "silu") != "silu":
         raise NotImplementedError(f"Mixtral hidden_act {cfg.hidden_act!r}")
     window = int(cfg.sliding_window) if getattr(cfg, "sliding_window", None) else None
-    if window is not None and use_flash:
-        raise NotImplementedError(
-            "use_flash with sliding-window attention (the flash kernel is plain-causal); convert with use_flash=False"
-        )
     model = LlamaLM(
         vocab_size=cfg.vocab_size, num_layers=cfg.num_hidden_layers, num_heads=cfg.num_attention_heads,
         num_kv_heads=cfg.num_key_value_heads, d_model=cfg.hidden_size, hidden_dim=cfg.intermediate_size,

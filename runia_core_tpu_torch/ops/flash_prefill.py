@@ -3,7 +3,10 @@
 
 Counterpart of ``runia_core_tpu/ops/flash_prefill.py``. Query i of batch row
 b sits at position ``q_start[b] + i`` and attends the cache keys
-``kv_start[b] <= j <= q_start[b] + i``; GQA maps query head h to kv group
+``kv_start[b] <= j <= q_start[b] + i``, and with a sliding ``window`` only
+those less than ``window`` positions back, ``j > q_start[b] + i - window``
+(the JAX function has no window; its model takes the dense path there);
+GQA maps query head h to kv group
 ``h // (Hq // G)``; a KV8 cache passes int8 k/v with per-key scales, applied
 on the logits (k) and on the probabilities (v); a row with an empty window
 comes back as zeros. With ``q_start = 0`` over the call's own keys it is the
@@ -50,10 +53,12 @@ def reference_prefix_attention(
     sm_scale: Optional[float] = None,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    window: int = 0,
 ) -> torch.Tensor:
     """The kernel's plain version: dense masked attention in f32.
 
-    Mask ``kv_start[b] <= j <= q_start[b] + i``; softmax in f32; masked
+    Mask ``kv_start[b] <= j <= q_start[b] + i`` and, with a ``window``,
+    ``j > q_start[b] + i - window``; softmax in f32; masked
     probabilities zeroed, so an empty window gives zeros. Keys outside every
     row's window are zeroed first, so garbage in the cache past the written
     prefix never reaches a product (as in the kernel).
@@ -68,6 +73,8 @@ def reference_prefix_attention(
     keys = torch.arange(kk, device=q.device)
     rows = q_start.to(torch.int64)[:, None, None] + torch.arange(tq, device=q.device)[None, :, None]
     mask = (keys[None, None, :] <= rows) & (keys[None, None, :] >= kv_start.to(torch.int64)[:, None, None])
+    if window:
+        mask = mask & (keys[None, None, :] > rows - window)
     live = mask.any(dim=1)  # (B, K): keys some row attends
     k = torch.where(live[:, None, :, None], k.to(torch.float32), 0.0)
     v = torch.where(live[:, None, :, None], v.to(torch.float32), 0.0)
@@ -96,6 +103,7 @@ def flash_prefix_attention(
     v_scale: Optional[torch.Tensor] = None,
     *,
     sm_scale: Optional[float] = None,
+    window: int = 0,
 ) -> torch.Tensor:
     """Flash attention over a cache prefix with per-row windows.
 
@@ -106,10 +114,17 @@ def flash_prefix_attention(
         q_start: (B,) int32 position of each row's first query.
         kv_start: (B,) int32 first attendable key per row (None = zeros).
         sm_scale: logit scale (default 1/sqrt(D)).
+        window: a sliding window: each query attends keys less than
+            ``window`` positions before it (0: none).
 
     Returns (B, Hq, Tq, D) in q's dtype. ``flash_prefix_attention.launches``
     counts the kernel's launches, ``flash_prefix_attention.kv8_launches``
-    those of its KV8 variant among them.
+    those of its KV8 variant and ``.window_launches`` those with a window
+    among them. ``flash_prefix_attention.work`` holds, per device, an int64
+    tensor of the (query, key) pairs one head attends, the keys any query
+    of a row attends and the queries, summed over every launch by the kernel
+    itself (so a replayed graph counts too): a reader takes its rise over a
+    stretch.
     """
     if (k_scale is None) != (v_scale is None):
         raise ValueError("pass both k_scale and v_scale or neither")
@@ -119,8 +134,10 @@ def flash_prefix_attention(
         raise ValueError(f"Hq={hq} not a multiple of G={g}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
+    if window < 0:
+        raise ValueError(f"window must be positive or 0 (none), got {window}")
     if not q.is_cuda:
-        return reference_prefix_attention(q, k, v, q_start, kv_start, sm_scale, k_scale, v_scale)
+        return reference_prefix_attention(q, k, v, q_start, kv_start, sm_scale, k_scale, v_scale, window)
 
     kv8 = k_scale is not None
     if kv_start is None:
@@ -154,15 +171,26 @@ def flash_prefix_attention(
         code = lib.runia_flash_prefix_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), q_start.data_ptr(),
             kv_start.data_ptr(), k_scale.data_ptr() if kv8 else None, v_scale.data_ptr() if kv8 else None,
-            ctypes.addressof(dims), float(sm_scale), _DTYPE_CODES[q.dtype], int(kv8),
-            torch.cuda.current_stream().cuda_stream,
+            ctypes.addressof(dims), float(sm_scale), _DTYPE_CODES[q.dtype], int(kv8), int(window),
+            _work(q.device).data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     _kernels.check(code, "flash_prefix_attention")
     count_launch(flash_prefix_attention)
     if kv8:
         count_launch(flash_prefix_attention, "kv8_launches")
+    if window:
+        count_launch(flash_prefix_attention, "window_launches")
     return out
+
+
+def _work(device: torch.device) -> torch.Tensor:
+    work = flash_prefix_attention.work.get(device)
+    if work is None:
+        work = flash_prefix_attention.work[device] = torch.zeros((3,), dtype=torch.int64, device=device)
+    return work
 
 
 flash_prefix_attention.launches = 0
 flash_prefix_attention.kv8_launches = 0
+flash_prefix_attention.window_launches = 0
+flash_prefix_attention.work = {}

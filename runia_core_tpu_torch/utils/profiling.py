@@ -19,8 +19,8 @@ a ``user_annotation`` in the trace, on the kernels' clock. Inside
 :func:`recording`, each span that ends appends a :class:`SpanRecord`
 (``time.perf_counter_ns`` clock, its parent and the id of its root, shared
 by every span of one call) to every open :class:`Recording`, which also
-counts the graph captures and the entropy kernels' and conv-norm
-epilogue's launches over its life.
+counts the graph captures and the entropy kernels', conv-norm
+epilogue's, grouped experts' and kernel 4's launches over its life.
 
 The JAX package's ``enable_compilation_cache`` has no counterpart: it sets
 XLA's persistent compilation cache, and the port compiles no programs
@@ -148,16 +148,22 @@ class SpanRecord(NamedTuple):
 
 
 def _read_counters() -> Dict[str, int]:
-    """The launches the entropy kernels' and the conv-norm epilogue's
-    wrappers count and the captures ``CudaGraph`` counts, as they stand
-    (imported here: those modules import this one)."""
+    """The launches the entropy kernels', the conv-norm epilogue's, the
+    grouped experts' and kernel 4's wrappers count and the captures
+    ``CudaGraph`` counts, as they stand (imported here: those modules
+    import this one)."""
     from runia_core_tpu_torch.ops.conv_epilogue import conv_epilogue
     from runia_core_tpu_torch.ops.entropy_cuda import marginal_entropy_cuda
+    from runia_core_tpu_torch.ops.flash_prefill import flash_prefix_attention
     from runia_core_tpu_torch.ops.mc_entropy_cuda import fused_mc_entropy
+    from runia_core_tpu_torch.ops.moe_grouped import moe_grouped
     from runia_core_tpu_torch.utils.graphs import CudaGraph
 
     return {"CudaGraph.captures": CudaGraph.captures, "marginal_entropy_cuda.launches": marginal_entropy_cuda.launches,
-            "fused_mc_entropy.launches": fused_mc_entropy.launches, "conv_epilogue.launches": conv_epilogue.launches}
+            "fused_mc_entropy.launches": fused_mc_entropy.launches, "conv_epilogue.launches": conv_epilogue.launches,
+            "moe_grouped.launches": moe_grouped.launches,
+            "flash_prefix_attention.launches": flash_prefix_attention.launches,
+            "flash_prefix_attention.window_launches": flash_prefix_attention.window_launches}
 
 
 class Recording:
@@ -267,8 +273,9 @@ def recording() -> Iterator[Recording]:
     """Keep the spans that end inside the block, on every thread, in a
     :class:`Recording`; its ``counters`` are the rises of
     ``CudaGraph.captures``, ``marginal_entropy_cuda.launches``,
-    ``fused_mc_entropy.launches`` and ``conv_epilogue.launches`` over the
-    block. Recordings may nest and
+    ``fused_mc_entropy.launches``, ``conv_epilogue.launches``,
+    ``moe_grouped.launches``, ``flash_prefix_attention.launches`` and
+    ``flash_prefix_attention.window_launches`` over the block. Recordings may nest and
     overlap; each gets every span that ends while it is open."""
     rec = Recording()
     before = _read_counters()

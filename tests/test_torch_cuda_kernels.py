@@ -575,7 +575,9 @@ def test_a_recorded_second_scorer_call_replays_with_one_kernel_1_launch(gen):
         recorded = scorer(images, torch.Generator(device="cuda").manual_seed(2))
     plain = scorer(images, torch.Generator(device="cuda").manual_seed(2))
     assert second.counters == {"CudaGraph.captures": 0, "marginal_entropy_cuda.launches": 1,
-                               "fused_mc_entropy.launches": 0, "conv_epilogue.launches": 17}
+                               "fused_mc_entropy.launches": 0, "conv_epilogue.launches": 17,
+                               "moe_grouped.launches": 0, "flash_prefix_attention.launches": 0,
+                               "flash_prefix_attention.window_launches": 0}
     (call,) = [s for s in second.spans if s.name == "runia.scorer.call"]
     stages = [s for s in second.spans if s is not call]
     assert [s.name for s in stages] == ["runia.scorer.load", "runia.scorer.replay", "runia.scorer.copy_out"]

@@ -111,11 +111,19 @@ def test_bf16_storage_and_greedy_decode_match_hf():
     np.testing.assert_array_equal(np.asarray(got), want)
 
 
+# Cases the JAX converter refuses and the port now takes: the port's logits
+# against HF's, with more tokens than the window.
+TAKEN = ("mixed_windows", "llama_window_flash", "mixtral_window_flash")
+
+
 @pytest.mark.parametrize("case", [
     "rope_scaling", "mixed_windows", "llama_window_flash", "gemma2_softcapping", "gemma_activations_disagree",
     "gemma_activation", "mixtral_activation", "mixtral_window_flash",
 ])
 def test_refusals_are_the_jax_converters(case):
+    """The port refuses what the JAX converter refuses, in its words, but for
+    the ``TAKEN`` cases: a Qwen2 stack split by ``max_window_layers`` and
+    ``use_flash`` with a window, which the port converts and runs as HF does."""
     if case == "rope_scaling":
         hf, fns, kw = _hf("llama"), (convert_hf_llama, jax_convert_hf_llama), {}
         hf.config.rope_scaling = {"rope_type": "linear", "factor": 2.0}
@@ -147,6 +155,30 @@ def test_refusals_are_the_jax_converters(case):
     port_convert, jax_convert = fns
     with pytest.raises(error) as jax_raised:
         jax_convert(hf, **kw)
+    if case in TAKEN:
+        model, _ = port_convert(hf, device="cpu", **kw)
+        tokens = torch.from_numpy(np.random.RandomState(2).randint(1, 96, (2, 20)))
+        with torch.no_grad():
+            want = hf(tokens).logits.numpy()
+        np.testing.assert_allclose(model(tokens)[0].numpy(), want, rtol=1e-3, atol=1e-4)
+        if case == "mixed_windows":
+            assert model.layer_types == ["full", "sliding"] and model.sliding_window == 8
+        return
     with pytest.raises(error) as port_raised:
         port_convert(hf, device="cpu", **kw)
     assert str(port_raised.value) == str(jax_raised.value)
+
+
+def test_yarn_rope_scaling_is_taken():
+    """A Llama config with YaRN rope scaling (factor 4 over 16 original
+    positions, so the ramp between the correction dimensions is not
+    trivial): the port's logits are HF's, past the original positions."""
+    hf = _hf("llama", attn_implementation="eager")
+    hf.config.rope_scaling = {"rope_type": "yarn", "factor": 4.0, "original_max_position_embeddings": 16}
+    hf = type(hf)(hf.config).eval()
+    model, _ = convert_hf_llama(hf, device="cpu")
+    assert model.rope_parameters["full"]["rope_type"] == "yarn"
+    tokens = torch.from_numpy(np.random.RandomState(3).randint(1, 96, (2, 40)))
+    with torch.no_grad():
+        want = hf(tokens).logits.numpy()
+    np.testing.assert_allclose(model(tokens)[0].numpy(), want, rtol=1e-4, atol=2e-4)

@@ -236,10 +236,12 @@ def test_a_recording_counts_captures_and_launches_over_its_life(monkeypatch):
             marginal_entropy_cuda.launches += 3
             conv_epilogue.launches += 17
         fused_mc_entropy.launches += 1
+    llm = {"moe_grouped.launches": 0, "flash_prefix_attention.launches": 0,
+           "flash_prefix_attention.window_launches": 0}
     assert inner.counters == {"CudaGraph.captures": 0, "marginal_entropy_cuda.launches": 3,
-                              "fused_mc_entropy.launches": 0, "conv_epilogue.launches": 17}
+                              "fused_mc_entropy.launches": 0, "conv_epilogue.launches": 17, **llm}
     assert outer.counters == {"CudaGraph.captures": 1, "marginal_entropy_cuda.launches": 3,
-                              "fused_mc_entropy.launches": 1, "conv_epilogue.launches": 17}
+                              "fused_mc_entropy.launches": 1, "conv_epilogue.launches": 17, **llm}
 
 
 def test_spans_of_many_threads_all_reach_the_recording():
