@@ -473,13 +473,17 @@ MOE_DECODE_BATCH, MOE_DECODE_PROMPT, MOE_DECODE_NEW = 16, 64, 64
 MOE_XCHECK_LAYERS, MOE_XCHECK_PROMPT, MOE_XCHECK_STEPS = 1, 128, 4
 # JetBrains/Mellum2-12B-A2.5B-Instruct config.json, at the shapes of the
 # benchmark cell mellum2_a2.5b.complete8: 64 experts of 896 over 2,304, top
-# 8; 32 / 4 heads of 128, a window of 1,024 on three layers of four; a
-# decode step's 8 slots, a 512-token prefill lane, four lanes at once, their
-# q_start over the engine's 12,800-slot cache.
+# 8; 32 / 4 heads of 128, a window of 1,024 on three layers of four; four
+# 512-token prefill lanes at once, their q_start over the engine's
+# 12,800-slot cache.
 MELLUM = dict(d_model=2304, expert_width=896, num_experts=64, top_k=8, num_heads=32, num_kv_heads=4, head_dim=128,
               window=1024, lane=512, max_ctx=12800)
-MELLUM_TOKENS = {"decode_8": 8, "lane_512": 512, "lanes_2048": 2048}
 MELLUM_LANE_STARTS = [0, 512, 4096, 11776]
+# The grouped experts' cases (kernel_moe_grouped): Mellum's decode step and
+# one to four prefill lanes; Mixtral's 16-token decode step and 2,048-token
+# prefill (4 x 512; both the moe_slice phase's) at its expert widths.
+MOE_GROUPED_TOKENS = {"decode_8": 8, "lane_512": 512, "lanes_1024": 1024, "lanes_1536": 1536, "lanes_2048": 2048}
+MIXTRAL_EXPERTS = dict(d_model=4096, expert_width=14336, num_experts=8, top_k=2, tokens=[16, 2048])
 # The grouped experts against their twin, relative to the output's RMS: both
 # round the f32 hidden product to bf16 before the down projection, and a sum
 # in another order rounds a hidden value to the neighbouring bf16 now and
@@ -2150,76 +2154,91 @@ def flash_window_phase(device, gen) -> dict:
 
 
 def moe_grouped_phase(device, gen) -> dict:
-    """The grouped expert kernel at Mellum's widths (64 experts of 896 over
-    2,304, top 8, softmax renormalised) on a decode step's 8 tokens, a
-    prefill lane's 512 and four lanes' 2,048, and four lanes with one expert
-    given no token: ``routed_experts`` (the counting sort, the kernel, the
-    combine) and the kernel alone against the twin (``reference_moe_grouped``
-    over the pairs sorted by ``argsort``, combined by hand), within
-    MOE_GROUPED_REL of the output's RMS; two routed calls bit-identical; the
-    device's work counts equal to the pairs and the touched experts; the
-    kernel and its slices' sum timed by CUDA-graph replays against the
-    larger of pairs x 6 d I operations and the touched experts' bytes with
-    each pair's row in (bf16) and out (f32). Launches counted from zero over
-    the phase."""
-    from runia_core_tpu_torch.ops.moe_grouped import moe_grouped, plan, reference_moe_grouped, routed_experts
+    """The grouped experts at Mellum's widths (64 experts of 896 over 2,304,
+    top 8, softmax renormalised) on a decode step's 8 tokens, one to four
+    prefill lanes' 512-2,048, four lanes with one expert given no token, and
+    at Mixtral's (8 experts of 14,336 over 4,096, top 2) on a 16-token
+    decode step and its 2,048-token prefill: ``routed_experts`` (the
+    counting sort, the kernels, the combine) and ``moe_grouped`` alone
+    against the twin (``reference_moe_grouped`` over the pairs sorted by
+    ``argsort``, combined by hand), within MOE_GROUPED_REL of the output's
+    RMS; two routed calls bit-identical; the device's work counts equal to
+    the pairs and the touched experts, once a routed call. The kernels timed
+    by CUDA-graph replays against the larger of pairs x 6 d I operations and
+    the touched experts' bytes with each pair's row in (bf16) and out (f32).
+    Launches counted from zero over the phase."""
+    from runia_core_tpu_torch.ops import moe_grouped as mg
     from runia_core_tpu_torch.utils import cuda_graph_time_ms, cuda_time_ms
 
-    e, top, d, width = MELLUM["num_experts"], MELLUM["top_k"], MELLUM["d_model"], MELLUM["expert_width"]
-    w_gate, w_up = ((torch.randn((e, d, width), generator=gen, device=device) / d**0.5).to(torch.bfloat16)
-                    for _ in range(2))
-    w_down = (torch.randn((e, width, d), generator=gen, device=device) / width**0.5).to(torch.bfloat16)
-    cases = {**{name: (t, None) for name, t in MELLUM_TOKENS.items()}, "lanes_2048_expert_5_idle": (2048, 5)}
-    moe_grouped.launches = 0
-    errors, timing = {}, {}
-    for name, (t, idle) in cases.items():
+    moe_grouped = mg.moe_grouped
+    widths = {"mellum": (MELLUM["num_experts"], MELLUM["top_k"], MELLUM["d_model"], MELLUM["expert_width"]),
+              "mixtral": (MIXTRAL_EXPERTS["num_experts"], MIXTRAL_EXPERTS["top_k"], MIXTRAL_EXPERTS["d_model"],
+                          MIXTRAL_EXPERTS["expert_width"])}
+    weights = {}
+    for name, (e, _, d, width) in widths.items():
+        w_gate, w_up = ((torch.randn((e, d, width), generator=gen, device=device) / d**0.5).to(torch.bfloat16)
+                        for _ in range(2))
+        weights[name] = (w_gate, w_up, (torch.randn((e, width, d), generator=gen, device=device)
+                                        / width**0.5).to(torch.bfloat16))
+
+    def routed(model, t, idle=None):
+        e, top, d, _ = widths[model]
         x = torch.randn((t, d), generator=gen, device=device).to(torch.bfloat16)
         logits = torch.randn((t, e), generator=gen, device=device)
         if idle is not None:
             logits[:, idle] = float("-inf")
         top_v, top_i = torch.topk(torch.softmax(logits, -1), top, dim=-1)
-        top_w = top_v / top_v.sum(-1, keepdim=True)
-        flat = top_i.reshape(-1)
-        counts = torch.bincount(flat, minlength=e)
+        order = torch.argsort(top_i.reshape(-1), stable=True)
+        counts = torch.bincount(top_i.reshape(-1), minlength=e)
         offsets = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
-        order = torch.argsort(flat, stable=True)
-        tok = (order // top).to(torch.int32)
+        return x, top_i, top_v / top_v.sum(-1, keepdim=True), (order // top).to(torch.int32), offsets, order, counts
+
+    cases = {**{name: ("mellum", t, None) for name, t in MOE_GROUPED_TOKENS.items()},
+             "lanes_2048_expert_5_idle": ("mellum", 2048, 5),
+             **{f"mixtral_{t}": ("mixtral", t, None) for t in MIXTRAL_EXPERTS["tokens"]}}
+    moe_grouped.launches = 0
+    errors, timing = {}, {}
+    for name, (model, t, idle) in cases.items():
+        e, top, d, width = widths[model]
+        w = weights[model]
+        x, top_i, top_w, tok, offsets, order, counts = routed(model, t, idle)
         inverse = torch.empty_like(order)
         inverse[order] = torch.arange(order.numel(), device=device)
-        rows_want = reference_moe_grouped(x, tok, offsets, w_gate, w_up, w_down)
+        rows_want = mg.reference_moe_grouped(x, tok, offsets, *w)
         want = (rows_want[inverse].view(t, top, d) * top_w[:, :, None]).sum(1)
-        rows = moe_grouped(x, tok, offsets, w_gate, w_up, w_down)
+        rows = moe_grouped(x, tok, offsets, *w)
         work = moe_grouped.work.get(device)
         before = [0, 0] if work is None else work.tolist()
-        got = routed_experts(x, top_i, top_w, w_gate, w_up, w_down)
+        got = mg.routed_experts(x, top_i, top_w, *w)
         counted = [a - b for a, b in zip(moe_grouped.work[device].tolist(), before)]
-        again = routed_experts(x, top_i, top_w, w_gate, w_up, w_down)
+        again = mg.routed_experts(x, top_i, top_w, *w)
         torch.cuda.synchronize()
         touched = int((counts > 0).sum())
         require(torch.equal(got, again), f"moe_grouped {name}: two routed calls are bit-identical")
         require(counted == [t * top, touched], f"moe_grouped {name}: work counts {counted}, want {[t * top, touched]}")
         require(idle is None or int(counts[idle]) == 0, f"moe_grouped {name}: expert {idle} got no token")
-        errors[name] = {"kernel": float((rows - rows_want).abs().max()) / float(rows_want.square().mean().sqrt()),
+        rms = float(rows_want.square().mean().sqrt())
+        errors[name] = {"kernels": float((rows - rows_want).abs().max()) / rms,
                         "routed": float((got - want).abs().max()) / float(want.square().mean().sqrt())}
         require(max(errors[name].values()) <= MOE_GROUPED_REL,
                 f"moe_grouped {name}: {errors[name]} of the RMS beyond {MOE_GROUPED_REL}")
         if idle is not None:
             continue
-        ms = cuda_graph_time_ms(lambda: moe_grouped(x, tok, offsets, w_gate, w_up, w_down), 10)
-        routed_ms = cuda_graph_time_ms(lambda: routed_experts(x, top_i, top_w, w_gate, w_up, w_down), 10)
-        plain_ms = cuda_time_ms(lambda: reference_moe_grouped(x, tok, offsets, w_gate, w_up, w_down), 3, warmup=1)
         bound = roofline(6.0 * d * width * touched + 6.0 * d * t * top, 6.0 * d * width * t * top, H100_BF16_OPS_PER_S)
-        timing[name] = {"tokens": t, "pairs": t * top, "experts_touched": touched,
-                        "plan_tile_stages_slices": list(plan(t * top, e, width, d)), "ms": ms, "routed_ms": routed_ms,
-                        "plain_ms": plain_ms, **with_share(bound, ms)}
+        ms = cuda_graph_time_ms(lambda: moe_grouped(x, tok, offsets, *w), 10)
+        timing[name] = {"tokens": t, "pairs": t * top, "experts_touched": touched, "ms": ms,
+                        "routed_ms": cuda_graph_time_ms(lambda: mg.routed_experts(x, top_i, top_w, *w), 10),
+                        "plain_ms": cuda_time_ms(lambda: mg.reference_moe_grouped(x, tok, offsets, *w), 3, warmup=1),
+                        **with_share(bound, ms)}
         require(timing[name]["share_of_bound"] <= 1.0, f"moe_grouped {name}: faster than its bound: {timing[name]}")
-        del x, logits, rows, rows_want, want, got, again
+        del x, rows, rows_want, want, got, again
     launches = moe_grouped.launches
-    require(launches > 0, "moe_grouped launched")
-    emit({"phase": "kernel_moe_grouped", "config": MELLUM, "max_err_over_rms": errors, "bound": MOE_GROUPED_REL,
-          "timing": timing, "launches": launches, "deterministic": True,
-          "timed_with": "CUDA-graph replays of 10 calls (the kernel and, past one slice, the slices' sum); "
-          "routed_ms: the counting sort, the kernel and the combine; plain: the twin, events",
+    require(launches > 0, f"moe_grouped launched: {launches}")
+    emit({"phase": "kernel_moe_grouped", "config": {"mellum": MELLUM, "mixtral": MIXTRAL_EXPERTS},
+          "max_err_over_rms": errors, "bound": MOE_GROUPED_REL, "timing": timing, "launches": launches,
+          "deterministic": True,
+          "timed_with": "CUDA-graph replays of 10 calls (the two kernels); routed_ms: the counting sort, the kernels "
+          "and the combine; plain: the twin, events",
           "library": "none: no grouped product the port may call"})
     top_case = timing["lanes_2048"]
     return {"max_err_over_rms": max(max(v.values()) for v in errors.values()), "ms": top_case["ms"],

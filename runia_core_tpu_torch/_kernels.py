@@ -63,9 +63,9 @@ _SIGNATURES = {
     # (y, residual, scale, shift, scale_p, shift_p, rows, channels, bf16 map,
     #  residual mode, stream)
     "runia_conv_epilogue": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # (x, tok, offsets, w_gate, w_up, w_down, partial, work counters, pairs,
-    #  d, I, experts, splits, pairs a tile, ring stages, tiles, stream)
-    "runia_moe_grouped": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # (x, tok, offsets, w_gate, w_up, w_down, hidden rows, out, work
+    #  counters, pairs, d, I, experts, stream)
+    "runia_moe_grouped": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -346,10 +346,10 @@ class _LlamaBlock(nn.Module):
         router softmax in f32 over all experts, the top-k weights
         renormalised (:func:`_route`) and cast to the compute dtype. Float
         SwiGLU experts run routed (``ops/moe_grouped.py``: each expert over
-        its own tokens only, one grouped kernel on the card, its plain twin
+        its own tokens only, grouped kernels on the card, their plain twin
         on the CPU), bf16 on the card and any float type on the CPU; the
         gated expert outputs are summed in f32. int8 experts, f32 experts on
-        the card (the kernel is bf16) and GeGLU experts keep the loop over
+        the card (the kernels are bf16) and GeGLU experts keep the loop over
         every expert on every token with the gates of the experts a token
         did not pick zero (the JAX einsum's arithmetic, expert by expert)."""
         b, t, d = h.shape

@@ -1,6 +1,6 @@
 """Routed sparse-MoE experts: the (token, expert) pairs sorted by expert on
-the device, each expert's SwiGLU over its own rows only in one grouped
-kernel (``csrc/moe_grouped.cu``), and the gated outputs gathered back.
+the device, each expert's SwiGLU over its own rows only in grouped kernels
+(``csrc/moe_grouped.cu``), and the gated outputs gathered back.
 
 :func:`routed_experts` is what ``models/llama.py::_moe_ffn`` calls with a
 token's top-k experts and their weights. It sorts the pairs by expert with
@@ -13,22 +13,24 @@ inverse permutation and summed in f32, with no atomics.
 
 :func:`moe_grouped` computes, for every sorted pair p of expert e,
 ``silu(x[tok[p]] @ w_gate[e]) * (x[tok[p]] @ w_up[e]) @ w_down[e]`` in f32:
-the kernel for a CUDA tensor (bf16), :func:`reference_moe_grouped`, its
-plain twin, for a CPU tensor. The hidden product is rounded to x's dtype
-before the down projection in both, as the kernel feeds it to the tensor
-cores.
+two warp-specialised ``wgmma`` kernels fed by TMA for a CUDA tensor (bf16;
+gate|up with the SwiGLU into bf16 hidden rows, then the down projection
+into the f32 output rows), :func:`reference_moe_grouped`, their plain twin,
+for a CPU tensor. The hidden product is rounded to x's dtype before the down
+projection in both, as the kernels feed it to the tensor cores. One design
+serves every shape, a decode step's pair or two an expert as a prefill
+lane's hundreds: ``chip_smoke.py`` (``kernel_moe_grouped``) times it against
+the bytes bound at both.
 
-``moe_grouped.launches`` counts the kernel's launches. ``moe_grouped.work``
-holds, per CUDA device, an int64 tensor of the pairs and of the experts that
-got at least one pair, summed over every launch (the kernel adds them
-itself, so a replayed graph counts too): a reader takes its rise over a
-stretch.
+``moe_grouped.launches`` counts the calls that launched the kernels.
+``moe_grouped.work`` holds, per CUDA device, an int64 tensor of the pairs
+and of the experts that got at least one pair, summed over every call (the
+kernels add them themselves, once a call, so a replayed graph counts too):
+a reader takes its rise over a stretch.
 """
 
 from __future__ import annotations
 
-import functools
-import math
 from typing import Dict
 
 import torch
@@ -36,14 +38,9 @@ import torch
 from runia_core_tpu_torch import _kernels
 from runia_core_tpu_torch.utils.graphs import count_launch
 
-__all__ = ["moe_grouped", "plan", "reference_moe_grouped", "routed_experts"]
+__all__ = ["moe_grouped", "reference_moe_grouped", "routed_experts"]
 
-CHUNK = 64  # hidden columns a tile computes at a time
-SMEM_PER_SM = 233472  # bytes of shared memory an H100 SM holds; a block takes 1,024 more
-SMEM_PER_BLOCK = 232448
-CHUNK_S = 75e-6  # a full wave's seconds a 64-column chunk of the slice (the card, both phases)
-HBM_BYTES_S = 3.35e12
-STAGES = {64: 2, 128: 3}  # pairs a tile -> ring stages: the kernel's two instances
+WIDTH_STEP = 64  # d and I in multiples of this: the kernels' 64-column boxes
 
 
 def routed_experts(x: torch.Tensor, top_i: torch.Tensor, top_w: torch.Tensor, w_gate: torch.Tensor,
@@ -87,40 +84,6 @@ def reference_moe_grouped(x: torch.Tensor, tok: torch.Tensor, offsets: torch.Ten
     return out
 
 
-def smem_bytes(bm: int, stages: int, width: int) -> int:
-    return 2 * (stages * (bm + 2 * CHUNK) * (CHUNK + 8) + bm * (width + 8)) + 4 * bm
-
-
-def plan(pairs: int, experts: int, hidden: int, d: int, sms: int = 132):
-    """(pairs a tile, ring stages, slices of the hidden width) of a launch.
-    Tiles of 128 pairs where experts see 128 or more on average (a weight
-    tile then serves twice the rows), else 64. Among the slice counts whose
-    blocks fit, the one with the least modelled time:
-    the waves of blocks (the tiles being about one a touched expert, the
-    expected number, and one more each tile of pairs; as many blocks an SM
-    as its shared memory holds) times each block's chunks, plus the partial
-    rows (``d`` wide, f32) each slice writes and the sum reads back."""
-    bm = 128 if pairs >= 128 * experts else 64
-    chunks = hidden // CHUNK
-    tiles = experts * (1.0 - (1.0 - 1.0 / experts) ** pairs) + pairs / bm
-    stages, best = STAGES[bm], None
-    for splits in (s for s in range(1, chunks + 1) if chunks % s == 0):
-        smem = smem_bytes(bm, stages, hidden // splits)
-        if smem > SMEM_PER_BLOCK:
-            continue
-        per_sm = min(SMEM_PER_SM // (smem + 1024), 8 // (bm // 64))
-        waves = math.ceil(tiles * splits / (sms * per_sm))
-        cost = waves * (chunks // splits) * CHUNK_S + 8.0 * splits * pairs * d / HBM_BYTES_S
-        if best is None or cost < best[0]:
-            best = (cost, splits)
-    return bm, stages, best[1]
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _work(device: torch.device) -> torch.Tensor:
     work = moe_grouped.work.get(device)
     if work is None:
@@ -130,7 +93,9 @@ def _work(device: torch.device) -> torch.Tensor:
 
 def moe_grouped(x: torch.Tensor, tok: torch.Tensor, offsets: torch.Tensor, w_gate: torch.Tensor,
                 w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
-    """Every sorted pair's expert output, (P, d) f32.
+    """Every sorted pair's expert output, (P, d) f32: the twin on the CPU,
+    the kernels on the card: the hidden rows (P, I) in bf16, then the output
+    rows, each written once.
 
     Args:
         x: (T, d) contiguous tokens.
@@ -139,40 +104,44 @@ def moe_grouped(x: torch.Tensor, tok: torch.Tensor, offsets: torch.Tensor, w_gat
         w_gate, w_up: (E, d, I) contiguous; w_down: (E, I, d) contiguous,
             in x's dtype.
     """
-    p, d = tok.shape[0], x.shape[1]
-    e, hidden = w_gate.shape[0], w_gate.shape[2]
     if not x.is_cuda:
         return reference_moe_grouped(x, tok, offsets, w_gate, w_up, w_down)
+    _check(x, tok, offsets, w_gate, w_up, w_down)
+    p, d = tok.shape[0], x.shape[1]
+    e, hidden = w_gate.shape[0], w_gate.shape[2]
+    out = torch.empty((p, d), dtype=torch.float32, device=x.device)
+    if p == 0:
+        return out
+    h = torch.empty((p, hidden), dtype=torch.bfloat16, device=x.device)
+    lib = _kernels.library()
+    with _kernels.device_guard(x.device):
+        code = lib.runia_moe_grouped(
+            x.data_ptr(), tok.data_ptr(), offsets.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+            w_down.data_ptr(), h.data_ptr(), out.data_ptr(), _work(x.device).data_ptr(), p, d, hidden, e,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _kernels.check(code, "moe_grouped")
+    count_launch(moe_grouped)
+    return out
+
+
+def _check(x, tok, offsets, w_gate, w_up, w_down) -> None:
+    p, d = tok.shape[0], x.shape[1]
+    e, hidden = w_gate.shape[0], w_gate.shape[2]
     if x.dtype != torch.bfloat16 or any(w.dtype != torch.bfloat16 for w in (w_gate, w_up, w_down)):
         raise ValueError(f"moe_grouped runs bf16 experts on the card; got {x.dtype}, {w_gate.dtype}")
     if (tuple(w_gate.shape) != (e, d, hidden) or tuple(w_up.shape) != (e, d, hidden)
             or tuple(w_down.shape) != (e, hidden, d)):
         raise ValueError(f"expert stacks (E, d, I), (E, d, I), (E, I, d); got {tuple(w_gate.shape)}, "
                          f"{tuple(w_up.shape)}, {tuple(w_down.shape)}")
-    if d % CHUNK or hidden % CHUNK:
-        raise ValueError(f"moe_grouped takes widths in multiples of {CHUNK}; got d={d}, I={hidden}")
+    if d % WIDTH_STEP or hidden % WIDTH_STEP:
+        raise ValueError(f"moe_grouped takes widths in multiples of {WIDTH_STEP}; got d={d}, I={hidden}")
     for name, t in (("x", x), ("w_gate", w_gate), ("w_up", w_up), ("w_down", w_down)):
         if not t.is_contiguous() or t.device != x.device or t.data_ptr() % 16:
             raise ValueError(f"moe_grouped: {name} must be contiguous and 16-byte aligned on {x.device}")
     for name, t, n in (("tok", tok, p), ("offsets", offsets, e + 1)):
         if t.dtype != torch.int32 or t.shape != (n,) or not t.is_contiguous() or t.device != x.device:
             raise ValueError(f"moe_grouped: {name} must be a contiguous ({n},) int32 tensor on {x.device}")
-    bm, stages, splits = plan(p, e, hidden, d, _sm_count(x.device.index if x.device.index is not None else 0))
-    partial = torch.empty((splits, p, d), dtype=torch.float32, device=x.device)
-    if p == 0:
-        return partial.sum(0)
-    tiles = -(-p // bm) + e  # a static bound: each expert's last tile may be partial
-    lib = _kernels.library()
-    with _kernels.device_guard(x.device):
-        code = lib.runia_moe_grouped(
-            x.data_ptr(), tok.data_ptr(), offsets.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
-            w_down.data_ptr(), partial.data_ptr(), _work(x.device).data_ptr(), p, d, hidden, e, splits, bm, stages,
-            tiles,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _kernels.check(code, "moe_grouped")
-    count_launch(moe_grouped)
-    return partial[0] if splits == 1 else partial.sum(0)
 
 
 moe_grouped.launches = 0

@@ -203,10 +203,16 @@ def _dense_loop(x, top_i, top_w, w_gate, w_up, w_down):
     return out
 
 
-@pytest.mark.parametrize("case", ["random", "an_expert_with_no_token", "all_tokens_on_one_expert"])
-def test_the_routed_twin_matches_the_dense_loop(case):
+@pytest.mark.parametrize("case,t,k,e", [
+    *(pytest.param(case, 40, 3, 8, id=case) for case in ("random", "an_expert_with_no_token", "all_tokens_on_one_expert")),
+    # the routing shapes of the card's calls: Mellum's decode step and one to four 512-token lanes (8 of 64 experts),
+    # Mixtral's decode steps and prefill (2 of 8)
+    *(pytest.param("random", t, k, e, id=f"{t}x{k}of{e}") for t, k, e in [
+        (8, 8, 64), (15, 8, 64), (16, 8, 64), (512, 8, 64), (1024, 8, 64), (1536, 8, 64), (2048, 8, 64), (4, 2, 8),
+        (16, 2, 8), (2048, 2, 8)])])
+def test_the_routed_twin_matches_the_dense_loop(case, t, k, e):
     gen = torch.Generator().manual_seed(1)
-    t, e, k, d, width = 40, 8, 3, 32, 24
+    d, width = 32, 24
     x = torch.randn((t, d), generator=gen)
     w_gate, w_up = (torch.randn((e, d, width), generator=gen) / d**0.5 for _ in range(2))
     w_down = torch.randn((e, width, d), generator=gen) / width**0.5
@@ -295,30 +301,45 @@ def _sorted_pairs(top_i, e):
     return tok, offsets
 
 
+# (top k, experts, d, I) of each grouped-kernel case: the cell's widths, and Mixtral's (8 experts of 14,336 over
+# 4,096, top 2), whose 2,048-token prefill runs the kernels at other widths.
+MELLUM_EXPERTS = (8, 64, 2304, 896)
+MIXTRAL_EXPERTS = (2, 8, 4096, 14336)
+
+
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("tokens_,case", [(8, "random"), (512, "random"), (2048, "random"),
-                                          (2048, "an_expert_with_no_token"), (300, "all_tokens_on_one_expert"),
-                                          (1100, "all_tokens_on_one_expert")])
-def test_grouped_expert_kernel_matches_its_twin_at_the_cell_s_widths(card, tokens_, case):
-    """64 experts of 896 over d = 2304, top 8: a decode step's 8 tokens, a
-    prefill lane's 512 and four lanes' 2,048 (tiles of 64 pairs for the
-    first two, of 128 for the last), and one expert with every token in
-    tiles of both sizes. Bound: 2e-2 of the output's RMS; the kernel
-    and the twin round the same f32 hidden products to bf16, and a product
-    summed in another order rounds to a neighbouring bf16 value now and
-    then."""
-    e, k, d, width = 64, 8, 2304, 896
+@pytest.mark.parametrize("tokens_,case,widths", [
+    pytest.param(t, case, widths, id=f"{t}-{case}") for t, case, widths in [
+        (8, "random", MELLUM_EXPERTS), (512, "random", MELLUM_EXPERTS), (1024, "random", MELLUM_EXPERTS),
+        (1536, "random", MELLUM_EXPERTS), (2048, "random", MELLUM_EXPERTS),
+        (2048, "an_expert_with_no_token", MELLUM_EXPERTS), (300, "all_tokens_on_one_expert", MELLUM_EXPERTS),
+        (1100, "all_tokens_on_one_expert", MELLUM_EXPERTS), (512, "experts_of_1_63_65_127_129_rows", MELLUM_EXPERTS),
+        (2048, "mixtral", MIXTRAL_EXPERTS)]])
+def test_grouped_expert_kernel_matches_its_twin_at_the_cell_s_widths(card, tokens_, case, widths):
+    """Mellum's 64 experts of 896 over d = 2304, top 8: a decode step's 8
+    tokens, one to four prefill lanes' 512-2,048, one expert with every
+    token, experts of 1, 63, 65, 127 and 129 rows (either side of the
+    kernels' 64-row warpgroups and 128-row tiles; the other 59 experts 64
+    rows each); and a Mixtral prefill. Bound: 2e-2 of the output's RMS; the
+    kernels and the twin round the same f32 hidden products to bf16, and a
+    product summed in another order rounds to a neighbouring bf16 value now
+    and then."""
+    k, e, d, width = widths
     x = torch.randn((tokens_, d), generator=card, device="cuda").to(torch.bfloat16)
     w_gate, w_up = ((torch.randn((e, d, width), generator=card, device="cuda") / d**0.5).to(torch.bfloat16)
                     for _ in range(2))
     w_down = (torch.randn((e, width, d), generator=card, device="cuda") / width**0.5).to(torch.bfloat16)
-    logits = torch.randn((tokens_, e), generator=card, device="cuda")
-    if case == "an_expert_with_no_token":
-        logits[:, 5] = -1e9
-    elif case == "all_tokens_on_one_expert":
-        logits[:, 2] = 1e9
-    top_i = torch.topk(logits, k, dim=-1).indices
-    tok, offsets = _sorted_pairs(top_i, e)
+    if case == "experts_of_1_63_65_127_129_rows":
+        counts = torch.tensor([1, 63, 65, 127, 129] + [64] * (e - 5))
+        offsets = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32).cuda()
+        tok = torch.randint(0, tokens_, (int(counts.sum()),), generator=card, device="cuda").to(torch.int32)
+    else:
+        logits = torch.randn((tokens_, e), generator=card, device="cuda")
+        if case == "an_expert_with_no_token":
+            logits[:, 5] = -1e9
+        elif case == "all_tokens_on_one_expert":
+            logits[:, 2] = 1e9
+        tok, offsets = _sorted_pairs(torch.topk(logits, k, dim=-1).indices, e)
     before = moe_grouped.launches
     got = moe_grouped(x, tok, offsets, w_gate, w_up, w_down)
     torch.cuda.synchronize()
@@ -328,13 +349,15 @@ def test_grouped_expert_kernel_matches_its_twin_at_the_cell_s_widths(card, token
 
 
 @pytest.mark.requires_cuda
-def test_routed_experts_replay_deterministically(card):
-    """The routing, the grouped kernel and the combine captured in one CUDA
-    graph: replays give the same bits, and the work counters rise by the
-    pairs and the touched experts each replay."""
+@pytest.mark.parametrize("t", [8, 2048])
+def test_routed_experts_replay_deterministically(card, t):
+    """The routing, the grouped kernels and the combine captured in one CUDA
+    graph, at a decode step and at four lanes: replays give the same bits,
+    and the work counters rise by the pairs and the touched experts each
+    replay."""
     from runia_core_tpu_torch.utils.graphs import CudaGraph
 
-    e, k, d, width, t = 64, 8, 2304, 896, 8
+    e, k, d, width = 64, 8, 2304, 896
     x = torch.randn((t, d), generator=card, device="cuda").to(torch.bfloat16)
     w_gate, w_up = ((torch.randn((e, d, width), generator=card, device="cuda") / d**0.5).to(torch.bfloat16)
                     for _ in range(2))
@@ -354,10 +377,10 @@ def test_routed_experts_replay_deterministically(card):
     assert all(torch.equal(results[0], r) for r in results[1:])
     assert work == [[t * k, len(set(top_i.flatten().tolist()))]] * 3
     want = torch.zeros((t, d), device="cuda")
+    tok, offsets = _sorted_pairs(top_i, e)
+    rows = reference_moe_grouped(x, tok, offsets, w_gate, w_up, w_down)
+    pos = torch.argsort(torch.argsort(top_i.reshape(-1), stable=True))
     for j in range(k):  # the combine by hand, from the twin
-        tok, offsets = _sorted_pairs(top_i, e)
-        rows = reference_moe_grouped(x, tok, offsets, w_gate, w_up, w_down)
-        pos = torch.argsort(torch.argsort(top_i.reshape(-1), stable=True))
         want += rows[pos].view(t, k, d)[:, j] * top_w[:, j, None]
     assert float((results[0] - want).abs().max()) <= 2e-2 * float(want.square().mean().sqrt())
     assert math.isfinite(float(results[0].abs().max()))
